@@ -5,4 +5,5 @@
 from .check import (CheckError, CheckResult, DIAGNOSTICS,  # noqa: F401
                     Finding, check_accelerator, check_design,
                     check_graph, required_fifo_depths)
-from .toolflow import Accelerator, CompileConfig, compile  # noqa: F401
+from .toolflow import (Accelerator, CompileConfig, compile,  # noqa: F401
+                       compile_model)

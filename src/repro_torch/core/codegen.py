@@ -25,8 +25,14 @@ Backends: ``KernelBackend`` over the ``kernels/ops.py`` dispatch, under
 the names ``ref`` (plain PyTorch), ``cuda`` (the hand-written kernels)
 and ``auto`` (kernels on CUDA tensors, plain versions on CPU tensors).
 Quantized weights are dequantized before the float kernel runs —
-quantized storage, float compute. ``QuantBackend`` and the activation
-calibration wait for the quant slice of the port.
+quantized storage, float compute. ``QuantBackend`` (``quant``) is
+quantized execution (paper §IV-A, Fig. 8): every dense conv is ONE
+quantized matmul launch on the raw integer codes, selected per node from
+its ``w_bits``/``a_bits`` annotations (``ops.qconv2d`` for float
+activations, ``ops.qconv2d_a8`` for calibrated A≤8 nodes), with dequant,
+bias, activation and residual in the epilogue.
+``calibrate_activation_ranges``/``calibrate_activation_scales`` measure
+the A≤8 activation scales on a calibration batch.
 """
 from __future__ import annotations
 
@@ -34,10 +40,11 @@ import dataclasses
 import math
 from typing import Callable, Protocol, runtime_checkable
 
+import numpy as np
 import torch
 
 from .ir import Graph, Node
-from .quant import QTensor, dequantize
+from .quant import QTensor, QuantConfig, dequantize, quantize
 from ..kernels import ops
 
 # activation node ops (subset of POINTWISE_OPS that are unary funcs);
@@ -56,7 +63,9 @@ _ACT_OPS = ("hardswish", "leaky_relu", "silu", "relu", "sigmoid",
 class Backend(Protocol):
     """Per-op lowering table: how one streaming node becomes one kernel
     launch. ``x``/``res`` follow the kernels/ops.py operand contract
-    (tensor or channel-window list)."""
+    (tensor or channel-window list). ``conv``'s ``pool`` kwarg is only
+    passed when the backend's ``fuses_pool(node)`` returned True for the
+    node, so backends without pool fusion never see it."""
     name: str
 
     def conv(self, x, p: dict, node: Node, res=None): ...
@@ -71,33 +80,42 @@ class Backend(Protocol):
 @dataclasses.dataclass(frozen=True)
 class KernelBackend:
     """Lowering table over the kernels/ops.py dispatch — each method is
-    one launch on the ops backend named ``name``."""
+    one launch on the ``dispatch`` path (``ref`` plain versions, ``cuda``
+    kernels, ``auto``)."""
     name: str
+    dispatch: str | None = None     # ops.py dispatch string; default: name
+
+    @property
+    def _be(self) -> str:
+        return self.dispatch or self.name
 
     def fuses_pool(self, node: Node) -> bool:
-        """The float backends keep the two-launch conv/pool lowering."""
+        """Whether this backend runs ``node``'s annotated ``fuse_pool``
+        maxpool as the conv's epilogue. The float kernel backends keep
+        the two-launch lowering: the pool stays its own streaming
+        block."""
         return False
 
-    def conv(self, x, p, node, res=None):
+    def conv(self, x, p, node, res=None, pool=None):
         w, b = p["w"], p["b"]
         if isinstance(w, QTensor):
             w = dequantize(w)       # quantized storage, float compute
         return ops.conv2d(x, w, b, stride=node.geom("stride"),
                           act=node.attrs.get("act", "identity"), res=res,
-                          backend=self.name)
+                          pool=pool, backend=self._be)
 
     def maxpool(self, x, node):
         return ops.maxpool2d(x, k=node.geom("K"),
                              stride=node.geom("stride"),
                              act=node.attrs.get("act", "identity"),
-                             backend=self.name)
+                             backend=self._be)
 
     def pointwise(self, x, op):
-        return ops.pointwise(x, op, backend=self.name)
+        return ops.pointwise(x, op, backend=self._be)
 
     def resize(self, x, node):
         return ops.resize_nearest(x, scale=node.geom("scale"),
-                                  backend=self.name)
+                                  backend=self._be)
 
     def concat(self, parts):
         return ops.channel_concat(parts)
@@ -107,6 +125,88 @@ class KernelBackend:
 
     def add(self, a, b):
         return torch.add(a, b)
+
+
+# Default conv-weight scheme when a graph reaches the quant backend
+# without a wordlength annotation: W8, per-output-channel scales (the
+# layout whose rowsum-dequant epilogue is exact).
+_QCFG_DEFAULT = QuantConfig(bits=8, granularity="per_channel", axis=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantBackend(KernelBackend):
+    """Quantized execution (paper §IV-A / Fig. 8): convs run as quantized
+    matmul launches on the raw integer codes; everything else inherits
+    the kernel dispatch. Float weights are quantized on the fly per the
+    node's ``wq`` annotation (AssignWordlengths pass), so the backend
+    also works on unannotated graphs — at W8 per channel, on every
+    forward.
+
+    The lowering is selected PER NODE from its wordlength annotations
+    (``select_lowering`` — overridable, so tests can observe which path
+    each node takes):
+
+    * ``"int8-wa"`` — ``a_bits ≤ 8`` with a calibrated ``a_scale``
+      (per-tensor float or per-channel tuple) and int8-storage weight
+      codes: the activation itself is quantized and the contraction runs
+      int8×int8 (ops.qconv2d_a8).
+    * ``"int8-w"``  — quantized weight codes (int8, int16 or packed
+      int4), float activations (ops.qconv2d).
+    * ``"float"``   — grouped convs, per-group code layouts, or scale
+      layouts the rowsum epilogue is not exact for.
+
+    A conv annotated ``fuse_pool`` (FuseConvMaxpool) runs its maxpool in
+    the same backend call (``fuses_pool``) on every lowering.
+    """
+    name: str = "quant"
+    dispatch: str | None = "auto"
+
+    def fuses_pool(self, node: Node) -> bool:
+        return bool(node.attrs.get("fuse_pool")) \
+            and node.geom("groups") == 1
+
+    def select_lowering(self, node: Node, w) -> str:
+        """Which conv path ``node`` takes, given its (possibly
+        quantized) weight ``w`` — see class docstring."""
+        if node.geom("groups") != 1:
+            return "float"
+        F = w.shape[-1]
+        packed = bool(getattr(w, "packed", False))
+        if (not packed and tuple(w.q.shape) != tuple(w.shape)) \
+                or w.scale.numel() not in (1, F):
+            # per-group codes / non-output-channel scales: the rowsum
+            # epilogue is not exact there — fall back to float compute.
+            # (A packed QTensor's byte matrix differs from w.shape by
+            # construction; quantize() only packs rowsum-exact layouts.)
+            return "float"
+        if int(node.attrs.get("a_bits", 16)) <= 8 \
+                and node.attrs.get("a_scale") is not None \
+                and w.q.dtype == torch.int8:
+            return "int8-wa"
+        return "int8-w"
+
+    def conv(self, x, p, node, res=None, pool=None):
+        w, b = p["w"], p["b"]
+        if not isinstance(w, QTensor):
+            if node.geom("groups") != 1:
+                return super().conv(x, p, node, res, pool=pool)
+            w = quantize(w, node.attrs.get("wq", _QCFG_DEFAULT))
+        lowering = self.select_lowering(node, w)
+        if lowering == "float":
+            return super().conv(x, p, node, res, pool=pool)
+        w_packed = bool(getattr(w, "packed", False))
+        if lowering == "int8-wa":
+            return ops.qconv2d_a8(
+                x, w.q, w.scale, w.zero, b,
+                x_scale=node.attrs["a_scale"],
+                a_bits=int(node.attrs.get("a_bits", 8)),
+                K=node.geom("K"), stride=node.geom("stride"),
+                act=node.attrs.get("act", "identity"), res=res,
+                w_packed=w_packed, pool=pool, backend=self._be)
+        return ops.qconv2d(x, w.q, w.scale, w.zero, b, K=node.geom("K"),
+                           stride=node.geom("stride"),
+                           act=node.attrs.get("act", "identity"), res=res,
+                           w_packed=w_packed, pool=pool, backend=self._be)
 
 
 BACKENDS: dict[str, Backend] = {}
@@ -122,10 +222,6 @@ def get_backend(name) -> Backend:
     if name is None:
         name = "auto"
     if isinstance(name, str):
-        if name == "quant":
-            raise NotImplementedError(
-                "backend 'quant' is not ported yet (ROADMAP.md, "
-                "modules to port: the quant backend)")
         try:
             return BACKENDS[name]
         except KeyError:
@@ -136,6 +232,7 @@ def get_backend(name) -> Backend:
 
 for _n in ("ref", "cuda", "auto"):
     register_backend(KernelBackend(_n))
+register_backend(QuantBackend())
 
 
 def init_params(graph: Graph, generator: torch.Generator,
@@ -208,6 +305,88 @@ def window_table(graph: Graph) -> dict[str, tuple]:
     """Public wrapper over the generation-time channel-window resolution
     (what the design-rule checker's SAT015 validates)."""
     return _window_table(graph)
+
+
+def calibrate_activation_ranges(graph: Graph, params: dict, x,
+                                backend="auto", per_channel: bool = False
+                                ) -> dict:
+    """Measured per-conv input absmax on a calibration batch — the
+    probe the A≤8 lowering's activation scale comes from (paper §IV-A:
+    wordlength selection is calibrated offline, baked into the design).
+    Runs the float executor once behind a recording backend wrapper;
+    returns ``{conv_node: absmax}`` — a float per node, or a (C,)
+    per-input-channel float32 array with ``per_channel`` (the per-group
+    calibration's probe)."""
+    ranges: dict = {}
+    inner = get_backend(backend)
+
+    class _Recorder:
+        name = "calibrate"
+
+        def conv(self, xx, p, node, res=None, **kw):
+            v = ops.channel_concat(xx) if isinstance(xx, list) else xx
+            if per_channel:
+                cur = v.abs().amax(dim=tuple(range(v.ndim - 1))).to(
+                    torch.float32).cpu().numpy()
+                prev = ranges.get(node.name)
+                ranges[node.name] = cur if prev is None \
+                    else np.maximum(prev, cur)
+            else:
+                amax = float(v.abs().max())
+                ranges[node.name] = max(ranges.get(node.name, 0.0), amax)
+            return inner.conv(xx, p, node, res, **kw)
+
+        def __getattr__(self, item):
+            return getattr(inner, item)
+
+    with torch.inference_mode():
+        generate(graph, backend=_Recorder())(params, x)
+    return ranges
+
+
+def calibrate_activation_scales(graph: Graph, params: dict, x, *,
+                                backend="auto", margin: float = 1.0,
+                                ranges: dict | None = None,
+                                granularity: str = "per_tensor",
+                                group_size: int = 16) -> dict:
+    """Attach ``a_scale`` (symmetric activation scale,
+    ``margin · absmax / (2^(a_bits−1) − 1)``) to every conv annotated
+    ``a_bits ≤ 8`` by AssignWordlengths, measuring ``ranges`` on the
+    calibration batch unless given. Returns the scales written.
+
+    ``granularity="per_tensor"`` writes one float per node;
+    ``"per_group"`` writes a per-CHANNEL tuple (channels share a scale
+    within ``group_size``-wide groups). The quant lowerings accept
+    either."""
+    assert granularity in ("per_tensor", "per_group"), granularity
+    per_group = granularity == "per_group"
+    if ranges is None:
+        ranges = calibrate_activation_ranges(graph, params, x,
+                                             backend=backend,
+                                             per_channel=per_group)
+    out: dict = {}
+    for node in graph.nodes.values():
+        a_bits = int(node.attrs.get("a_bits", 16))
+        if node.op != "conv" or a_bits > 8:
+            continue
+        amax = ranges.get(node.name)
+        if amax is None:
+            continue
+        qmax = 2 ** (a_bits - 1) - 1
+        if per_group:
+            av = np.atleast_1d(np.asarray(amax, np.float32)).copy()
+            if not float(av.max()):
+                continue
+            g = max(1, int(group_size))
+            for i in range(0, av.size, g):          # group-shared absmax
+                av[i:i + g] = max(float(av[i:i + g].max()), 1e-12)
+            s = tuple(float(margin * m / qmax) for m in av)
+        else:
+            if not amax:
+                continue
+            s = float(margin * float(amax) / qmax)
+        node.attrs["a_scale"] = out[node.name] = s
+    return out
 
 
 def launch_nodes(graph: Graph) -> list[str]:

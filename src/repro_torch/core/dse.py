@@ -3,10 +3,10 @@
 Implements the paper's analytic latency/resource models and the greedy
 DSP-allocation loop (Algorithm 1).
 
-A copy of the JAX package's ``core/dse.py`` up to ``design_report``.
-``quant_accuracy_delta``/``mixed_precision_search`` wait for the quant
-slice and ``partition_stages``/``tpu_stage_latency`` for the multi-GPU
-slice of the port.
+A copy of the JAX package's ``core/dse.py`` up to the mixed-precision
+search (``mixed_precision_search``, whose accuracy metric
+``quant_accuracy_delta`` is computed with torch). ``partition_stages``/
+``tpu_stage_latency`` wait for the multi-GPU slice of the port.
 
 The DSE is fusion- and batch-aware: nodes ``absorbed`` into a host
 engine's epilogue by the fusion passes (core/passes.py — residual adds,
@@ -27,6 +27,7 @@ dimension, matching a realisable folding.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable
 
@@ -299,3 +300,201 @@ def design_report(graph: Graph, device: FpgaDevice, alloc: Allocation,
     if accuracy_fn is not None:
         report.update(accuracy_fn())
     return report
+
+
+# --------------------------------------------------------------------------
+# Mixed-precision DSE (paper §VI Fig. 8): per-layer wordlength search
+# --------------------------------------------------------------------------
+
+# The per-node lowering ladder the greedy search walks, most→least
+# precise. Each step strictly shrinks the weight stream and/or switches
+# the activation contract to int8: (16,16) int16 codes ≈ lossless,
+# (8,16) the paper's W8A16 operating point, (8,8) fully int8×int8,
+# (4,8) 4-bit codes in int8 storage.
+WORDLENGTH_LADDER = ((16, 16), (8, 16), (8, 8), (4, 8))
+
+
+@dataclasses.dataclass(frozen=True)
+class ParetoPoint:
+    """One measured design on the accuracy-vs-weight-stream trade
+    (one dot of Fig. 8). ``assignment`` maps launch-node names to
+    ``(w_bits, a_bits)``; empty = the float design."""
+    assignment: dict
+    weight_stream_bytes: int
+    accuracy_delta: float
+    label: str = ""
+
+    def summary(self) -> dict:
+        counts: dict[str, int] = {}
+        for wa in self.assignment.values():
+            key = f"W{wa[0]}A{wa[1]}"
+            counts[key] = counts.get(key, 0) + 1
+        return {"weight_stream_bytes": self.weight_stream_bytes,
+                "accuracy_delta": self.accuracy_delta,
+                "label": self.label, "wordlengths": counts}
+
+
+@dataclasses.dataclass
+class MixedPrecisionResult:
+    """Output of :func:`mixed_precision_search`: the measured Pareto
+    front (bytes strictly decreasing, delta strictly increasing —
+    baseline float design first), the full measured trajectory, the
+    per-node sensitivities that ordered the walk, the calibration
+    ranges, and the executor-eval count."""
+    front: list[ParetoPoint]
+    trajectory: list[ParetoPoint]
+    sensitivity: dict[str, float]
+    ranges: dict[str, float]
+    evals: int
+
+    def select(self, accuracy_budget: float) -> ParetoPoint:
+        """Cheapest front point whose MEASURED delta fits the budget.
+
+        Selection from a fixed front is monotone by construction: a
+        tighter budget admits a subset of points, so the chosen design
+        can only get more expensive — never cheaper (the property
+        tests pin this). The baseline (delta 0) is always eligible for
+        any budget ≥ 0."""
+        ok = [p for p in self.front if p.accuracy_delta <= accuracy_budget]
+        if not ok:
+            return self.front[0]         # most-precise fallback
+        return min(ok, key=lambda p: p.weight_stream_bytes)
+
+
+def quant_accuracy_delta(got, want) -> float:
+    """The search's default accuracy metric — the same mean-relative
+    output delta the toolflow's accuracy probe reports
+    (``quant_mean_rel_delta``), max'd over the detect heads."""
+    return max(float((a - b).abs().mean() / (b.abs().mean() + 1e-12))
+               for a, b in zip(got, want))
+
+
+def _assignment_bytes(graph: Graph, assignment: dict) -> int:
+    """Weight-stream bytes of a candidate assignment; unassigned nodes
+    stream 16-bit float words."""
+    bits = sum(n.n_weights * int(assignment.get(n.name, (16, 16))[0])
+               for n in graph.nodes.values())
+    return bits // 8
+
+
+def _pareto_prune(points: list[ParetoPoint]) -> list[ParetoPoint]:
+    front: list[ParetoPoint] = []
+    best = float("inf")
+    for p in sorted(points, key=lambda p: (p.weight_stream_bytes,
+                                           p.accuracy_delta)):
+        if p.accuracy_delta < best:
+            front.append(p)
+            best = p.accuracy_delta
+    front.sort(key=lambda p: -p.weight_stream_bytes)
+    return front
+
+
+def mixed_precision_search(graph: Graph, params: dict, calib_x, *,
+                           ladder=WORDLENGTH_LADDER,
+                           max_evals: int | None = None,
+                           backend="quant",
+                           metric: Callable = quant_accuracy_delta,
+                           ) -> MixedPrecisionResult:
+    """Greedy per-layer wordlength search (paper Fig. 8).
+
+    Walks the accuracy-vs-weight-stream trade the way the paper's DSE
+    walks its Pareto front: measure each layer's SENSITIVITY (the
+    accuracy probe's output delta when only that layer is lowered one
+    ladder step, against an all-W16 background), then lower layers one
+    ladder step at a time in ascending-sensitivity order, measuring the
+    REAL combined delta of every visited design on the calibration
+    batch. The search itself is budget-free — it charts the whole
+    front (every measured point lands in ``trajectory``; the
+    Pareto-pruned subset in ``front``) and ``select(budget)`` picks the
+    knee afterwards, which is what makes selection monotone in the
+    budget.
+
+    ``max_evals`` caps executor evaluations for big graphs (the walk
+    simply stops early — already-measured points stand). Activation
+    scales come from one calibration pass (the probe's ranges), so
+    every A≤8 trial executes the REAL int8×int8 path, not a simulation.
+    """
+    import torch
+
+    from . import codegen
+    from . import passes as passes_lib
+
+    from .quant import quantize
+
+    work = copy.deepcopy(graph)
+    with torch.inference_mode():
+        ref_out = codegen.generate(work, backend="auto")(params, calib_x)
+    ranges = codegen.calibrate_activation_ranges(work, params, calib_x)
+    quant_fwd = codegen.generate(work, backend=backend)
+    candidates = [n.name for n in work.topo_order()
+                  if n.op == "conv" and n.geom("groups") == 1]
+    evals = 0
+    qcache: dict[tuple, object] = {}     # (node, w_bits) → QTensor: a
+    # node revisits each ladder level many times across the walk, and
+    # re-quantizing multi-MB filters dominates the search otherwise
+
+    def measure(assignment: dict) -> float:
+        nonlocal evals
+        for n in work.nodes.values():        # clear stale annotations
+            for k in ("wq", "w_bits", "a_bits", "a_scale"):
+                n.attrs.pop(k, None)
+        passes_lib.AssignWordlengths(bits=dict(assignment),
+                                     default=None).run(work)
+        codegen.calibrate_activation_scales(work, params, calib_x,
+                                            ranges=ranges)
+        qparams = {}
+        for name, p in params.items():
+            node = work.nodes.get(name)
+            wq = node.attrs.get("wq") if node is not None else None
+            if wq is None:
+                qparams[name] = p
+                continue
+            ck = (name, wq.bits)
+            if ck not in qcache:
+                qcache[ck] = quantize(p["w"], wq)
+            qparams[name] = {**p, "w": qcache[ck]}
+        evals += 1
+        with torch.inference_mode():
+            return metric(quant_fwd(qparams, calib_x), ref_out)
+
+    def budget_left() -> bool:
+        return max_evals is None or evals < max_evals
+
+    # --- per-layer sensitivity: one lowering step against W16 ------------
+    # At most half of a capped eval budget goes to sensitivity — the
+    # walk (which actually charts the front) must always get the rest.
+    sens_cap = max_evals // 2 if max_evals is not None else None
+    sens: dict[str, float] = {}
+    for name in candidates:
+        if not budget_left() or (sens_cap is not None
+                                 and evals >= sens_cap):
+            sens[name] = float("inf")        # unmeasured: walk last
+            continue
+        trial = {n: ladder[0] for n in candidates}
+        trial[name] = ladder[1]
+        sens[name] = measure(trial)
+    order = sorted(candidates, key=lambda n: (sens[n], n))
+
+    # --- greedy walk: least-sensitive layers drop first ------------------
+    trajectory = [ParetoPoint({}, _assignment_bytes(work, {}), 0.0,
+                              "float")]
+    level = {n: 0 for n in candidates}
+
+    def snapshot(label: str) -> None:
+        amap = {n: ladder[i] for n, i in level.items()}
+        trajectory.append(ParetoPoint(
+            amap, _assignment_bytes(work, amap), measure(amap), label))
+
+    if budget_left():
+        snapshot("uniform-W16")
+    for step in range(1, len(ladder)):
+        for name in order:
+            if not budget_left():
+                break
+            level[name] = step
+            snapshot(f"{name}→W{ladder[step][0]}A{ladder[step][1]}")
+
+    return MixedPrecisionResult(front=_pareto_prune(trajectory),
+                                trajectory=trajectory,
+                                sensitivity=sens, ranges=ranges,
+                                evals=evals)

@@ -12,7 +12,6 @@ S`` is implemented and the printed form stays behind ``paper_typo``.)
 Codes are bit-exact with the JAX package: every step is the same f32
 operation in the same order, ``torch.round`` rounds half to even as
 ``jnp.round`` does, and dequantization is ``(q + Z) · S`` in that order.
-``fake_quant`` and ``quant_error`` wait for the quant slice.
 """
 from __future__ import annotations
 
@@ -146,12 +145,19 @@ def quantize(w: torch.Tensor, cfg: QuantConfig = QuantConfig()) -> QTensor:
     blocks = _block_reduce(w.to(torch.float32), cfg)
     wmax = blocks.amax(dim=1, keepdim=True)
     wmin = blocks.amin(dim=1, keepdim=True)
+
+    def levels(n: int) -> torch.Tensor:
+        # a divisor tensor: on a CUDA tensor PyTorch divides by a Python
+        # scalar as a product with its reciprocal, which rounds otherwise
+        return torch.full((1, 1), float(n), dtype=torch.float32,
+                          device=blocks.device)
+
     if cfg.symmetric:
         amax = torch.maximum(wmax.abs(), wmin.abs())
-        scale = torch.clamp(amax / (2 ** (L - 1) - 1), min=1e-12)
+        scale = torch.clamp(amax / levels(2 ** (L - 1) - 1), min=1e-12)
         zero = torch.zeros_like(scale)
     else:
-        scale = torch.clamp((wmax - wmin) / (2 ** L - 1), min=1e-12)
+        scale = torch.clamp((wmax - wmin) / levels(2 ** L - 1), min=1e-12)
         if cfg.paper_typo:
             zero = torch.round(wmin * scale) + 2 ** (L - 1)
         else:
@@ -198,6 +204,19 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     return w.reshape(-1)[:n].reshape(qt.shape).to(dtype)
 
 
+def fake_quant(x: torch.Tensor, bits: int = 16,
+               symmetric: bool = True) -> torch.Tensor:
+    """Simulated activation quantization (paper fixes A16): a per-tensor
+    dynamic range and a straight-through estimator for gradients, so
+    QAT-style fine-tuning also works (beyond-paper)."""
+    amax = torch.clamp(x.abs().max(), min=1e-12)
+    scale = amax / (2 ** (bits - 1) - 1)
+    q = torch.clamp(torch.round(x / scale), -(2 ** (bits - 1)),
+                    2 ** (bits - 1) - 1)
+    y = q * scale
+    return x + (y - x).detach()
+
+
 def quantize_tree(
         params: Any, cfg: QuantConfig = QuantConfig(),
         predicate: Callable[[tuple, torch.Tensor], bool] | None = None,
@@ -224,3 +243,27 @@ def quantize_tree(
         return node
 
     return walk(params, ())
+
+
+def dequantize_tree(params: Any, dtype=torch.float32) -> Any:
+    """Every QTensor of a nested dict dequantized; other leaves kept."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return dequantize(node, dtype) if isinstance(node, QTensor) \
+            else node
+    return walk(params)
+
+
+def quant_error(w: torch.Tensor, cfg: QuantConfig) -> dict[str, float]:
+    """Round-trip error metrics for the Fig. 8 sweep benchmark."""
+    wq = dequantize(quantize(w, cfg))
+    err = (wq - w).abs()
+    denom = torch.clamp(w.abs(), min=1e-12)
+    p_sig = (w ** 2).mean()
+    p_noise = torch.clamp(((wq - w) ** 2).mean(), min=1e-30)
+    return {
+        "max_abs_err": float(err.max()),
+        "mean_rel_err": float((err / denom).mean()),
+        "sqnr_db": float(10 * torch.log10(p_sig / p_noise)),
+    }

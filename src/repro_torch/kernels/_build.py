@@ -37,12 +37,19 @@ LIB_NAME = "librepro_torch_kernels.so"
 ACT_CODES = {"identity": 0, "none": 0, "hardswish": 1, "leaky_relu": 2,
              "silu": 3, "relu": 4, "gelu": 5}
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 _SIGNATURES = {
     "repro_conv2d_nhwc_f32": [_P, _P, _P, _P, _P] + [_I] * 12 + [_P],
     "repro_maxpool2d_nhwc_f32": [_P, _P] + [_I] * 11 + [_P],
     "repro_resize_nearest_nhwc_f32": [_P, _P] + [_I] * 5 + [_P],
     "repro_pointwise_f32": [_P, _P, _LL, _I, _P],
+    "repro_qmatmul_f32": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P]
+    + [_I] * 4 + [_P],
+    "repro_qmatmul_a8": [_P, _P, _I, _P, _I, _P, _I, _F, _P, _P, _P]
+    + [_I] * 4 + [_P],
+    "repro_qmatmul_a8_grouped": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P,
+                                 _P, _P] + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -158,16 +165,19 @@ def library() -> ctypes.CDLL:
 
 
 def check_operand(name: str, t: torch.Tensor, device: torch.device,
-                  shape: tuple | None = None) -> None:
-    """Raise unless ``t`` is what the kernels take: a contiguous float32
-    tensor on ``device`` (with ``shape`` when given) whose elements an
-    int32 index reaches."""
+                  shape: tuple | None = None,
+                  dtypes: tuple = (torch.float32,)) -> None:
+    """Raise unless ``t`` is what the kernels take: a contiguous tensor
+    of one of ``dtypes`` (float32 by default; the quantized matmuls also
+    take int8 and int16 codes) on ``device`` (with ``shape`` when given)
+    whose elements an int32 index reaches."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} is {t.dtype}; the kernels take float32")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} is {t.dtype}; expected one of "
+                        f"{[str(d) for d in dtypes]}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous (a channel-split view?); "
                          f"make it contiguous before the launch")

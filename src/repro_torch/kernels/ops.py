@@ -1,5 +1,5 @@
-"""Public kernel entry points with backend dispatch (float half of the JAX
-package's ``kernels/ops.py``).
+"""Public kernel entry points with backend dispatch (the CNN and quantized
+half of the JAX package's ``kernels/ops.py``).
 
 Backends (per-call ``backend=``; ``None`` means ``"auto"``):
 
@@ -19,14 +19,25 @@ package's Pallas path, the window list is materialised (one
 conv kernel is later work. A split output is a view along the last dim
 and so not contiguous: it is made contiguous here, never read with the
 wrong strides.
+
+Quantized convs (``qconv2d``, ``qconv2d_a8``) are ONE quantized matmul
+launch each over an im2col of the input (``_im2col``, plain PyTorch, as
+the JAX package computes it outside any Pallas kernel), with dequant,
+bias, ``act`` and ``res`` in the kernel's epilogue; a fused maxpool
+(``pool=``) launches the maxpool kernel right after, as the Pallas path
+does (``ops.py:318-331``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from . import conv2d as _conv
 from . import maxpool as _pool
 from . import pointwise as _pw
+from . import qmatmul as _qmm
 from . import ref
 from . import resize as _resize
 
@@ -84,15 +95,19 @@ def _first(x) -> torch.Tensor:
 # streaming-block entry points
 # --------------------------------------------------------------------------
 
-def conv2d(x, w, b=None, *, stride=1, act="identity", res=None,
+def conv2d(x, w, b=None, *, stride=1, act="identity", res=None, pool=None,
            backend=None) -> torch.Tensor:
-    """``x``/``res``: tensor or channel-window list (module docstring)."""
+    """``x``/``res``: tensor or channel-window list (module docstring).
+    ``pool``: optional static ``(k, stride, act)`` fused maxpool, run by
+    the maxpool kernel right after the conv."""
     be = _resolve(backend, _first(x))
     xd = _dense(x)
     rd = _dense(res) if res is not None else None
     if be == "ref":
-        return ref.conv2d(xd, w, b, stride=stride, act=act, res=rd)
-    return _conv.conv2d(xd, w, b, stride=stride, act=act, res=rd)
+        y = ref.conv2d(xd, w, b, stride=stride, act=act, res=rd)
+    else:
+        y = _conv.conv2d(xd, w, b, stride=stride, act=act, res=rd)
+    return _pool_epilogue(y, pool, be)
 
 
 def maxpool2d(x, *, k=2, stride=None, act="identity",
@@ -118,3 +133,167 @@ def pointwise(x, act="hardswish", *, backend=None) -> torch.Tensor:
     if be == "ref":
         return ref.pointwise(xd, act)
     return _pw.pointwise(xd, act)
+
+
+# --------------------------------------------------------------------------
+# quantized matmuls and convs (quant backend)
+# --------------------------------------------------------------------------
+
+def qmatmul(x, q, scale, zero, b=None, *, act="identity", res=None,
+            w_packed=False, backend=None) -> torch.Tensor:
+    """Float x × integer codes, dequant + bias + ``act`` + ``res`` in the
+    epilogue. ``q`` is (K, N) codes, or packed-int4 bytes with
+    ``w_packed``."""
+    be = _resolve(backend, x)
+    if be == "ref":
+        K = int(x.shape[-1])
+        return ref.qmatmul(x, _qmm._codes(q, K, w_packed),
+                           _qmm._row(scale, x.device),
+                           _qmm._row(zero, x.device), b, act=act, res=res)
+    return _qmm.qmatmul(x, q, scale, zero, b, act=act, res=res,
+                        w_packed=w_packed)
+
+
+def qmatmul_a8(x, q, scale, zero, b=None, *, x_scale, a_bits=8,
+               act="identity", res=None, w_packed=False,
+               backend=None) -> torch.Tensor:
+    """Fully quantized matmul: ``x`` (float, quantized here at the static
+    calibrated ``x_scale``, or already int8 codes) contracted int8×int8
+    with int32 accumulation, the affine correction + bias + ``act`` +
+    ``res`` in the epilogue. ``x_scale``: float (per tensor) or
+    per-K-feature tuple (per-group calibration)."""
+    be = _resolve(backend, x)
+    per_k = not isinstance(x_scale, (int, float))
+    if per_k:
+        xs = tuple(float(s) for s in x_scale)
+        qs = _qmm._device_f32(xs, x.device)
+    else:
+        xs = float(x_scale)
+        qs = _qmm._device_f32((xs,), x.device)
+    xq = x if not x.is_floating_point() \
+        else ref.quantize_activation(x, qs, bits=a_bits)
+    if be == "ref":
+        K = int(xq.shape[-1])
+        return ref.qmatmul_a8(xq, _qmm._codes(q, K, w_packed),
+                              _qmm._row(scale, x.device),
+                              _qmm._row(zero, x.device), qs, b, act=act,
+                              res=res)
+    return _qmm.qmatmul_a8(xq, q, scale, zero, b, x_scale=xs, act=act,
+                           res=res, w_packed=w_packed)
+
+
+def _im2col(x: torch.Tensor, K: int, stride: int):
+    """SAME-padded im2col: (N, H, W, C) → ((N·Ho·Wo, K·K·C), (N, Ho, Wo)).
+
+    Patch features are ordered (kh, kw, c) row-major, matching
+    ``w.reshape(K*K*C, F)`` of an HWIO filter, so the quantized codes
+    need only a reshape. The pads are the asymmetric SAME split
+    (``total // 2`` before); on int8 activation codes they are code 0.
+    1x1/stride-1 convs skip the windowing (a reshape)."""
+    N, H, W, C = x.shape
+    if K == 1 and stride == 1:
+        return x.reshape(N * H * W, C), (N, H, W)
+    Ho, pt, pb = ref.same_pads(H, K, stride)
+    Wo, pl, pr = ref.same_pads(W, K, stride)
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb))
+    cols = [xp[:, kh:kh + (Ho - 1) * stride + 1:stride,
+               kw:kw + (Wo - 1) * stride + 1:stride, :]
+            for kh in range(K) for kw in range(K)]
+    patches = torch.cat(cols, dim=-1)
+    return patches.reshape(N * Ho * Wo, K * K * C), (N, Ho, Wo)
+
+
+@functools.lru_cache(maxsize=1024)
+def _expand_a_scale(x_scale, C: int, K: int, device: torch.device):
+    """Normalise a static activation scale for a conv node.
+
+    ``x_scale`` is a float (per tensor) or a length-C tuple (per-group
+    calibration expanded to per channel by codegen). Returns
+    ``(quant_scale, mm_scale)``: the scale to quantize the NHWC stream
+    with (a float, or a (C,) tensor on ``device``) and the per-K-feature
+    scale for the im2col matmul — the C-tuple repeated K² times, in the
+    (kh, kw, c) patch-feature order of ``_im2col``. Cached: the scales
+    are compile-time constants (callers pass a tuple, not a list)."""
+    if isinstance(x_scale, (int, float)):
+        return float(x_scale), float(x_scale)
+    sv = tuple(float(s) for s in x_scale)
+    if len(sv) != C:
+        raise ValueError(f"a_scale has {len(sv)} values; the conv has "
+                         f"C={C} input channels")
+    return _qmm._device_f32(sv, device), sv * (K * K)
+
+
+def _pool_epilogue(y: torch.Tensor, pool, be: str) -> torch.Tensor:
+    """A fused maxpool ``(k, stride, act)`` after a conv: the maxpool
+    kernel (its plain version on ``backend="ref"``)."""
+    if pool is None:
+        return y
+    pk, ps, pact = int(pool[0]), int(pool[1]), pool[2]
+    if be == "ref":
+        return ref.maxpool2d(y, k=pk, stride=ps, act=pact)
+    return _pool.maxpool2d(y, k=pk, stride=ps, act=pact)
+
+
+def qconv2d(x, q, scale, zero, b=None, *, K=1, stride=1, act="identity",
+            res=None, w_packed=False, pool=None,
+            backend=None) -> torch.Tensor:
+    """Quantized conv executed as ONE ``qmatmul`` launch.
+
+    ``q``: (K, K, C, F) integer codes (a ``QTensor.q``), or
+    (ceil(K·K·C/2), F) packed-int4 bytes with ``w_packed``;
+    ``scale``/``zero``: per tensor or per output channel. The input is
+    im2col-windowed (1x1-direct when K=1, stride=1) and contracted
+    against the raw codes; dequant + bias + ``act`` + ``res`` run in the
+    epilogue. ``x``/``res`` accept channel-window lists. ``pool``:
+    optional static ``(k, stride, act)`` fused maxpool."""
+    be = _resolve(backend, _first(x))
+    xd = _dense(x)
+    patches, (N, Ho, Wo) = _im2col(xd, K, stride)
+    Fo = int(q.shape[-1])
+    res2 = _dense(res).reshape(N * Ho * Wo, Fo) if res is not None else None
+    if be == "ref":
+        y = ref.qmatmul(patches, _qmm._codes(q, K * K * xd.shape[-1],
+                                             w_packed),
+                        _qmm._row(scale, xd.device), _qmm._row(zero, xd.device),
+                        b, act=act, res=res2)
+    else:
+        y = _qmm.qmatmul(patches, q if w_packed else q.reshape(-1, Fo),
+                         scale, zero, b, act=act, res=res2,
+                         w_packed=w_packed)
+    return _pool_epilogue(y.reshape(N, Ho, Wo, Fo), pool, be)
+
+
+def qconv2d_a8(x, q, scale, zero, b=None, *, x_scale, a_bits=8, K=1,
+               stride=1, act="identity", res=None, w_packed=False,
+               pool=None, pipeline="grid", backend=None) -> torch.Tensor:
+    """Fully quantized conv (paper Fig. 8, A≤8): the input is quantized
+    to int8 at the node's calibrated ``x_scale`` (float per tensor, or
+    per-channel tuple), im2col-windowed in the code domain (padding is
+    code 0), and contracted int8×int8 with int32 accumulation; dequant +
+    bias + ``act`` + ``res`` run in the epilogue. ``a_bits < 8``
+    narrows the code range inside int8 storage. ``pipeline="double"`` is
+    not ported yet and raises ``NotImplementedError``."""
+    be = _resolve(backend, _first(x))
+    xd = _dense(x)
+    C = int(xd.shape[-1])
+    qscale, mscale = _expand_a_scale(
+        x_scale if isinstance(x_scale, (int, float)) else tuple(x_scale),
+        C, int(K), xd.device)
+    if isinstance(qscale, float):       # a cached one-element tensor
+        qscale = _qmm._device_f32((qscale,), xd.device)
+    xq = ref.quantize_activation(xd, qscale, bits=a_bits)
+    patches, (N, Ho, Wo) = _im2col(xq, K, stride)
+    Fo = int(q.shape[-1])
+    res2 = _dense(res).reshape(N * Ho * Wo, Fo) if res is not None else None
+    if be == "ref":                     # the plain version has no K sweep
+        xs = mscale if isinstance(mscale, float) \
+            else _qmm._device_f32(mscale, xd.device)
+        y = ref.qmatmul_a8(patches, _qmm._codes(q, K * K * C, w_packed),
+                           _qmm._row(scale, xd.device),
+                           _qmm._row(zero, xd.device), xs, b, act=act,
+                           res=res2)
+    else:
+        y = _qmm.qmatmul_a8(patches, q if w_packed else q.reshape(-1, Fo),
+                            scale, zero, b, x_scale=mscale, act=act,
+                            res=res2, w_packed=w_packed, pipeline=pipeline)
+    return _pool_epilogue(y.reshape(N, Ho, Wo, Fo), pool, be)

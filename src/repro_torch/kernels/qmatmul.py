@@ -1,0 +1,283 @@
+"""Quantized-weight matmuls with the dequantization in the epilogue
+(paper §IV-A: W8A16, and the A≤8 wordlengths of Fig. 8).
+
+Replaces the Pallas kernels of ``src/repro/kernels/qmatmul.py``:
+
+* :func:`qmatmul` (``qmatmul``, ``_qmm_kernel``, prologue ``_unpack4``):
+  float x × integer codes — int8, int16, or packed int4 — with a float32
+  accumulator and the row sum of x; epilogue
+  ``acc·scale + xsum·(zero·scale) + b → act → + res``.
+* :func:`qmatmul_a8` (``qmatmul_a8``, ``_qmm_a8_kernel``): int8 activation
+  codes × int8 or packed-int4 codes, int32 accumulator and row sum, the
+  static activation scale folded into the weight scale
+  (``scale = wscale·x_scale``, then ``zero = wzero·scale``, as
+  ``qmatmul.py:382-383`` does; the CUDA epilogue computes these two
+  products per column, in that order).
+* :func:`qmatmul_a8_grouped` (``_qmm_a8_grouped_kernel``,
+  ``_group_tile``): one activation scale per K run, int32 sums within a
+  block of ``tk`` features scaled into float32 accumulators.
+
+On a CUDA tensor each wrapper launches its kernel of ``csrc/qmatmul.cu``
+and counts the launch on its own ``launches`` attribute; on a CPU tensor
+it runs the plain version (``ref.qmatmul`` / ``ref.qmatmul_a8``).
+:func:`qmatmul_a8` with a per-K scale tuple launches the grouped kernel
+when the scale runs align to a usable K tile, and otherwise — the JAX
+package's own semantics (``qmatmul.py:369-377``) — the float kernel on
+``xq·s_k``. ``pipeline="double"`` (the DMA double-buffered K sweep) is
+not ported yet. Bound on the H100: see the source's note.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from . import ref
+from ._build import LaunchCounter, act_code, check_operand, launch
+
+_CODE_KIND = {torch.int8: 0, torch.int16: 1}
+_PACKED = 2
+
+
+def _check_shapes(x: torch.Tensor, q: torch.Tensor, w_packed: bool,
+                  w_rows: int | None = None) -> tuple[int, int, int]:
+    M, K = (int(d) for d in x.shape)
+    if w_packed:
+        N = int(q.shape[1])
+        if w_rows is not None and w_rows != K:
+            raise ValueError(f"w_rows={w_rows} but x has K={K}")
+        if q.shape[0] != (K + 1) // 2:
+            raise ValueError(f"packed codes have {q.shape[0]} byte rows; "
+                             f"K={K} needs {(K + 1) // 2}")
+    else:
+        Kq, N = (int(d) for d in q.shape)
+        if Kq != K:
+            raise ValueError(f"codes have {Kq} rows, x has K={K}")
+    return M, K, N
+
+
+def _codes(q: torch.Tensor, rows: int, w_packed: bool) -> torch.Tensor:
+    """The (rows, N) code matrix of the plain versions: packed-int4
+    bytes (ceil(rows/2), N) are unpacked, other codes (an HWIO filter
+    too) only reshaped. The kernels take the bytes and unpack while
+    staging."""
+    if not w_packed:
+        return q.reshape(rows, -1)
+    return ref.unpack4(q)[:rows]
+
+
+def _row(v, device) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=device
+                           ).reshape(1, -1)
+
+
+def _meta(name: str, v, N: int, device) -> tuple[torch.Tensor, int]:
+    """A per-tensor or per-column f32 vector and its column stride."""
+    t = torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1)
+    if t.numel() not in (1, N):
+        raise ValueError(f"{name} has {t.numel()} values; expected 1 or "
+                         f"N={N}")
+    check_operand(name, t, device)
+    return t, (0 if t.numel() == 1 else 1)
+
+
+def _optional(name, t, device, shape):
+    if t is None:
+        return None
+    check_operand(name, t, device, shape)
+    return t.data_ptr()
+
+
+@functools.lru_cache(maxsize=1024)
+def _device_f32(values: tuple, device: torch.device) -> torch.Tensor:
+    """A cached float32 tensor of static calibration values on
+    ``device``. The copy runs on the current stream, which is
+    synchronised once so that a replica on another stream may read it."""
+    t = torch.tensor(values, dtype=torch.float32, device=device)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return t
+
+
+@functools.lru_cache(maxsize=1024)
+def _group_tile(x_scale: tuple, K: int, tk: int, w_packed: bool):
+    """Align the K tiling to the per-group activation scales (copied
+    from the JAX package's ``qmatmul.py:_group_tile``).
+
+    ``x_scale`` is a static per-K-feature tuple. Returns (tk', sv) where
+    every tk'-block of the K axis has a single scale — or (None, sv)
+    when no usable even tile exists (the caller falls back to folding
+    the scales into a float contraction, still one launch). Cached
+    once per scale tuple: ``sv`` is read-only."""
+    sv = np.asarray(x_scale, np.float32)
+    sv.setflags(write=False)
+    assert sv.size == K, (sv.size, K)
+    runs, start = [], 0
+    for i in range(1, K):
+        if sv[i] != sv[i - 1]:
+            runs.append(i - start)
+            start = i
+    runs.append(K - start)
+    g = 0
+    for r in runs:
+        g = math.gcd(g, r)
+    tk = math.gcd(min(tk, K), g)
+    if w_packed and tk % 2:
+        tk = 0
+    return (tk if tk >= 8 else None), sv
+
+
+def _scale_tuple(x_scale, K: int) -> tuple:
+    xs = x_scale if isinstance(x_scale, tuple) else tuple(
+        float(s) for s in x_scale)
+    if len(xs) != K:
+        raise ValueError(f"x_scale has {len(xs)} values; expected K={K}")
+    return xs
+
+
+def qmatmul(x: torch.Tensor, q: torch.Tensor, scale, zero,
+            b: torch.Tensor | None = None, *, act: str = "identity",
+            res: torch.Tensor | None = None, w_packed: bool = False,
+            w_rows: int | None = None) -> torch.Tensor:
+    """x: (M, K) float32; q: (K, N) int8 or int16 codes — or, with
+    ``w_packed``, (ceil(K/2), N) packed-int4 bytes (``w_rows`` = logical
+    K). scale/zero: per tensor or per column (N,). ``res``: optional
+    (M, N) residual added after the activation. Returns (M, N) f32."""
+    M, K, N = _check_shapes(x, q, w_packed, w_rows)
+    if not x.is_cuda:
+        return ref.qmatmul(x, _codes(q, K, w_packed), _row(scale, x.device),
+                           _row(zero, x.device), b, act=act, res=res)
+    code = act_code(act)
+    dev = x.device
+    check_operand("x", x, dev, (M, K))
+    if w_packed:
+        check_operand("q", q, dev, ((K + 1) // 2, N), (torch.int8,))
+        kind = _PACKED
+    else:
+        check_operand("q", q, dev, (K, N), tuple(_CODE_KIND))
+        kind = _CODE_KIND[q.dtype]
+    s, ss = _meta("scale", scale, N, dev)
+    z, zs = _meta("zero", zero, N, dev)
+    bp = _optional("b", b, dev, (N,))
+    rp = _optional("res", res, dev, (M, N))
+    y = torch.empty((M, N), device=dev, dtype=torch.float32)
+    check_operand("y", y, dev)
+    launch("repro_qmatmul_f32", dev, x.data_ptr(), q.data_ptr(), kind,
+           s.data_ptr(), ss, z.data_ptr(), zs, bp, rp, y.data_ptr(), M, K,
+           N, code)
+    qmatmul.launches.add()
+    return y
+
+
+qmatmul.launches = LaunchCounter()
+
+
+def _check_a8(xq, q, w_packed, dev, M, K, N):
+    check_operand("xq", xq, dev, (M, K), (torch.int8,))
+    check_operand("q", q, dev, ((K + 1) // 2 if w_packed else K, N),
+                  (torch.int8,))
+
+
+def qmatmul_a8_grouped(xq: torch.Tensor, q: torch.Tensor, scale, zero,
+                       b: torch.Tensor | None = None, *, x_scale,
+                       act: str = "identity",
+                       res: torch.Tensor | None = None,
+                       w_packed: bool = False,
+                       tk: int = 128) -> torch.Tensor:
+    """Per-group activation scales: ``x_scale`` is a per-K-feature tuple
+    whose runs align to a K tile of at least 8 (``_group_tile``);
+    raises ``ValueError`` when they do not (``qmatmul_a8`` then takes
+    the float kernel). Returns (M, N) f32."""
+    M, K, N = _check_shapes(xq, q, w_packed)
+    xs = _scale_tuple(x_scale, K)
+    if not xq.is_cuda:
+        return ref.qmatmul_a8(xq, _codes(q, K, w_packed),
+                              _row(scale, xq.device), _row(zero, xq.device),
+                              _device_f32(xs, xq.device), b, act=act,
+                              res=res)
+    tkg, sv = _group_tile(xs, K, int(tk), bool(w_packed))
+    if tkg is None:
+        raise ValueError("the per-K scale runs share no K tile >= 8 "
+                         "(even when packed)")
+    code = act_code(act)
+    dev = xq.device
+    _check_a8(xq, q, w_packed, dev, M, K, N)
+    sb = _device_f32(tuple(sv[::tkg].tolist()), dev)    # one per K block
+    s, ss = _meta("scale", scale, N, dev)
+    z, zs = _meta("zero", zero, N, dev)
+    bp = _optional("b", b, dev, (N,))
+    rp = _optional("res", res, dev, (M, N))
+    y = torch.empty((M, N), device=dev, dtype=torch.float32)
+    check_operand("y", y, dev)
+    launch("repro_qmatmul_a8_grouped", dev, xq.data_ptr(), q.data_ptr(),
+           int(w_packed), sb.data_ptr(), tkg, s.data_ptr(), ss,
+           z.data_ptr(), zs, bp, rp, y.data_ptr(), M, K, N, code)
+    qmatmul_a8_grouped.launches.add()
+    return y
+
+
+qmatmul_a8_grouped.launches = LaunchCounter()
+
+
+def qmatmul_a8(xq: torch.Tensor, q: torch.Tensor, scale, zero,
+               b: torch.Tensor | None = None, *, x_scale,
+               act: str = "identity", res: torch.Tensor | None = None,
+               w_packed: bool = False, tk: int = 128,
+               pipeline: str = "grid") -> torch.Tensor:
+    """xq: (M, K) int8 activation codes (``ref.quantize_activation`` at
+    the node's calibrated ``x_scale``); q: (K, N) int8 codes — or, with
+    ``w_packed``, (ceil(K/2), N) packed-int4 bytes; scale/zero: per
+    tensor or per column (N,) weight metadata. Returns (M, N) f32.
+
+    ``x_scale`` is static: a float (→ the int32 kernel, scale folded in
+    its epilogue) or a per-K-feature tuple (→ the grouped kernel when
+    its runs align to a K tile, else the float kernel on ``xq·s_k``).
+    ``tk`` is the K tile the runs are aligned to, as in the JAX package.
+    ``pipeline="double"`` is not ported yet."""
+    if pipeline == "double":
+        raise NotImplementedError(
+            "qmatmul_a8(pipeline='double'), the DMA double-buffered K "
+            "sweep, is not ported yet (ROADMAP.md, kernels still to port: "
+            "#10 and #2, the double-buffered variants)")
+    if pipeline != "grid":
+        raise ValueError(f"pipeline={pipeline!r}: expected 'grid' or "
+                         f"'double'")
+    M, K, N = _check_shapes(xq, q, w_packed)
+    grouped = not isinstance(x_scale, (int, float))
+    if not xq.is_cuda:
+        xs = _device_f32(_scale_tuple(x_scale, K), xq.device) \
+            if grouped else float(x_scale)
+        return ref.qmatmul_a8(xq, _codes(q, K, w_packed),
+                              _row(scale, xq.device), _row(zero, xq.device),
+                              xs, b, act=act, res=res)
+    if grouped:
+        xs = _scale_tuple(x_scale, K)
+        tkg, _ = _group_tile(xs, K, int(tk), bool(w_packed))
+        if tkg is None:
+            # unalignable groups: fold the per-feature scales into the
+            # activations and run the float contraction (one launch)
+            sv = _device_f32(xs, xq.device).reshape(1, -1)
+            return qmatmul(xq.to(torch.float32) * sv, q, scale, zero, b,
+                           act=act, res=res, w_packed=w_packed)
+        return qmatmul_a8_grouped(xq, q, scale, zero, b, x_scale=xs,
+                                  act=act, res=res, w_packed=w_packed,
+                                  tk=tk)
+    code = act_code(act)
+    dev = xq.device
+    _check_a8(xq, q, w_packed, dev, M, K, N)
+    s, ss = _meta("scale", scale, N, dev)
+    z, zs = _meta("zero", zero, N, dev)
+    bp = _optional("b", b, dev, (N,))
+    rp = _optional("res", res, dev, (M, N))
+    y = torch.empty((M, N), device=dev, dtype=torch.float32)
+    check_operand("y", y, dev)
+    launch("repro_qmatmul_a8", dev, xq.data_ptr(), q.data_ptr(),
+           int(w_packed), s.data_ptr(), ss, z.data_ptr(), zs,
+           float(x_scale), bp, rp, y.data_ptr(), M, K, N, code)
+    qmatmul_a8.launches.add()
+    return y
+
+
+qmatmul_a8.launches = LaunchCounter()

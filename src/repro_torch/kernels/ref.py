@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the port's CNN kernels.
+"""Plain PyTorch versions of the port's CNN and quantized kernels.
 
 The semantic ground truth the CUDA kernels are held against, on the CPU
 in the tests and on the card in ``chip_smoke.py``. A port of the CNN
-half of the JAX package's ``kernels/ref.py``: NHWC activations, HWIO
-``(K, K, C, F)`` weights, float32 arithmetic.
+and quantized-matmul half of the JAX package's ``kernels/ref.py``: NHWC
+activations, HWIO ``(K, K, C, F)`` weights, float32 arithmetic, integer
+accumulators exact.
 
 SAME padding is asymmetric, as ``lax`` computes it: the total pad is
 ``max((out - 1)·s + K - in, 0)``, ``total // 2`` before and the rest
@@ -123,3 +124,109 @@ def resize_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
 def pointwise(x: torch.Tensor, act: str) -> torch.Tensor:
     return activation(act)(x)
 
+
+
+# --------------------------------------------------------------------------
+# Quantized matmul (paper §IV-A: W8A16 with dequant-in-epilogue)
+# --------------------------------------------------------------------------
+
+def unpack4(packed: torch.Tensor) -> torch.Tensor:
+    """Packed-int4 bytes (R, N) int8 → (2R, N) codes: byte ``r`` holds
+    row ``2r`` in its low nibble and ``2r + 1`` in its high nibble, both
+    sign-extended with arithmetic shifts (bit-exact with
+    ``core.quant.unpack_int4``). For an odd logical row count the last
+    high nibble is padding; callers slice it off."""
+    lo = (packed << 4) >> 4
+    hi = packed >> 4
+    r, n = packed.shape
+    return torch.stack([lo, hi], dim=1).reshape(2 * r, n)
+
+
+def qmatmul(x: torch.Tensor, wq: torch.Tensor, scale, zero,
+            b: torch.Tensor | None = None, act: str = "identity",
+            res: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (M, K) float; wq: (K, N) integer codes; scale/zero broadcast to
+    (K, N) or per-column (1, N). ``w ≈ (wq + zero)·scale``; the epilogue
+    order is ``act(xw + b) + res``, as in the fused conv engine."""
+    fn = activation(act)
+    w = (wq.to(torch.float32) + zero) * scale
+    y = x.to(torch.float32) @ w
+    if b is not None:
+        y = y + b.to(torch.float32)
+    y = fn(y)
+    if res is not None:
+        y = y + res.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def quantize_activation(x: torch.Tensor, x_scale, bits: int = 8
+                        ) -> torch.Tensor:
+    """Symmetric activation quantization at a static calibrated scale:
+    ``round(x / s)`` (true float32 division, half-to-even rounding as
+    ``jnp.round``), saturated to ``[-qmax - 1, qmax]``, as int8 codes.
+
+    ``x_scale`` is a per-tensor float or a tensor broadcastable over
+    ``x``'s trailing axis (the per-group calibration's per-channel
+    vector). A float is divided as a one-element tensor on ``x``'s
+    device: on a CUDA tensor, PyTorch divides by a Python scalar as a
+    product with its reciprocal, which rounds differently."""
+    qmax = 2 ** (bits - 1) - 1
+    if isinstance(x_scale, (int, float)):
+        s = torch.full((1,), float(x_scale), dtype=torch.float32,
+                       device=x.device)
+    else:
+        s = torch.as_tensor(x_scale, dtype=torch.float32, device=x.device)
+    q = torch.round(x.to(torch.float32) / s)
+    return torch.clamp(q, -qmax - 1, qmax).to(torch.int8)
+
+
+def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of two integer-code matrices. PyTorch has no
+    integer matmul on CUDA, so the product runs in float64, where every
+    partial sum of int8 × int8 products (|p| ≤ 2^14) is exact below
+    2^53, and is cast back."""
+    return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
+
+
+def qmatmul_a8(x: torch.Tensor, wq: torch.Tensor, scale, zero, x_scale,
+               b: torch.Tensor | None = None, act: str = "identity",
+               res: torch.Tensor | None = None) -> torch.Tensor:
+    """Fully quantized matmul: int8 activation codes × integer weight
+    codes, int32 accumulation, affine correction once per output:
+
+        x @ w ≈ x_scale·scale·(xq @ wq) + x_scale·(zero·scale)·rowsum(xq)
+
+    ``x`` is float (quantized here at ``x_scale``) or already codes.
+    ``x_scale`` is a per-tensor float, or a (K,) per-input-feature vector
+    (per-group calibration expanded per feature), which folds into the
+    reduction in float32 instead:
+
+        x @ w ≈ scale·((xq·s_k) @ wq) + (zero·scale)·Σ_k xq_k·s_k
+
+    Returns float32 (the caller owns the cast)."""
+    fn = activation(act)
+    if isinstance(x_scale, (int, float)):
+        per_k = False
+    else:
+        sk = torch.as_tensor(x_scale, dtype=torch.float32, device=x.device)
+        per_k = sk.ndim >= 1 and sk.numel() > 1
+        if not per_k:
+            x_scale = float(sk.reshape(()))
+    xq = x if not x.is_floating_point() else quantize_activation(
+        x, sk if per_k else x_scale)
+    if per_k:
+        xs = xq.to(torch.float32) * sk.reshape(1, -1)
+        acc = xs @ wq.to(torch.float32)
+        xsum = xs.sum(dim=1, keepdim=True)
+        y = acc * scale + xsum * (zero * scale)
+    else:
+        acc = int_matmul(xq, wq)
+        xsum = xq.to(torch.int32).sum(dim=1, keepdim=True)
+        y = acc.to(torch.float32) * (x_scale * scale) \
+            + xsum.to(torch.float32) * (x_scale * (zero * scale))
+    if b is not None:
+        y = y + b.to(torch.float32)
+    y = fn(y)
+    if res is not None:
+        y = y + res.to(torch.float32)
+    return y

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package,
 its entry points refuse to fall back to the CPU, and what is not ported
-yet raises ``NotImplementedError``."""
+yet (the double-buffered K sweep, tensor parallelism, the LM replica)
+raises ``NotImplementedError``."""
 import ast
 import subprocess
 import sys
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 import repro_torch.core as tcore
+from repro_torch.kernels.qmatmul import qmatmul_a8
 from repro_torch.models import yolo
 from repro_torch.serve import Deployment, LmReplica
 
@@ -25,6 +27,9 @@ def _banned(mod: str) -> bool:
 def test_no_file_imports_jax_or_the_jax_package():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20
+    names = {str(f.relative_to(PKG)) for f in files}
+    assert {"kernels/qmatmul.py", "serve/detection.py",
+            "check/__main__.py"} <= names
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
@@ -42,13 +47,21 @@ def test_import_compile_and_run_load_no_jax():
         import sys, torch
         import repro_torch
         import repro_torch.core as core
+        import repro_torch.check.__main__
         from repro_torch.models import yolo
         from repro_torch.serve import Deployment, DetectRequest
+        from repro_torch.serve.detection import DetectionEngine
         acc = core.compile(yolo.build("yolov3-tiny", 32),
                            core.CompileConfig(batch_size=2),
                            torch_device="cpu")
         outs = acc.forward(torch.zeros(2, 32, 32, 3))
         assert len(outs) == 2
+        qacc = core.compile(yolo.build("yolov3-tiny", 32),
+                            core.CompileConfig(backend="quant", w_bits=4,
+                                               a_bits=8, batch_size=2),
+                            torch_device="cpu")
+        outs = qacc.forward(torch.ones(2, 32, 32, 3))
+        assert len(outs) == 2 and "quant_mean_rel_delta" in qacc.report
         bad = sorted(m for m in sys.modules if m == "jax"
                      or m.startswith("jax") or m == "repro"
                      or m.startswith("repro."))
@@ -79,12 +92,10 @@ def test_entry_points_refuse_silent_cpu(monkeypatch, cpu_acc):
 
 
 def test_unported_paths_raise(cpu_acc):
+    q = torch.zeros((16, 8), dtype=torch.int8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcore.CompileConfig(backend="quant")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcore.CompileConfig(bits="mixed")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcore.CompileConfig(bits={"conv1": (8, 8)})
+        qmatmul_a8(torch.zeros((4, 16), dtype=torch.int8), q, 1.0, 0.0,
+                   x_scale=0.1, pipeline="double")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Deployment(cpu_acc, devices=["cpu"], tensor_parallel=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
