@@ -27,7 +27,7 @@ non-zero:
    shape rules refuse the case) or ``torch.matmul`` on the dequantized
    weight (TF32 off). The unaligned per-group case launches the float
    kernel and is reported, bounded and timed as one of its cases.
-3. Six paths through the user's entry points, each with the launch
+3. Six YOLO paths through the user's entry points, each with the launch
    counters set to 0 just before it and read just after:
    ``main``: yolov8n at 640 → ``core.compile`` → ``serve.Deployment``
    (2 replicas, batch 8) serving 32 requests; ``fusion_off``: the same
@@ -51,6 +51,16 @@ non-zero:
    the outputs within 16·2^-8·max|out| of the plain path or within
    A8_SPREAD times the plain path's own spread when every conv output
    moves by one ulp (``a8_path_check``).
+   The LM kernels (``csrc/rmsnorm.cu``, ``attention.cu``,
+   ``decode_attention.cu``) are checked the same way at granite-3-8b's
+   shapes (prefill rows 2048 × 4096, a decode step's 4 rows, causal
+   attention at 2048, a ragged 509, 128 queries after 2048 keys, decode
+   of 4 rows over a 4096 cache at lengths 1/700/2048/4096) and at
+   gemma2-like ones (D 256, window, softcap); their bound counts only
+   the visible (query, key) pairs or the live cache rows; yardsticks
+   ``F.rms_norm`` and ``F.scaled_dot_product_attention(enable_gqa=True)``
+   with a boolean mask ("n/a" with a softcap, which it lacks). #7 gains
+   a case at granite's decode shape (4, 4096, 12800).
 4. Timing: a short serving window (a smoke reading, not a benchmark),
    the executor forward, and the spans of one replica step run alone
    (assemble, issue, wait, copy-out on the host clock; the forward's and
@@ -58,11 +68,27 @@ non-zero:
    behind a spin on the stream), for the float and the W8A16 path; for
    the latter also the im2col of its 3×3 convs and the on-the-fly W8
    quantization an unannotated conv pays on the quant backend.
-5. A JSON line listing every kernel (``launches`` is the count on the
+5. ``lm``: granite-3-8b at full width and depth (40 layers, d 4096,
+   vocab 49155; float32 weights from ``lm.init_params`` with a seeded
+   generator on the card, ~30 GiB) served by ``serve.engine.Engine``
+   (``LmReplica`` + ``ContinuousBatch``, 4 slots, a 4096-position cache):
+   8 prompts of 128–2048 tokens from seed 0, 32 greedy tokens each, the
+   launch counters set to 0 just before and read just after (per
+   prefill 81 rmsnorm + 40 mha, per decode step 81 rmsnorm + 40
+   decode_attention, nothing else). The served logits are held to the
+   plain path on the card by teacher forcing (the served tokens replayed
+   through ``lm.prefill``/``lm.decode_step`` with
+   ``ops.set_default_backend("ref")``): every step within LM_TOL, and
+   every served token equal to the plain argmax where the plain top-2
+   margin exceeds twice that step's difference. Prefill ms by prompt
+   length, tokens/s, and the device and issue ms of a prefill and of a
+   decode step.
+6. A JSON line listing every kernel (``launches`` is the count on the
    path that runs it: ``main`` for conv, maxpool and resize,
    ``fusion_off`` for pointwise, ``quant_w8a16`` for qmatmul,
    ``quant_w4a8`` for qmatmul_a8, ``quant_per_group`` for the grouped
-   kernel; ``launches_by_path`` has every path), then the result line.
+   kernel, ``lm`` for rmsnorm, mha and decode_attention;
+   ``launches_by_path`` has every path), then the result line.
 
 Needs one CUDA card; exits non-zero without one, and in a directory that
 does not hold the repository's ``src/repro_torch``.
@@ -91,7 +117,9 @@ WEIGHT_GAIN = 1.75
 KERNEL_TOL = {"conv2d": 1e-4, "pointwise": 1e-4,
               "maxpool2d": 0.0, "resize_nearest": 0.0,   # 0: bit-equal
               "qmatmul": 1e-4, "qmatmul_a8": 1e-4,
-              "qmatmul_a8_grouped": 1e-4}
+              "qmatmul_a8_grouped": 1e-4,
+              # the JAX package's kernel tests' own tolerances
+              "rmsnorm": 1e-5, "mha": 2e-5, "decode_attention": 2e-5}
 # 16·2^-8 of the output range: the JAX package's _quant_atol at 8 bits
 A8_TOL = 16 * 2.0 ** -8
 # Paths whose design quantizes activations to 8 bits are also read end
@@ -119,12 +147,28 @@ SOURCES = {
                    "src/repro/kernels/qmatmul.py:333"),
     "qmatmul_a8_grouped": ("src/repro_torch/csrc/qmatmul.cu",
                            "src/repro/kernels/qmatmul.py:206"),
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/kernels/pointwise.py:52"),
+    "mha": ("src/repro_torch/csrc/attention.cu",
+            "src/repro/kernels/attention.py:85"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:70"),
 }
 # The path whose launch count a kernel reports in the kernels line.
 KERNEL_PATH = {"conv2d": "main", "maxpool2d": "main",
                "resize_nearest": "main", "pointwise": "fusion_off",
                "qmatmul": "quant_w8a16", "qmatmul_a8": "quant_w4a8",
-               "qmatmul_a8_grouped": "quant_per_group"}
+               "qmatmul_a8_grouped": "quant_per_group", "rmsnorm": "lm",
+               "mha": "lm", "decode_attention": "lm"}
+# The lm path: granite-3-8b at full width and depth, float32, served by
+# Engine (LmReplica + ContinuousBatch).
+LM_ARCH, LM_BATCH, LM_CACHE = "granite-3-8b", 4, 4096
+LM_REQ, LM_NEW, LM_PROMPT = 8, 32, (128, 2048)
+# Served logits against the plain path replaying the served tokens
+# (teacher forcing), max |difference| over every step of every request:
+# 9.12e-6 measured on the H100 (PERF.md, PR 13: the kernels' last-bit
+# differences and a 4-row against a 1-row matmul, through 40 layers).
+LM_TOL = 1e-4
 # (M, K, N, act, res) of the quantized matmul cases: matmul launches of
 # the quantized yolov8n at 640, batch 8 (stem, a 3x3 with residual at
 # 160, the 3x3 head at 80, the 3x3 at 20, the 1x1 class head at 80).
@@ -145,6 +189,24 @@ CONV_CASES = {
     "3x3s1_head_80": (80, 64, 3, 64, 1, "hardswish", False),
     "1x1_c2f_80": (80, 192, 1, 64, 1, "hardswish", False),
     "1x1_cls_80": (80, 64, 1, 80, 1, "identity", False),
+}
+# (B, Tq, Tk, Hq, Hkv, D, causal, window, softcap) of the attention
+# cases: granite-3-8b's prefill at 2048, a ragged length, a gemma2-like
+# local layer (D 256, window 256, softcap 50), and 128 queries at the end
+# of 2048 keys (causal offset Tk - Tq).
+MHA_CASES = {
+    "granite_T2048_causal": (1, 2048, 2048, 32, 8, 128, True, None, None),
+    "granite_T509_ragged": (1, 509, 509, 32, 8, 128, True, None, None),
+    "gemma2_D256_win256_cap50": (1, 1024, 1024, 8, 4, 256, True, 256, 50.0),
+    "granite_Tq128_Tk2048": (1, 128, 2048, 32, 8, 128, True, None, None),
+}
+# (B, S, Hq, Hkv, D, lengths, window, softcap) of the decode cases:
+# granite-3-8b's decode batch over a 4096 cache, and a gemma2-like one.
+DEC_CASES = {
+    "granite_B4_S4096": (4, 4096, 32, 8, 128, (1, 700, 2048, 4096), None,
+                         None),
+    "gemma2_D256_win512_cap50": (4, 4096, 8, 4, 256, (1, 300, 2048, 4096),
+                                 512, 50.0),
 }
 
 
@@ -427,6 +489,108 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set):
     return cases
 
 
+def visible_pairs(Tq: int, Tk: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks leave visible: the work of a kernel
+    that skips what is masked (queries are the last Tq positions)."""
+    import numpy as np
+    qi = np.arange(Tq) + Tk - Tq
+    hi = np.minimum(qi + 1, Tk) if causal else np.full(Tq, Tk)
+    lo = np.maximum(qi - window + 1, 0) if window else np.zeros(Tq, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def live_positions(S: int, lengths, window) -> list:
+    """Per row, the cache positions a decode step reads."""
+    out = []
+    for n in lengths:
+        hi = min(n, S)
+        out.append(hi - (max(hi - window, 0) if window else 0))
+    return out
+
+
+def lm_cases(torch, F, K, quant, dev):
+    """The LM kernels' cases, in ``qmm_cases``' form: RMSNorm at the
+    granite prefill and decode rows and the gemma2 width; attention
+    (MHA_CASES) and decode attention (DEC_CASES), whose bound counts only
+    the visible (query, key) pairs or the live cache rows; and #7 at the
+    granite decode shape (the MLP up projection of a W8 step: M = 4
+    rows, K = 4096, N = 12800). Library yardsticks: ``F.rms_norm``,
+    ``F.scaled_dot_product_attention`` with ``enable_gqa=True`` and a
+    boolean mask (none where a softcap is set: it has no softcap),
+    ``torch.matmul`` on the dequantized weight."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    cases = []
+    for R, D in ((2048, 4096), (4, 4096), (509, 2304)):
+        x, g = rnd(R, D), rnd(D, scale=0.1)
+        w1 = 1.0 + g
+        cases.append((
+            "rmsnorm", f"rows{R}_D{D}",
+            lambda x=x, g=g: K.pointwise.rmsnorm(x, g, 1e-6),
+            lambda x=x, g=g: K.ref.rmsnorm(x, g, 1e-6),
+            lambda x=x, w1=w1, D=D: F.rms_norm(x, (D,), w1, 1e-6),
+            5 * R * D, 4 * (2 * R * D + D), PEAK_FP32_FLOPS,
+            KERNEL_TOL["rmsnorm"], K.pointwise.rmsnorm_launches, None))
+    for name, (B, Tq, Tk, Hq, Hkv, D, causal, win, cap) in MHA_CASES.items():
+        q, k, v = rnd(B, Tq, Hq, D), rnd(B, Tk, Hkv, D), rnd(B, Tk, Hkv, D)
+        kw = dict(causal=causal, window=win, softcap=cap)
+        qi = torch.arange(Tq, device=dev)[:, None] + Tk - Tq
+        ki = torch.arange(Tk, device=dev)[None, :]
+        mask = (ki <= qi) if causal else torch.ones_like(ki <= qi)
+        if win:
+            mask = mask & (ki > qi - win)
+        lib = None if cap else (
+            lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=m, enable_gqa=True))
+        cases.append((
+            "mha", name,
+            lambda q=q, k=k, v=v, kw=kw: K.attention.mha(q, k, v, **kw),
+            lambda q=q, k=k, v=v, kw=kw: K.ref.mha(q, k, v, **kw), lib,
+            4 * B * Hq * D * visible_pairs(Tq, Tk, causal, win),
+            4 * (2 * q.numel() + k.numel() + v.numel()), PEAK_FP32_FLOPS,
+            KERNEL_TOL["mha"], K.attention.launches, None))
+    for name, (B, S, Hq, Hkv, D, lens, win, cap) in DEC_CASES.items():
+        q, kc, vc = rnd(B, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kw = dict(window=win, softcap=cap)
+        pos = torch.arange(S, device=dev)[None, :]
+        mask = pos < ln[:, None]
+        if win:
+            mask = mask & (pos >= ln[:, None] - win)
+        lib = None if cap else (
+            lambda q=q, kc=kc, vc=vc, m=mask[:, None, None, :]:
+                F.scaled_dot_product_attention(
+                    q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                    attn_mask=m, enable_gqa=True))
+        live = sum(live_positions(S, lens, win))
+        cases.append((
+            "decode_attention", name,
+            lambda q=q, kc=kc, vc=vc, ln=ln, kw=kw:
+                K.decode_attention.decode_attention(q, kc, vc, ln, **kw),
+            lambda q=q, kc=kc, vc=vc, ln=ln, kw=kw:
+                K.ref.decode_attention(q, kc, vc, ln, **kw), lib,
+            4 * Hq * D * live, 4 * (2 * live * Hkv * D + 2 * B * Hq * D + B),
+            PEAK_FP32_FLOPS, KERNEL_TOL["decode_attention"],
+            K.decode_attention.launches, None))
+    M, Kf, N = 4, 4096, 12800
+    x, w = rnd(M, Kf), rnd(Kf, N, scale=Kf ** -0.5)
+    qt = quant.quantize(w, quant.QuantConfig(bits=8))   # per tensor, as
+    wd = qt.dequantize().reshape(Kf, N)                 # one W8 layer's
+    sc, zr = qt.scale.reshape(1, -1), qt.zero.reshape(1, -1)
+    cases.append((
+        "qmatmul", "granite_decode_up_4x4096x12800_w8",
+        lambda: K.qmatmul.qmatmul(x, qt.q, qt.scale, qt.zero),
+        lambda: K.ref.qmatmul(x, qt.q, sc, zr),
+        lambda: torch.matmul(x, wd), 2 * M * Kf * N,
+        4 * (M * Kf + M * N + 2) + Kf * N, PEAK_FP32_FLOPS,
+        KERNEL_TOL["qmatmul"], K.qmatmul.qmatmul.launches, None))
+    return cases
+
+
 def check_kernels(torch, F, K, dev, conv_shapes: set) -> dict:
     per_kernel: dict = {}
     for kname, case, kfn, pfn, lfn, flops, nbytes in kernel_cases(
@@ -466,10 +630,12 @@ def check_kernels(torch, F, K, dev, conv_shapes: set) -> dict:
     return per_kernel
 
 
-def check_qmm(torch, K, quant, dev, mm_shapes: set, per_kernel: dict):
-    """Phase 2 for the quantized matmuls; adds to ``per_kernel``."""
+def check_cases(torch, cases: list, per_kernel: dict):
+    """Phase 2 for the cases of ``qmm_cases`` and ``lm_cases``: each
+    launches its kernel once (its counter moves by one), agrees with its
+    plain version, and is timed; adds to ``per_kernel``."""
     for (kname, case, kfn, pfn, lfn, ops, nbytes, peak, tol, moves,
-         stays) in qmm_cases(torch, K, quant, dev, mm_shapes):
+         stays) in cases:
         n_moves = moves.value
         n_stays = stays.value if stays is not None else 0
         got = kfn()
@@ -487,7 +653,7 @@ def check_qmm(torch, K, quant, dev, mm_shapes: set, per_kernel: dict):
         t_l = cuda_ms(torch, lfn) if lfn is not None else None
         b_ops, b_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
         lib = f"{t_l:.4f}ms" if t_l is not None else "n/a"
-        print(f"  {kname:18s} {case:28s} max_abs_err={err:.3e} "
+        print(f"  {kname:18s} {case:34s} max_abs_err={err:.3e} "
               f"(tol {'bit-equal' if tol == 0 else tol}) "
               f"kernel={t_k:.4f}ms plain={t_p:.4f}ms library={lib} "
               f"bound={max(b_ops, b_bytes):.4f}ms "
@@ -771,11 +937,284 @@ def quant_extra_spans(torch, codegen, ops, quant, acc, float_params) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the lm path: granite-3-8b served by Engine, checked by teacher forcing
+# --------------------------------------------------------------------------
+
+def lm_prompts(np, vocab: int) -> list:
+    """LM_REQ prompts, lengths uniform in LM_PROMPT, from seed 0."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQ)
+    return [[int(t) for t in rng.integers(0, vocab, size=int(n))]
+            for n in lens]
+
+
+def serve_lm(torch, np, Engine, Request, cfg, params, dev, prompts):
+    """Serve ``prompts`` through ``Engine`` (greedy, LM_NEW tokens each).
+    The replica's sampler records the logits it samples from (the served
+    logits), and its prefill is timed on the host clock between two
+    synchronisations (its sampling synchronises right after anyway).
+    Returns (finished requests, wall s, {uid: [logits per token]},
+    [(prompt length, prefill ms)], decode steps, [host ms to issue each
+    decode step])."""
+    eng = Engine(cfg, params, max_batch=LM_BATCH, cache_size=LM_CACHE,
+                 seed=0, device=dev)
+    rep = eng._replica
+    served: dict = {}
+    prefill_ms: list = []
+    sample, prefill = rep._sample, rep._prefill1
+
+    def record(logits, req):
+        row = logits.detach().float().cpu().numpy() \
+            if isinstance(logits, torch.Tensor) \
+            else np.array(logits, np.float32)
+        served.setdefault(req.uid, []).append(row)
+        return sample(logits, req)
+
+    def timed_prefill(p, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(p, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((int(batch["tokens"].shape[1]),
+                           (time.perf_counter() - t0) * 1e3))
+        return out
+
+    decode, decode_issue = rep._decode, []
+
+    def timed_decode(p, tokens, cache):
+        t0 = time.perf_counter()
+        out = decode(p, tokens, cache)
+        decode_issue.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    rep._sample, rep._prefill1 = record, timed_prefill
+    rep._decode = timed_decode
+    for i, prompt in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=prompt, max_new_tokens=LM_NEW))
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = rep.stats["batches"]
+    eng.close()
+    return done, wall, served, prefill_ms, steps, decode_issue
+
+
+def replay_plain(torch, np, lm, ops, cfg, params, dev, prompts, done,
+                 served) -> dict:
+    """Teacher forcing on the plain path: every request's prompt, then
+    its served tokens one by one, through ``lm.prefill`` and
+    ``lm.decode_step`` with the default backend set to ``"ref"`` (the
+    plain versions, on the card). Returns the max and mean |served -
+    plain| logits over every step, and how many served tokens were held
+    to the plain argmax (those whose plain top-2 margin exceeds twice
+    that step's difference; a mismatch there raises)."""
+    diffs, checked, skipped = [], 0, 0
+    ops.set_default_backend("ref")
+    try:
+        for req in sorted(done, key=lambda r: r.uid):
+            prompt, out = prompts[req.uid], req.out_tokens
+            rows = []
+            with torch.inference_mode():
+                toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+                logits, cache = lm.prefill(params, cfg, {"tokens": toks},
+                                           len(prompt) + LM_NEW)
+                rows.append(logits[0].cpu())
+                for t in out[:-1]:
+                    logits, cache = lm.decode_step(
+                        params, cfg,
+                        torch.tensor([t], dtype=torch.int32, device=dev),
+                        cache)
+                    rows.append(logits[0].cpu())
+            got = served[req.uid]
+            if len(got) != len(rows) or len(out) != LM_NEW:
+                raise AssertionError(f"lm request {req.uid}: {len(out)} "
+                                     f"tokens, {len(got)} served logits")
+            for t, (want, g) in enumerate(zip(rows, got)):
+                g = torch.from_numpy(g)
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"lm request {req.uid} step {t}: "
+                                         f"non-finite logits")
+                d = float((g - want).abs().max())
+                diffs.append(d)
+                top2 = torch.topk(want, 2).values
+                if float(top2[0] - top2[1]) > 2 * d:
+                    checked += 1
+                    if out[t] != int(want.argmax()):
+                        raise AssertionError(
+                            f"lm request {req.uid} step {t}: served token "
+                            f"{out[t]} != plain argmax {int(want.argmax())}"
+                            f" (margin {float(top2[0] - top2[1]):.3e}, "
+                            f"difference {d:.3e})")
+                else:
+                    skipped += 1
+    finally:
+        ops.set_default_backend("auto")
+    return {"max_abs_err": max(diffs), "mean_step_err": sum(diffs)
+            / len(diffs), "tokens_checked": checked,
+            "tokens_within_margin": skipped}
+
+
+def profile_call(torch, fn, top: int = 6) -> dict:
+    """Three calls of ``fn`` (after a warm-up call) on the host clock,
+    then one under ``torch.profiler``: ``issue`` (the host's time to
+    return from ``fn``, the queue empty at its start, median), ``wall``
+    (to the end of a synchronise after it, median), and from the
+    profiler's kernel records
+    ``busy`` (the kernels' summed time), ``span`` (first kernel start to
+    last kernel end), ``kernels`` (launches) and the ``top`` kernel
+    names by time; the device numbers are None where the profiler
+    records no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    issue, wall = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        issue.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    out = {"issue": sorted(issue)[1], "wall": sorted(wall)[1], "busy": None,
+           "span": None, "kernels": 0, "top": []}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if ks:
+        by_name: dict = {}
+        for e in ks:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+        out.update(
+            busy=sum(by_name.values()), kernels=len(ks),
+            span=(max(e.time_range.end for e in ks)
+                  - min(e.time_range.start for e in ks)) / 1e3,
+            top=sorted(((round(v, 3), k[:60]) for k, v in by_name.items()),
+                       reverse=True)[:top])
+    return out
+
+
+def lm_spans(torch, lm, cfg, params, dev) -> dict:
+    """``profile_call`` of one prefill at two prompt lengths and of one
+    decode step of LM_BATCH rows over a LM_CACHE cache at lengths 128,
+    700, 2048 and 4000."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out: dict = {}
+    with torch.inference_mode():
+        for T in (512, 2048):
+            toks = torch.randint(0, cfg.vocab, (1, T), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            out[f"prefill_{T}"] = profile_call(torch, lambda: lm.prefill(
+                params, cfg, {"tokens": toks}, T + LM_NEW))
+        cache = lm.init_cache(cfg, LM_BATCH, LM_CACHE, device=dev)
+        cache["len"] = torch.tensor([128, 700, 2048, 4000][:LM_BATCH],
+                                    dtype=torch.int32, device=dev)
+        tokens = torch.arange(1, LM_BATCH + 1, dtype=torch.int32,
+                              device=dev)
+        out["decode_step"] = profile_call(
+            torch, lambda: lm.decode_step(params, cfg, tokens, cache))
+    del cache
+    return out
+
+
+def run_lm(torch, np, lm, ops, registry, Engine, Request, counters,
+           dev) -> tuple:
+    """The lm path: granite-3-8b at full width and depth, random float32
+    weights from a seeded generator on the card, served by Engine with
+    the launch counters set to 0 just before and read just after;
+    launches checked per prefill and per decode step; the served logits
+    held to the plain path by teacher forcing (LM_TOL, and the served
+    tokens to its argmax where its margin is clear); spans timed."""
+    cfg = registry.get(LM_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params / 1e9:.3f} B float32 "
+          f"parameters ({n_params * 4 / 2 ** 30:.1f} GiB) made on {dev} in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    prompts = lm_prompts(np, cfg.vocab)
+    for c in counters.values():
+        c.reset()
+    done, wall, served, prefill_ms, steps, decode_issue = serve_lm(
+        torch, np, Engine, Request, cfg, params, dev, prompts)
+    counts = {k: c.value for k, c in counters.items()}
+    n_pre = len(prompts)
+    per_layer = cfg.n_layers
+    want = {k: 0 for k in counters}
+    want.update(rmsnorm=(2 * per_layer + 1) * (n_pre + steps),
+                mha=per_layer * n_pre, decode_attention=per_layer * steps)
+    if len(done) != n_pre or not all(r.done for r in done) \
+            or counts != want:
+        raise AssertionError(f"lm: {len(done)} requests done over {steps} "
+                             f"decode steps, launches {counts}, expected "
+                             f"{want}")
+    n_tok = sum(len(r.out_tokens) for r in done)
+    print(f"[lm] Engine(max_batch={LM_BATCH}, cache_size={LM_CACHE}) served "
+          f"{len(done)} requests (prompts {sorted(len(p) for p in prompts)}"
+          f", {LM_NEW} greedy tokens each) in {wall:.2f}s over {steps} "
+          f"decode steps: {n_tok / wall:.1f} tokens/s; launches {counts} = "
+          f"per prefill rmsnorm {2 * per_layer + 1} + mha {per_layer}, per "
+          f"decode step rmsnorm {2 * per_layer + 1} + decode_attention "
+          f"{per_layer}", flush=True)
+    issue_med = sorted(decode_issue)[len(decode_issue) // 2]
+    step_ms = (wall - sum(m for _, m in prefill_ms) / 1e3) / steps * 1e3
+    print("[lm] prefill ms by prompt length (host clock, synchronised): "
+          + ", ".join(f"{n}: {m:.1f}" for n, m in sorted(prefill_ms))
+          + f"; the rest of the run over the decode steps: {step_ms:.2f} "
+          f"ms a step, host issue median {issue_med:.2f} ms", flush=True)
+    check = replay_plain(torch, np, lm, ops, cfg, params, dev, prompts,
+                         done, served)
+    print(f"[lm] teacher-forced plain path on the card: served logits "
+          f"within {check['max_abs_err']:.3e} (mean per step "
+          f"{check['mean_step_err']:.3e}; tolerance {LM_TOL}); "
+          f"{check['tokens_checked']} served tokens equal to the plain "
+          f"argmax where its top-2 margin exceeds twice the step's "
+          f"difference, {check['tokens_within_margin']} within that "
+          f"margin", flush=True)
+    if not check["max_abs_err"] <= LM_TOL:
+        raise AssertionError(f"lm: served logits {check['max_abs_err']} "
+                             f"from the plain path, tolerance {LM_TOL}")
+    spans = lm_spans(torch, lm, cfg, params, dev)
+    for name, sp in spans.items():
+        dev_txt = "device not measured (no kernel records)" \
+            if sp["busy"] is None else (
+                f"kernels {sp['busy']:.3f} ms busy over a {sp['span']:.3f}"
+                f" ms span ({sp['kernels']} launches; idle share "
+                f"{1 - sp['busy'] / sp['span']:.3f}); top {sp['top']}")
+        print(f"[lm] {name}: host issue {sp['issue']:.3f} ms, issue to "
+              f"synchronised {sp['wall']:.3f} ms; {dev_txt}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return counts, {"requests": len(done), "tokens": n_tok, "wall_s": wall,
+                    "tokens_per_s": n_tok / wall, "decode_steps": steps,
+                    "prefill_ms": sorted(prefill_ms), "spans_ms": spans,
+                    "decode_issue_ms_median": issue_med,
+                    "decode_step_ms_in_serving": step_ms,
+                    "check": check, "tolerance": LM_TOL}
+
+
+def _leaves(tree) -> list:
+    """The leaves of a nested dict."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
     args = ap.parse_args()
 
+    T0 = time.perf_counter()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -789,9 +1228,12 @@ def main() -> int:
         from repro_torch.core import codegen
         from repro_torch.data.synthetic import ImageStream
         from repro_torch.kernels import _build
-        from repro_torch.kernels import (conv2d, maxpool, ops, pointwise,
-                                         qmatmul, ref, resize)
-        from repro_torch.models import yolo
+        from repro_torch.configs import registry
+        from repro_torch.kernels import (attention, conv2d, decode_attention,
+                                         maxpool, ops, pointwise, qmatmul,
+                                         ref, resize)
+        from repro_torch.models import lm, yolo
+        from repro_torch.serve.engine import Engine, Request
         from repro_torch.core import quant
         from repro_torch.core.quant import QTensor, dequantize
         from repro_torch.core.toolflow import place
@@ -803,13 +1245,18 @@ def main() -> int:
         return 3
 
     K = types.SimpleNamespace(conv2d=conv2d, maxpool=maxpool, resize=resize,
-                              pointwise=pointwise, qmatmul=qmatmul, ref=ref)
+                              pointwise=pointwise, qmatmul=qmatmul, ref=ref,
+                              attention=attention,
+                              decode_attention=decode_attention)
     counters = {"conv2d": conv2d.launches, "maxpool2d": maxpool.launches,
                 "resize_nearest": resize.launches,
                 "pointwise": pointwise.launches,
                 "qmatmul": qmatmul.qmatmul.launches,
                 "qmatmul_a8": qmatmul.qmatmul_a8.launches,
-                "qmatmul_a8_grouped": qmatmul.qmatmul_a8_grouped.launches}
+                "qmatmul_a8_grouped": qmatmul.qmatmul_a8_grouped.launches,
+                "rmsnorm": pointwise.rmsnorm_launches,
+                "mha": attention.launches,
+                "decode_attention": decode_attention.launches}
     quant_ref = codegen.QuantBackend(name="quant_ref", dispatch="ref")
     quant_kern = codegen.get_backend("quant")
 
@@ -854,8 +1301,10 @@ def main() -> int:
     print("[kernels] each kernel vs its plain version on the card", flush=True)
     per_kernel = check_kernels(torch, F, K, torch.device("cuda", 0),
                                conv_launch_shapes(codegen, acc.graph))
-    check_qmm(torch, K, quant, torch.device("cuda", 0),
-              matmul_launch_shapes(codegen, acc_q.graph), per_kernel)
+    dev0 = torch.device("cuda", 0)
+    check_cases(torch, qmm_cases(torch, K, quant, dev0, matmul_launch_shapes(
+        codegen, acc_q.graph)) + lm_cases(torch, F, K, quant, dev0),
+        per_kernel)
 
     # ---------------------------------------------------------------- 3
     model_off = yolo.build("yolov8n", 160)
@@ -1020,9 +1469,6 @@ def main() -> int:
     paths = {"main": main_counts, "fusion_off": off_counts,
              "quant_w8a16": q_counts, "quant_w4a8": c4,
              "quant_per_group": cg, "mixed": cm}
-    for kname, path in KERNEL_PATH.items():
-        if paths[path][kname] <= 0:
-            raise AssertionError(f"{kname} never launched on {path}")
 
     # ---------------------------------------------------------------- 4
     # A short serving window after warm-up: a smoke reading of the
@@ -1060,6 +1506,14 @@ def main() -> int:
           flush=True)
 
     # ---------------------------------------------------------------- 5
+    # lm: granite-3-8b at full width and depth, served by Engine
+    paths["lm"], lm_run = run_lm(torch, np, lm, ops, registry, Engine,
+                                 Request, counters, dev0)
+    for kname, path in KERNEL_PATH.items():
+        if paths[path][kname] <= 0:
+            raise AssertionError(f"{kname} never launched on {path}")
+
+    # ---------------------------------------------------------------- 6
     kernels = []
     for kname, agg in per_kernel.items():
         src, replaces = SOURCES[kname]
@@ -1095,7 +1549,8 @@ def main() -> int:
                       "mixed_max_abs_err": err_m, "probes": probes,
                       "w8a16_forward_ms": fwd_q,
                       "w8a16_replica_step_spans_ms": spans_q},
-            "build_s": info["seconds"]}, indent=1))
+            "lm": lm_run, "build_s": info["seconds"]}, indent=1))
+    print(f"[time] chip_smoke.py ran {time.perf_counter() - T0:.0f}s")
     print(f"[card] {smi()}")
     print(json.dumps({"kernels": kernels}))
     # every phase ran on cuda:0: the run used one card

@@ -3,16 +3,18 @@ its reference).
 
 The same toolflow — YOLO builders emitting one IR, rewrite passes, the
 DSE and buffer plan, the design-rule checker, codegen and the serving
-``Deployment`` — with every Pallas kernel of the float and the quantized
-serving paths replaced by a hand-written CUDA kernel for Hopper
-(``csrc/``). Entry points run on the card unless the caller names the
-CPU.
+``Deployment`` — and the dense LM family served by ``Engine``, with
+every Pallas kernel of the float and the quantized YOLO serving paths
+and of dense-LM serving replaced by a hand-written CUDA kernel for
+Hopper (``csrc/``). Entry points run on the card unless the caller
+names the CPU.
 
 Layout mirrors ``repro``: ``core`` (ir, quant, passes, check, dse,
 buffers, codegen, toolflow), ``kernels`` (ops dispatch, plain versions in
-``ref``, one module per CUDA kernel), ``models.yolo``, ``serve``
-(with the deprecated ``serve.detection`` shim), ``check`` (the
-design-rule checker's command line), ``data.synthetic``,
-``roofline.hw``. The package imports torch, numpy and
-the standard library only.
+``ref``, one module per CUDA kernel), ``configs`` (the LM registry),
+``nn`` (layers, attention), ``models`` (``yolo``, ``lm``), ``serve``
+(with the deprecated ``serve.detection`` and ``serve.engine`` shims),
+``check`` (the design-rule checker's command line), ``data.synthetic``,
+``roofline.hw``. The package imports torch, numpy and the standard
+library only.
 """

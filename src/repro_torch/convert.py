@@ -24,23 +24,28 @@ def _is_qtensor(v) -> bool:
                                        "shape", "packed"))
 
 
+def _leaf(v, device):
+    if _is_qtensor(v):
+        return QTensor(q=_tensor(v.q, device), scale=_tensor(v.scale, device),
+                       zero=_tensor(v.zero, device), bits=int(v.bits),
+                       shape=tuple(int(d) for d in v.shape),
+                       packed=bool(v.packed))
+    return _tensor(v, device)
+
+
+def lm_params_from_numpy(params: dict, device="cpu") -> dict:
+    """A JAX LM parameter tree (nested dicts of arrays and QTensor-likes,
+    layers stacked on axis 0) → the same tree of tensors and
+    :class:`~repro_torch.core.quant.QTensor`\\ s on ``device``."""
+    if isinstance(params, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in params.items()}
+    return _leaf(params, device)
+
+
 def params_from_numpy(params: dict, device="cpu") -> dict:
     """``{node: {"w": ndarray | QTensor-like, "b": ndarray}}`` → the
     port's params on ``device``: arrays become tensors of the same dtype
     and QTensor-likes become :class:`~repro_torch.core.quant.QTensor`\\ s
     with the same codes, scales and layout."""
-    out: dict = {}
-    for name, p in params.items():
-        conv: dict = {}
-        for k, v in p.items():
-            if _is_qtensor(v):
-                conv[k] = QTensor(q=_tensor(v.q, device),
-                                  scale=_tensor(v.scale, device),
-                                  zero=_tensor(v.zero, device),
-                                  bits=int(v.bits),
-                                  shape=tuple(int(d) for d in v.shape),
-                                  packed=bool(v.packed))
-            else:
-                conv[k] = _tensor(v, device)
-        out[name] = conv
-    return out
+    return {name: {k: _leaf(v, device) for k, v in p.items()}
+            for name, p in params.items()}

@@ -50,6 +50,9 @@ _SIGNATURES = {
     + [_I] * 4 + [_P],
     "repro_qmatmul_a8_grouped": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P,
                                  _P, _P] + [_I] * 4 + [_P],
+    "repro_rmsnorm_f32": [_P, _P, _P, _LL, _I, _F, _I, _P],
+    "repro_mha_f32": [_P] * 4 + [_I] * 8 + [_F, _F, _P],
+    "repro_decode_attention_f32": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -162,6 +165,25 @@ def library() -> ctypes.CDLL:
         build_info.update(info, path=str(path))
         _lib = lib
         return lib
+
+
+def check_no_grad(*tensors: torch.Tensor) -> None:
+    """Raise if any operand requires grad: the kernels have no backward
+    yet, and a silent fall back to the plain version would hide that."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.requires_grad:
+            raise RuntimeError(
+                "the CUDA kernel has no backward yet (ROADMAP.md, modules "
+                "to port: training); run under torch.inference_mode() or "
+                "torch.no_grad(), or on the plain versions (backend='ref')")
+
+
+def check_aligned(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t``'s data starts on a 16-byte boundary (the
+    kernels read 16 bytes at a time)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} does not start on a 16-byte boundary "
+                         f"(an offset view?); make a fresh copy")
 
 
 def check_operand(name: str, t: torch.Tensor, device: torch.device,

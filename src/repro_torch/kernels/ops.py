@@ -1,7 +1,9 @@
-"""Public kernel entry points with backend dispatch (the CNN and quantized
-half of the JAX package's ``kernels/ops.py``).
+"""Public kernel entry points with backend dispatch (the CNN, quantized
+and dense-LM part of the JAX package's ``kernels/ops.py``; ``ssd_scan``
+is not ported yet).
 
-Backends (per-call ``backend=``; ``None`` means ``"auto"``):
+Backends (per-call ``backend=``; ``None`` means the default,
+``"auto"`` unless :func:`set_default_backend` says otherwise):
 
 * ``"ref"``  — the plain PyTorch versions (``kernels/ref.py``) on any
   device: the reference executor the kernels are checked against.
@@ -34,7 +36,9 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from . import attention as _attn
 from . import conv2d as _conv
+from . import decode_attention as _dec
 from . import maxpool as _pool
 from . import pointwise as _pw
 from . import qmatmul as _qmm
@@ -42,10 +46,22 @@ from . import ref
 from . import resize as _resize
 
 _BACKENDS = ("auto", "cuda", "ref")
+_DEFAULT = "auto"
+
+
+def set_default_backend(name: str) -> None:
+    """The backend a call takes when it names none (``backend=None``),
+    as the JAX package's ``ops.set_default_backend``; ``"auto"`` at
+    import. The LM stack names none, so ``"ref"`` runs it on the plain
+    versions, on any device."""
+    global _DEFAULT
+    if name not in _BACKENDS:
+        raise ValueError(f"backend {name!r}: expected one of {_BACKENDS}")
+    _DEFAULT = name
 
 
 def _resolve(backend: str | None, x: torch.Tensor) -> str:
-    be = backend or "auto"
+    be = backend or _DEFAULT
     if be not in _BACKENDS:
         raise ValueError(f"backend {be!r}: expected one of {_BACKENDS}")
     if be == "cuda" and not x.is_cuda:
@@ -297,3 +313,40 @@ def qconv2d_a8(x, q, scale, zero, b=None, *, x_scale, a_bits=8, K=1,
                             scale, zero, b, x_scale=mscale, act=act,
                             res=res2, w_packed=w_packed, pipeline=pipeline)
     return _pool_epilogue(y.reshape(N, Ho, Wo, Fo), pool, be)
+
+
+# --------------------------------------------------------------------------
+# LM kernels: attention, decode attention, RMSNorm
+# --------------------------------------------------------------------------
+
+def mha(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
+        backend=None) -> torch.Tensor:
+    """Full-sequence attention. q: (B, Tq, Hq, D); k, v: (B, Tk, Hkv,
+    D). ``window=None`` is full attention."""
+    be = _resolve(backend, q)
+    if be == "ref":
+        return ref.mha(q, k, v, causal=causal, window=window,
+                       softcap=softcap, scale=scale)
+    return _attn.mha(q, k, v, causal=causal, window=window,
+                     softcap=softcap, scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window=None,
+                     softcap=None, scale=None, backend=None) -> torch.Tensor:
+    """One query row per (row, q head) over a KV cache. q: (B, Hq, D);
+    caches: (B, S, Hkv, D); cache_len: (B,) int32 valid positions."""
+    be = _resolve(backend, q)
+    if be == "ref":
+        return ref.decode_attention(q, k_cache, v_cache, cache_len,
+                                    window=window, softcap=softcap,
+                                    scale=scale)
+    return _dec.decode_attention(q, k_cache, v_cache, cache_len,
+                                 window=window, softcap=softcap, scale=scale)
+
+
+def rmsnorm(x, g, *, eps=1e-6, backend=None) -> torch.Tensor:
+    """``x·rsqrt(mean(x²) + eps)·(1 + g)`` over the last axis."""
+    be = _resolve(backend, x)
+    if be == "ref":
+        return ref.rmsnorm(x, g, eps)
+    return _pw.rmsnorm(x, g, eps)

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the port's CNN and quantized kernels.
+"""Plain PyTorch versions of the port's CNN, quantized and LM kernels.
 
 The semantic ground truth the CUDA kernels are held against, on the CPU
-in the tests and on the card in ``chip_smoke.py``. A port of the CNN
-and quantized-matmul half of the JAX package's ``kernels/ref.py``: NHWC
+in the tests and on the card in ``chip_smoke.py``. A port of the CNN,
+quantized-matmul, attention and RMSNorm parts of the JAX package's
+``kernels/ref.py`` (not ``ssd_scan``): NHWC
 activations, HWIO ``(K, K, C, F)`` weights, float32 arithmetic, integer
 accumulators exact.
 
@@ -12,6 +13,8 @@ after. ``F.conv2d(padding=...)`` pads symmetrically, so the pads are
 applied explicitly with ``F.pad``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -230,3 +233,85 @@ def qmatmul_a8(x: torch.Tensor, wq: torch.Tensor, scale, zero, x_scale,
     if res is not None:
         y = y + res.to(torch.float32)
     return y
+
+
+# --------------------------------------------------------------------------
+# LM kernels: attention, decode attention, RMSNorm (copies of the JAX
+# package's ref.mha, ref.decode_attention and ref.rmsnorm)
+# --------------------------------------------------------------------------
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, window: int | None = None,
+        softcap: float | None = None,
+        scale: float | None = None) -> torch.Tensor:
+    """q: (B, Tq, Hq, D); k, v: (B, Tk, Hkv, D). GQA by head repetition.
+
+    ``window``: sliding-window size (query i attends to keys in
+    (i + off - window, i + off], off = Tk - Tq). ``softcap``:
+    ``cap·tanh(s/cap)`` on the scores. A query row with no visible key
+    is NaN (its softmax is over -inf only)."""
+    B, Tq, Hq, D = q.shape
+    _, Tk, Hkv, _ = k.shape
+    rep = Hq // Hkv
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    off = Tk - Tq  # queries are the last Tq positions of the kv stream
+    qi = torch.arange(Tq, device=q.device)[:, None] + off
+    ki = torch.arange(Tk, device=q.device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    s = torch.where(mask[None, None], s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
+    return o.to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len, *,
+                     window: int | None = None,
+                     softcap: float | None = None,
+                     scale: float | None = None) -> torch.Tensor:
+    """Single-token decode. q: (B, Hq, D); caches: (B, S, Hkv, D).
+
+    ``cache_len``: number of valid cache positions (int or (B,) tensor);
+    position ``pos`` is visible when ``pos < len`` (and
+    ``pos >= len - window`` with a window)."""
+    B, S, Hkv, D = k_cache.shape
+    Hq = q.shape[1]
+    rep = Hq // Hkv
+    kc = k_cache.repeat_interleave(rep, dim=2) if rep > 1 else k_cache
+    vc = v_cache.repeat_interleave(rep, dim=2) if rep > 1 else v_cache
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    s = torch.einsum("bhd,bshd->bhs", q.to(torch.float32),
+                     kc.to(torch.float32)) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(S, device=q.device)[None, :]
+    clen = torch.as_tensor(cache_len, device=q.device)
+    clen = clen[:, None] if clen.ndim == 1 else clen.reshape(1, 1)
+    valid = pos < clen
+    if window is not None:
+        valid &= pos >= clen - window
+    s = torch.where(valid[:, None, :], s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", p,
+                        vc.to(torch.float32)).to(q.dtype)
+
+
+def rmsnorm(x: torch.Tensor, g: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """``x·rsqrt(mean(x²) + eps)·(1 + g)`` over the last axis, in
+    float32 (the (1+g) convention: a zero ``g`` is the identity
+    scale)."""
+    xf = x.to(torch.float32)
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * r * (1.0 + g.to(torch.float32))).to(x.dtype)

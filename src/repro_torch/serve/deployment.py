@@ -32,8 +32,8 @@ roles that every workload (vision detection, LM decoding) shares:
   kept as the ablation baseline.
 
 A torch port of the JAX package's ``serve/deployment.py``. Not ported
-yet: ``LmReplica`` (the LM slice) and tensor-parallel replicas (the
-multi-GPU slice); both raise ``NotImplementedError``.
+yet: tensor-parallel replicas (the multi-GPU slice), which raise
+``NotImplementedError``; ``LmReplica`` serves the dense LM family.
 
 Rejections are counted ONCE per request: a request that bounces off a
 full queue, drains under back-pressure, and is resubmitted is one
@@ -447,15 +447,138 @@ def step_fn_for(acc, backend=None):
         return make_step_fn(acc.graph, backend)
 
 
+def _host(x) -> np.ndarray:
+    """Logits as float32 numpy (a tensor is copied off its device)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
 class LmReplica:
-    """The continuous-batching LM worker: not ported yet."""
+    """Continuous-batching LM worker: the decode slots + KV cache behind
+    the Replica protocol. ``dispatch(admitted)`` prefills the newly
+    admitted requests into free slots and issues ONE decode step
+    (CUDA launches are async); ``complete`` blocks on the logits,
+    samples, and frees finished slots immediately. Stateful, so
+    ``max_inflight`` is 1.
+
+    ``device=None`` is ``cuda:0`` (``RuntimeError`` without CUDA); the
+    parameters are copied there unless they already live there. Prefill
+    and decode run under ``torch.inference_mode()``; the cache's
+    ``len`` stays a device tensor that the attention kernels read on
+    the card (one small host-to-device copy per step, no host sync).
+    Only the dense family with a float KV cache is ported
+    (``NotImplementedError`` otherwise)."""
 
     max_inflight = 1
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LmReplica is not ported yet (ROADMAP.md, modules to port: "
-            "the LM stack)")
+    def __init__(self, cfg, params, *, max_batch: int = 4,
+                 cache_size: int = 256, seed: int = 0, device=None,
+                 index: int = 0):
+        from ..models import lm         # deferred: vision path stays light
+        lm.check_supported(cfg)
+        self._lm = lm
+        self.cfg = cfg
+        self.max_batch = max_batch
+        self.cache_size = cache_size
+        self.index = index
+        self.device = resolve_device(device)
+        self.params = lm.split_layers(lm.place(params, self.device), cfg)
+        self.rng = np.random.default_rng(seed)
+        self.slots: list = [None] * max_batch
+        with torch.inference_mode():
+            self.cache = lm.init_cache(cfg, max_batch, cache_size,
+                                       torch.float32, device=self.device)
+        self._row_len = np.zeros(max_batch, np.int32)
+        self.stats = {"frames": 0, "batches": 0, "padded_slots": 0,
+                      "busy_s": 0.0}
+
+    def capacity(self) -> int:
+        return sum(s is None for s in self.slots)
+
+    def has_work(self) -> bool:
+        return any(s is not None for s in self.slots)
+
+    # ------------------------------------------------------------ internals
+    def _prefill1(self, params, batch):
+        with torch.inference_mode():
+            return self._lm.prefill(params, self.cfg, batch, self.cache_size)
+
+    def _decode(self, params, tokens, cache):
+        with torch.inference_mode():
+            return self._lm.decode_step(params, self.cfg, tokens, cache)
+
+    def _admit_one(self, req) -> None:
+        slot = self.slots.index(None)
+        toks = torch.tensor(req.prompt, dtype=torch.int32,
+                            device=self.device)[None]
+        logits, row_cache = self._prefill1(self.params, {"tokens": toks})
+        req.out_tokens.append(self._sample(logits[0], req))
+        self._install_row(slot, row_cache, len(req.prompt))
+        self.slots[slot] = req
+
+    def _install_row(self, slot: int, row_cache: dict, plen: int) -> None:
+        with torch.inference_mode():
+            for k, dst in self.cache.items():
+                if k == "len":
+                    continue
+                src = row_cache[k]
+                if dst.ndim >= 2 and src.shape[0] == dst.shape[0]:
+                    # stacked-layer leaves: batch axis is 1
+                    dst[:, slot] = src[:, 0].to(dst.dtype)
+                else:
+                    dst[slot] = src[0].to(dst.dtype)
+        # the prefill-emitted token is NOT in the cache yet: the next
+        # decode_step writes it at position `len` (= prompt length)
+        self._row_len[slot] = plen
+        self._upload_len()
+
+    def _upload_len(self) -> None:
+        self.cache["len"] = torch.from_numpy(self._row_len.copy()).to(
+            self.device)
+
+    def _sample(self, logits, req) -> int:
+        logits = _host(logits)
+        if req.temperature <= 0:
+            return int(np.argmax(logits))
+        p = np.exp((logits - logits.max()) / req.temperature)
+        p /= p.sum()
+        return int(self.rng.choice(len(p), p=p))
+
+    # ------------------------------------------------------------- protocol
+    def dispatch(self, admitted: list):
+        for req in admitted:
+            self._admit_one(req)
+        if not self.has_work():
+            return None
+        last = np.zeros(self.max_batch, np.int32)
+        for i, req in enumerate(self.slots):
+            if req is not None:
+                last[i] = req.out_tokens[-1]
+        self._upload_len()
+        logits, self.cache = self._decode(
+            self.params, torch.from_numpy(last).to(self.device), self.cache)
+        return logits                   # not waited for: launches are async
+
+    def complete(self, logits) -> list:
+        if logits is None:
+            return []
+        finished: list = []
+        logits_np = _host(logits)
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            req.out_tokens.append(self._sample(logits_np[i], req))
+            self._row_len[i] += 1
+            full = self._row_len[i] >= self.cache_size - 1
+            if len(req.out_tokens) >= req.max_new_tokens or full:
+                req.done = True
+                finished.append(req)
+                self.slots[i] = None
+                self._row_len[i] = 0    # slot freed immediately
+        self.stats["frames"] += len(finished)
+        self.stats["batches"] += 1
+        return finished
 
 
 # --------------------------------------------------------------------------

@@ -126,6 +126,9 @@ def pytest_configure(config):
         "markers", "bench: benchmark smoke runs (fusion ablation at tiny "
         "image sizes) — deselected from the tier-1 default run; select "
         "explicitly with `-m bench`")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one (run on the "
+        "card with `-m gpu`)")
 
 
 def pytest_collection_modifyitems(config, items):

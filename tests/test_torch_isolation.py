@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package,
 its entry points refuse to fall back to the CPU, and what is not ported
-yet (the double-buffered K sweep, tensor parallelism, the LM replica)
-raises ``NotImplementedError``."""
+yet (the double-buffered K sweep, tensor parallelism, the LM families
+other than dense) raises ``NotImplementedError``."""
 import ast
 import subprocess
 import sys
@@ -12,9 +12,11 @@ import pytest
 import torch
 
 import repro_torch.core as tcore
+from repro_torch.configs import registry
 from repro_torch.kernels.qmatmul import qmatmul_a8
-from repro_torch.models import yolo
+from repro_torch.models import lm, yolo
 from repro_torch.serve import Deployment, LmReplica
+from repro_torch.serve.engine import Engine
 
 PKG = Path(__file__).resolve().parent.parent / "src" / "repro_torch"
 
@@ -29,7 +31,8 @@ def test_no_file_imports_jax_or_the_jax_package():
     assert len(files) > 20
     names = {str(f.relative_to(PKG)) for f in files}
     assert {"kernels/qmatmul.py", "serve/detection.py",
-            "check/__main__.py"} <= names
+            "check/__main__.py", "models/lm.py", "nn/attention.py",
+            "serve/engine.py", "configs/registry.py"} <= names
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
@@ -62,6 +65,14 @@ def test_import_compile_and_run_load_no_jax():
                             torch_device="cpu")
         outs = qacc.forward(torch.ones(2, 32, 32, 3))
         assert len(outs) == 2 and "quant_mean_rel_delta" in qacc.report
+        from repro_torch.configs import registry
+        from repro_torch.models import lm
+        from repro_torch.serve.engine import Engine, Request
+        cfg = registry.reduced("granite-3-8b")
+        params = lm.init_params(cfg, torch.Generator(), device="cpu")
+        eng = Engine(cfg, params, max_batch=2, cache_size=16, device="cpu")
+        eng.submit(Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2))
+        assert len(eng.run()[0].out_tokens) == 2
         bad = sorted(m for m in sys.modules if m == "jax"
                      or m.startswith("jax") or m == "repro"
                      or m.startswith("repro."))
@@ -89,6 +100,12 @@ def test_entry_points_refuse_silent_cpu(monkeypatch, cpu_acc):
         Deployment(cpu_acc)
     with pytest.raises(RuntimeError):
         tcore.compile(yolo.build("yolov3-tiny", 32), torch_device="cuda")
+    cfg = registry.reduced("granite-3-8b")
+    params = lm.init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="CPU"):
+        LmReplica(cfg, params)
+    with pytest.raises(RuntimeError, match="CPU"):
+        Engine(cfg, params)
 
 
 def test_unported_paths_raise(cpu_acc):
@@ -99,4 +116,4 @@ def test_unported_paths_raise(cpu_acc):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Deployment(cpu_acc, devices=["cpu"], tensor_parallel=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LmReplica(None, None)
+        LmReplica(registry.reduced("qwen3-moe-30b-a3b"), {}, device="cpu")
