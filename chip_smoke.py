@@ -83,12 +83,29 @@ non-zero:
    margin exceeds twice that step's difference. Prefill ms by prompt
    length, tokens/s, and the device and issue ms of a prefill and of a
    decode step.
-6. A JSON line listing every kernel (``launches`` is the count on the
+6. ``ssm`` and ``hybrid``: mamba2-130m (24 layers, d 768, 24 SSD heads
+   of 64, N 128) and zamba2-1.2b (38 Mamba-2 layers, d 2048, 64 SSD
+   heads of 64, N 64, and one shared transformer block of 32/32 heads
+   of 64 applied every 6 layers) at full width and depth, served and
+   checked as ``lm`` (teacher forcing within SSM_TOL), with 8 prompts of
+   the lengths SSM_PROMPTS (each at most the chunk of 256 or a multiple
+   of it, as the JAX package's chunked scan asserts). Launches per
+   prefill: mamba2 49 rmsnorm + 24 ssd_scan, zamba2 91 rmsnorm + 7 mha +
+   38 ssd_scan; per decode step mamba2 49 rmsnorm, zamba2 91 rmsnorm + 7
+   decode_attention (the one-token recurrence is plain tensor code, as
+   in the JAX package). The SSD kernel (``csrc/ssd_scan.cu``) is held
+   against ``ref.ssd_chunked`` in phase 2 at mamba2's and zamba2's
+   prefill at 2048, a batch of 4 at a ragged 509 and with an initial
+   state (SSD_CASES; no PyTorch call computes an SSD scan, so its
+   library time is "n/a"), and the attention kernels at zamba2's head
+   width 64 (MHA_CASES, DEC_CASES).
+7. A JSON line listing every kernel (``launches`` is the count on the
    path that runs it: ``main`` for conv, maxpool and resize,
    ``fusion_off`` for pointwise, ``quant_w8a16`` for qmatmul,
    ``quant_w4a8`` for qmatmul_a8, ``quant_per_group`` for the grouped
-   kernel, ``lm`` for rmsnorm, mha and decode_attention;
-   ``launches_by_path`` has every path), then the result line.
+   kernel, ``lm`` for rmsnorm, mha and decode_attention, ``ssm`` for
+   ssd_scan; ``launches_by_path`` has every path), then the result
+   line.
 
 Needs one CUDA card; exits non-zero without one, and in a directory that
 does not hold the repository's ``src/repro_torch``.
@@ -119,7 +136,8 @@ KERNEL_TOL = {"conv2d": 1e-4, "pointwise": 1e-4,
               "qmatmul": 1e-4, "qmatmul_a8": 1e-4,
               "qmatmul_a8_grouped": 1e-4,
               # the JAX package's kernel tests' own tolerances
-              "rmsnorm": 1e-5, "mha": 2e-5, "decode_attention": 2e-5}
+              "rmsnorm": 1e-5, "mha": 2e-5, "decode_attention": 2e-5,
+              "ssd_scan": 1e-3}
 # 16·2^-8 of the output range: the JAX package's _quant_atol at 8 bits
 A8_TOL = 16 * 2.0 ** -8
 # Paths whose design quantizes activations to 8 bits are also read end
@@ -153,22 +171,36 @@ SOURCES = {
             "src/repro/kernels/attention.py:85"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:70"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:64"),
 }
 # The path whose launch count a kernel reports in the kernels line.
 KERNEL_PATH = {"conv2d": "main", "maxpool2d": "main",
                "resize_nearest": "main", "pointwise": "fusion_off",
                "qmatmul": "quant_w8a16", "qmatmul_a8": "quant_w4a8",
                "qmatmul_a8_grouped": "quant_per_group", "rmsnorm": "lm",
-               "mha": "lm", "decode_attention": "lm"}
-# The lm path: granite-3-8b at full width and depth, float32, served by
-# Engine (LmReplica + ContinuousBatch).
-LM_ARCH, LM_BATCH, LM_CACHE = "granite-3-8b", 4, 4096
+               "mha": "lm", "decode_attention": "lm", "ssd_scan": "ssm"}
+# The LM paths (LM_PATHS below) at full width and depth, float32, served
+# by Engine (LmReplica + ContinuousBatch) with these slots and cache.
+LM_BATCH, LM_CACHE = 4, 4096
 LM_REQ, LM_NEW, LM_PROMPT = 8, 32, (128, 2048)
 # Served logits against the plain path replaying the served tokens
 # (teacher forcing), max |difference| over every step of every request:
 # 9.12e-6 measured on the H100 (PERF.md, PR 13: the kernels' last-bit
 # differences and a 4-row against a 1-row matmul, through 40 layers).
 LM_TOL = 1e-4
+# The ssm and hybrid paths: mamba2-130m and zamba2-1.2b at full width and
+# depth, served like lm; prompt lengths at most the chunk (256) or a
+# multiple of it, as the JAX package's chunked scan asserts; served
+# logits within SSM_TOL of the plain path (the SSD kernel's own
+# tolerance, the JAX package's SSD kernel test's).
+SSM_PROMPTS = (64, 160, 256, 512, 768, 1024, 1536, 2048)
+SSM_TOL = 1e-3
+# path: (arch, prompt lengths, or None for LM_REQ lengths uniform in
+# LM_PROMPT, tolerance of the teacher-forced check)
+LM_PATHS = {"lm": ("granite-3-8b", None, LM_TOL),
+            "ssm": ("mamba2-130m", SSM_PROMPTS, SSM_TOL),
+            "hybrid": ("zamba2-1.2b", SSM_PROMPTS, SSM_TOL)}
 # (M, K, N, act, res) of the quantized matmul cases: matmul launches of
 # the quantized yolov8n at 640, batch 8 (stem, a 3x3 with residual at
 # 160, the 3x3 head at 80, the 3x3 at 20, the 1x1 class head at 80).
@@ -199,6 +231,8 @@ MHA_CASES = {
     "granite_T509_ragged": (1, 509, 509, 32, 8, 128, True, None, None),
     "gemma2_D256_win256_cap50": (1, 1024, 1024, 8, 4, 256, True, 256, 50.0),
     "granite_Tq128_Tk2048": (1, 128, 2048, 32, 8, 128, True, None, None),
+    "zamba2_T2048_causal_D64": (1, 2048, 2048, 32, 32, 64, True, None,
+                                None),
 }
 # (B, S, Hq, Hkv, D, lengths, window, softcap) of the decode cases:
 # granite-3-8b's decode batch over a 4096 cache, and a gemma2-like one.
@@ -207,6 +241,17 @@ DEC_CASES = {
                          None),
     "gemma2_D256_win512_cap50": (4, 4096, 8, 4, 256, (1, 300, 2048, 4096),
                                  512, 50.0),
+    "zamba2_B4_S4096_D64": (4, 4096, 32, 32, 64, (1, 700, 2048, 4096), None,
+                            None),
+}
+# (Bt, T, H, P, G, N, initial state) of the SSD cases: mamba2-130m's and
+# zamba2-1.2b's prefill at 2048, a batch of 4 at a ragged 509, and a
+# state handed over (h0) at mamba2's width.
+SSD_CASES = {
+    "mamba2_T2048": (1, 2048, 24, 64, 1, 128, False),
+    "zamba2_T2048": (1, 2048, 64, 64, 1, 64, False),
+    "mamba2_B4_T509_ragged": (4, 509, 24, 64, 1, 128, False),
+    "mamba2_B2_T768_h0": (2, 768, 24, 64, 1, 128, True),
 }
 
 
@@ -591,6 +636,71 @@ def lm_cases(torch, F, K, quant, dev):
     return cases
 
 
+def ssd_work(Bt: int, T: int, H: int, P: int, G: int, N: int,
+             h0: bool, chunk: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of the chunked SSD scan at chunk ``chunk``: per
+    chunk of c tokens, C·Bᵀ once per group and W·x per head on the causal
+    half (c(c+1)/2 pairs), C·S and the state update per head (c·N·P
+    each) and the state's decay (N·P per head); x, dt, A, B, C (and h0)
+    read once, y and the final state written once."""
+    flops = 0
+    for t0 in range(0, T, chunk):
+        c = min(chunk, T - t0)
+        tri = c * (c + 1) // 2
+        flops += 2 * Bt * (G * tri * N + H * tri * P + 2 * H * c * N * P) \
+            + Bt * H * N * P
+    nbytes = 4 * (2 * Bt * T * H * P + Bt * T * H + H + 2 * Bt * T * G * N
+                  + Bt * H * N * P * (2 if h0 else 1))
+    return flops, nbytes
+
+
+def ssd_least_work(Bt: int, T: int, H: int, P: int, G: int, N: int,
+                   h0: bool) -> tuple[int, int, int]:
+    """(chunk, FLOPs, bytes) at the chunk from 1 to T whose work
+    (``ssd_work``) is least: the count behind the SSD scan's bound. The
+    intra-chunk terms grow with the chunk and the decay shrinks with it,
+    so the least lies near sqrt(H·N·P / (G·N + H·P)), about 11 tokens at
+    mamba2-130m's widths and 8 at zamba2-1.2b's."""
+    best = min(range(1, T + 1),
+               key=lambda c: ssd_work(Bt, T, H, P, G, N, h0, c)[0])
+    return (best, *ssd_work(Bt, T, H, P, G, N, h0, best))
+
+
+def ssd_cases(torch, F, K, dev):
+    """The SSD kernel's cases (SSD_CASES) in ``qmm_cases``' form, against
+    ``ref.ssd_chunked``: x, B, C unit normals, dt = softplus of one, A =
+    -linspace(1, 16, H) (the models' ``-exp(A_log)``). The bound counts
+    the least work of the chunked algorithm (``ssd_least_work``); the
+    work at the kernel's own chunk (64) and the configs' (256) is printed
+    beside it. No PyTorch call computes an SSD scan: no library
+    yardstick."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    cases = []
+    for name, (Bt, T, H, P, G, N, with_h0) in SSD_CASES.items():
+        x, dt = rnd(Bt, T, H, P), F.softplus(rnd(Bt, T, H))
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+        B, C = rnd(Bt, T, G, N), rnd(Bt, T, G, N)
+        h0 = rnd(Bt, H, N, P) if with_h0 else None
+        best, flops, nbytes = ssd_least_work(Bt, T, H, P, G, N, with_h0)
+        at = {c: ssd_work(Bt, T, H, P, G, N, with_h0, c)[0]
+              for c in (64, 256)}
+        print(f"ssd_scan {name}: bound counted at chunk {best}, "
+              f"{flops / 1e9:.4f} GFLOP (the least); "
+              f"{at[64] / 1e9:.4f} at the kernel's chunk 64, "
+              f"{at[256] / 1e9:.4f} at the configs' 256", flush=True)
+        cases.append((
+            "ssd_scan", name,
+            lambda a=(x, dt, A, B, C), h0=h0: K.ssd_scan.ssd_scan(*a, h0=h0),
+            lambda a=(x, dt, A, B, C), h0=h0: K.ref.ssd_chunked(*a, h0=h0),
+            None, flops, nbytes, PEAK_FP32_FLOPS, KERNEL_TOL["ssd_scan"],
+            K.ssd_scan.launches, None))
+    return cases
+
+
 def check_kernels(torch, F, K, dev, conv_shapes: set) -> dict:
     per_kernel: dict = {}
     for kname, case, kfn, pfn, lfn, flops, nbytes in kernel_cases(
@@ -633,7 +743,8 @@ def check_kernels(torch, F, K, dev, conv_shapes: set) -> dict:
 def check_cases(torch, cases: list, per_kernel: dict):
     """Phase 2 for the cases of ``qmm_cases`` and ``lm_cases``: each
     launches its kernel once (its counter moves by one), agrees with its
-    plain version, and is timed; adds to ``per_kernel``."""
+    plain version (every output, where it returns a tuple), and is
+    timed; adds to ``per_kernel``."""
     for (kname, case, kfn, pfn, lfn, ops, nbytes, peak, tol, moves,
          stays) in cases:
         n_moves = moves.value
@@ -646,15 +757,21 @@ def check_cases(torch, cases: list, per_kernel: dict):
                                  f"kernel")
         want = pfn()
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        ok = bool(torch.equal(got, want)) if tol == 0 else bool(
-            torch.allclose(got, want, atol=tol, rtol=tol))
+        pairs = list(zip(got, want)) if isinstance(got, tuple) \
+            else [(got, want)]
+        err = max(float((g - w).abs().max()) for g, w in pairs)
+        ok = all(bool(torch.equal(g, w)) if tol == 0 else bool(
+            torch.allclose(g, w, atol=tol, rtol=tol)) for g, w in pairs)
+        # what allclose holds to 1: |got - plain| / (tol + tol·|plain|)
+        ratio = max(float(((g - w).abs() / (tol * (1 + w.abs()))).max())
+                    for g, w in pairs) if tol else 0.0
         t_k, t_p = cuda_ms(torch, kfn), cuda_ms(torch, pfn)
         t_l = cuda_ms(torch, lfn) if lfn is not None else None
         b_ops, b_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
         lib = f"{t_l:.4f}ms" if t_l is not None else "n/a"
         print(f"  {kname:18s} {case:34s} max_abs_err={err:.3e} "
-              f"(tol {'bit-equal' if tol == 0 else tol}) "
+              f"(tol {'bit-equal' if tol == 0 else tol}; err/(tol·(1+|plain|)) "
+              f"{ratio:.3f}) "
               f"kernel={t_k:.4f}ms plain={t_p:.4f}ms library={lib} "
               f"bound={max(b_ops, b_bytes):.4f}ms "
               f"({'operations' if b_ops >= b_bytes else 'bytes'})",
@@ -677,6 +794,7 @@ def check_cases(torch, cases: list, per_kernel: dict):
             agg["library_ms"] += t_l
         agg["cases"].append({"case": case, "ms": t_k, "plain_ms": t_p,
                              "library_ms": t_l, "max_abs_err": err,
+                             "tol_ratio": ratio,
                              "bound_ms": max(b_ops, b_bytes),
                              "bound_by": "operations" if b_ops >= b_bytes
                              else "bytes"})
@@ -941,10 +1059,12 @@ def quant_extra_spans(torch, codegen, ops, quant, acc, float_params) -> dict:
 # the lm path: granite-3-8b served by Engine, checked by teacher forcing
 # --------------------------------------------------------------------------
 
-def lm_prompts(np, vocab: int) -> list:
-    """LM_REQ prompts, lengths uniform in LM_PROMPT, from seed 0."""
+def lm_prompts(np, vocab: int, lens=None) -> list:
+    """Prompts from seed 0 of the lengths ``lens``, or of LM_REQ lengths
+    uniform in LM_PROMPT."""
     rng = np.random.default_rng(0)
-    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQ)
+    if lens is None:
+        lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQ)
     return [[int(t) for t in rng.integers(0, vocab, size=int(n))]
             for n in lens]
 
@@ -1122,67 +1242,104 @@ def lm_spans(torch, lm, cfg, params, dev) -> dict:
     return out
 
 
-def run_lm(torch, np, lm, ops, registry, Engine, Request, counters,
-           dev) -> tuple:
-    """The lm path: granite-3-8b at full width and depth, random float32
+def lm_launches(cfg, prefills: int, steps: int) -> dict:
+    """The LM kernels' launches of ``prefills`` prefills and ``steps``
+    decode steps. Dense (no post_norm, no qk_norm): per layer 2 rmsnorm
+    and one mha (prefill) or decode_attention (step). SSM: per layer 2
+    rmsnorm (``ln``, the mixer's norm) and, in a prefill, one ssd_scan;
+    per shared-block call of a hybrid, 2 rmsnorm and one mha or
+    decode_attention. One more rmsnorm for the final norm."""
+    L = cfg.n_layers
+    if cfg.family == "dense":
+        norms, attn, ssd = 2 * L, L, 0
+    else:
+        attn = -(-L // cfg.shared_attn_every) if cfg.family == "hybrid" \
+            else 0
+        norms, ssd = 2 * (L + attn), L
+    return {"rmsnorm": (norms + 1) * (prefills + steps),
+            "mha": attn * prefills, "decode_attention": attn * steps,
+            "ssd_scan": ssd * prefills}
+
+
+def _nonzero(d: dict) -> str:
+    return " + ".join(f"{v} {k}" for k, v in d.items() if v) or "none"
+
+
+def run_lm(torch, np, lm, ops, registry, Engine, Request, counters, dev,
+           path: str) -> tuple:
+    """An LM path of LM_PATHS (``lm``: granite-3-8b; ``ssm``: mamba2-130m;
+    ``hybrid``: zamba2-1.2b) at full width and depth, random float32
     weights from a seeded generator on the card, served by Engine with
     the launch counters set to 0 just before and read just after;
-    launches checked per prefill and per decode step; the served logits
-    held to the plain path by teacher forcing (LM_TOL, and the served
-    tokens to its argmax where its margin is clear); spans timed."""
-    cfg = registry.get(LM_ARCH)
+    launches checked per prefill and per decode step (``lm_launches``);
+    the served logits held to the plain path by teacher forcing (the
+    path's tolerance, and the served tokens to its argmax where its
+    margin is clear); spans timed."""
+    arch, lens, tol = LM_PATHS[path]
+    tag = f"[{path}]"
+    cfg = registry.get(arch)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params / 1e9:.3f} B float32 "
+    if cfg.family == "dense":
+        shape = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+                 f"d_ff {cfg.d_ff}")
+    else:
+        sc = cfg.ssm
+        shape = (f"SSD d_inner {sc.d_inner}, {sc.n_heads} heads of "
+                 f"{sc.head_dim}, N {sc.d_state}, G {sc.n_groups}, chunk "
+                 f"{sc.chunk}")
+        if cfg.family == "hybrid":
+            shape += (f"; a shared block of {cfg.n_heads}/{cfg.n_kv_heads} "
+                      f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, every "
+                      f"{cfg.shared_attn_every} layers")
+    print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{shape}, vocab {cfg.vocab}; {n_params / 1e9:.3f} B float32 "
           f"parameters ({n_params * 4 / 2 ** 30:.1f} GiB) made on {dev} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    prompts = lm_prompts(np, cfg.vocab)
+    prompts = lm_prompts(np, cfg.vocab, lens)
     for c in counters.values():
         c.reset()
     done, wall, served, prefill_ms, steps, decode_issue = serve_lm(
         torch, np, Engine, Request, cfg, params, dev, prompts)
     counts = {k: c.value for k, c in counters.items()}
     n_pre = len(prompts)
-    per_layer = cfg.n_layers
     want = {k: 0 for k in counters}
-    want.update(rmsnorm=(2 * per_layer + 1) * (n_pre + steps),
-                mha=per_layer * n_pre, decode_attention=per_layer * steps)
+    want.update(lm_launches(cfg, n_pre, steps))
     if len(done) != n_pre or not all(r.done for r in done) \
             or counts != want:
-        raise AssertionError(f"lm: {len(done)} requests done over {steps} "
-                             f"decode steps, launches {counts}, expected "
-                             f"{want}")
+        raise AssertionError(f"{path}: {len(done)} requests done over "
+                             f"{steps} decode steps, launches {counts}, "
+                             f"expected {want}")
     n_tok = sum(len(r.out_tokens) for r in done)
-    print(f"[lm] Engine(max_batch={LM_BATCH}, cache_size={LM_CACHE}) served "
-          f"{len(done)} requests (prompts {sorted(len(p) for p in prompts)}"
-          f", {LM_NEW} greedy tokens each) in {wall:.2f}s over {steps} "
-          f"decode steps: {n_tok / wall:.1f} tokens/s; launches {counts} = "
-          f"per prefill rmsnorm {2 * per_layer + 1} + mha {per_layer}, per "
-          f"decode step rmsnorm {2 * per_layer + 1} + decode_attention "
-          f"{per_layer}", flush=True)
+    print(f"{tag} Engine(max_batch={LM_BATCH}, cache_size={LM_CACHE}) "
+          f"served {len(done)} requests (prompts "
+          f"{sorted(len(p) for p in prompts)}, {LM_NEW} greedy tokens each)"
+          f" in {wall:.2f}s over {steps} decode steps: {n_tok / wall:.1f} "
+          f"tokens/s; launches {counts} = per prefill "
+          f"{_nonzero(lm_launches(cfg, 1, 0))}, per decode step "
+          f"{_nonzero(lm_launches(cfg, 0, 1))}", flush=True)
     issue_med = sorted(decode_issue)[len(decode_issue) // 2]
     step_ms = (wall - sum(m for _, m in prefill_ms) / 1e3) / steps * 1e3
-    print("[lm] prefill ms by prompt length (host clock, synchronised): "
+    print(f"{tag} prefill ms by prompt length (host clock, synchronised): "
           + ", ".join(f"{n}: {m:.1f}" for n, m in sorted(prefill_ms))
           + f"; the rest of the run over the decode steps: {step_ms:.2f} "
           f"ms a step, host issue median {issue_med:.2f} ms", flush=True)
     check = replay_plain(torch, np, lm, ops, cfg, params, dev, prompts,
                          done, served)
-    print(f"[lm] teacher-forced plain path on the card: served logits "
+    print(f"{tag} teacher-forced plain path on the card: served logits "
           f"within {check['max_abs_err']:.3e} (mean per step "
-          f"{check['mean_step_err']:.3e}; tolerance {LM_TOL}); "
+          f"{check['mean_step_err']:.3e}; tolerance {tol}); "
           f"{check['tokens_checked']} served tokens equal to the plain "
           f"argmax where its top-2 margin exceeds twice the step's "
           f"difference, {check['tokens_within_margin']} within that "
           f"margin", flush=True)
-    if not check["max_abs_err"] <= LM_TOL:
-        raise AssertionError(f"lm: served logits {check['max_abs_err']} "
-                             f"from the plain path, tolerance {LM_TOL}")
+    if not check["max_abs_err"] <= tol:
+        raise AssertionError(f"{path}: served logits "
+                             f"{check['max_abs_err']} from the plain path, "
+                             f"tolerance {tol}")
     spans = lm_spans(torch, lm, cfg, params, dev)
     for name, sp in spans.items():
         dev_txt = "device not measured (no kernel records)" \
@@ -1190,16 +1347,17 @@ def run_lm(torch, np, lm, ops, registry, Engine, Request, counters,
                 f"kernels {sp['busy']:.3f} ms busy over a {sp['span']:.3f}"
                 f" ms span ({sp['kernels']} launches; idle share "
                 f"{1 - sp['busy'] / sp['span']:.3f}); top {sp['top']}")
-        print(f"[lm] {name}: host issue {sp['issue']:.3f} ms, issue to "
+        print(f"{tag} {name}: host issue {sp['issue']:.3f} ms, issue to "
               f"synchronised {sp['wall']:.3f} ms; {dev_txt}", flush=True)
     del params
     torch.cuda.empty_cache()
-    return counts, {"requests": len(done), "tokens": n_tok, "wall_s": wall,
-                    "tokens_per_s": n_tok / wall, "decode_steps": steps,
+    return counts, {"arch": arch, "requests": len(done), "tokens": n_tok,
+                    "wall_s": wall, "tokens_per_s": n_tok / wall,
+                    "decode_steps": steps,
                     "prefill_ms": sorted(prefill_ms), "spans_ms": spans,
                     "decode_issue_ms_median": issue_med,
                     "decode_step_ms_in_serving": step_ms,
-                    "check": check, "tolerance": LM_TOL}
+                    "check": check, "tolerance": tol}
 
 
 def _leaves(tree) -> list:
@@ -1231,7 +1389,7 @@ def main() -> int:
         from repro_torch.configs import registry
         from repro_torch.kernels import (attention, conv2d, decode_attention,
                                          maxpool, ops, pointwise, qmatmul,
-                                         ref, resize)
+                                         ref, resize, ssd_scan)
         from repro_torch.models import lm, yolo
         from repro_torch.serve.engine import Engine, Request
         from repro_torch.core import quant
@@ -1247,7 +1405,8 @@ def main() -> int:
     K = types.SimpleNamespace(conv2d=conv2d, maxpool=maxpool, resize=resize,
                               pointwise=pointwise, qmatmul=qmatmul, ref=ref,
                               attention=attention,
-                              decode_attention=decode_attention)
+                              decode_attention=decode_attention,
+                              ssd_scan=ssd_scan)
     counters = {"conv2d": conv2d.launches, "maxpool2d": maxpool.launches,
                 "resize_nearest": resize.launches,
                 "pointwise": pointwise.launches,
@@ -1256,7 +1415,8 @@ def main() -> int:
                 "qmatmul_a8_grouped": qmatmul.qmatmul_a8_grouped.launches,
                 "rmsnorm": pointwise.rmsnorm_launches,
                 "mha": attention.launches,
-                "decode_attention": decode_attention.launches}
+                "decode_attention": decode_attention.launches,
+                "ssd_scan": ssd_scan.launches}
     quant_ref = codegen.QuantBackend(name="quant_ref", dispatch="ref")
     quant_kern = codegen.get_backend("quant")
 
@@ -1303,8 +1463,8 @@ def main() -> int:
                                conv_launch_shapes(codegen, acc.graph))
     dev0 = torch.device("cuda", 0)
     check_cases(torch, qmm_cases(torch, K, quant, dev0, matmul_launch_shapes(
-        codegen, acc_q.graph)) + lm_cases(torch, F, K, quant, dev0),
-        per_kernel)
+        codegen, acc_q.graph)) + lm_cases(torch, F, K, quant, dev0)
+        + ssd_cases(torch, F, K, dev0), per_kernel)
 
     # ---------------------------------------------------------------- 3
     model_off = yolo.build("yolov8n", 160)
@@ -1505,15 +1665,19 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3f}" for k, v in spans_q.items()),
           flush=True)
 
-    # ---------------------------------------------------------------- 5
-    # lm: granite-3-8b at full width and depth, served by Engine
-    paths["lm"], lm_run = run_lm(torch, np, lm, ops, registry, Engine,
-                                 Request, counters, dev0)
+    # ---------------------------------------------------------------- 5, 6
+    # lm, ssm, hybrid: granite-3-8b, mamba2-130m and zamba2-1.2b at full
+    # width and depth, each served by Engine
+    lm_runs = {}
+    for path in LM_PATHS:
+        paths[path], lm_runs[path] = run_lm(
+            torch, np, lm, ops, registry, Engine, Request, counters, dev0,
+            path)
     for kname, path in KERNEL_PATH.items():
         if paths[path][kname] <= 0:
             raise AssertionError(f"{kname} never launched on {path}")
 
-    # ---------------------------------------------------------------- 6
+    # ---------------------------------------------------------------- 7
     kernels = []
     for kname, agg in per_kernel.items():
         src, replaces = SOURCES[kname]
@@ -1549,7 +1713,7 @@ def main() -> int:
                       "mixed_max_abs_err": err_m, "probes": probes,
                       "w8a16_forward_ms": fwd_q,
                       "w8a16_replica_step_spans_ms": spans_q},
-            "lm": lm_run, "build_s": info["seconds"]}, indent=1))
+            **lm_runs, "build_s": info["seconds"]}, indent=1))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T0:.0f}s")
     print(f"[card] {smi()}")
     print(json.dumps({"kernels": kernels}))

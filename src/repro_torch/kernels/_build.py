@@ -53,6 +53,7 @@ _SIGNATURES = {
     "repro_rmsnorm_f32": [_P, _P, _P, _LL, _I, _F, _I, _P],
     "repro_mha_f32": [_P] * 4 + [_I] * 8 + [_F, _F, _P],
     "repro_decode_attention_f32": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
+    "repro_ssd_scan_f32": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,5 @@
-"""Public kernel entry points with backend dispatch (the CNN, quantized
-and dense-LM part of the JAX package's ``kernels/ops.py``; ``ssd_scan``
-is not ported yet).
+"""Public kernel entry points with backend dispatch (a port of the JAX
+package's ``kernels/ops.py``: the CNN, quantized and LM kernels).
 
 Backends (per-call ``backend=``; ``None`` means the default,
 ``"auto"`` unless :func:`set_default_backend` says otherwise):
@@ -28,6 +27,12 @@ the JAX package computes it outside any Pallas kernel), with dequant,
 bias, ``act`` and ``res`` in the kernel's epilogue; a fused maxpool
 (``pool=``) launches the maxpool kernel right after, as the Pallas path
 does (``ops.py:318-331``).
+
+``ssd_scan`` returns ``(y, final_state)`` on every backend. The JAX
+package's ``ops.ssd_scan(backend="ref")`` returns ``(y, None)``
+(``src/repro/kernels/ops.py:511-518``); the port's prefill needs the
+state, and its plain version (``ref.ssd_chunked``) computes it. This is
+an interface difference, not a difference of result.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from . import pointwise as _pw
 from . import qmatmul as _qmm
 from . import ref
 from . import resize as _resize
+from . import ssd_scan as _ssd
 
 _BACKENDS = ("auto", "cuda", "ref")
 _DEFAULT = "auto"
@@ -316,7 +322,7 @@ def qconv2d_a8(x, q, scale, zero, b=None, *, x_scale, a_bits=8, K=1,
 
 
 # --------------------------------------------------------------------------
-# LM kernels: attention, decode attention, RMSNorm
+# LM kernels: attention, decode attention, RMSNorm, the SSD scan
 # --------------------------------------------------------------------------
 
 def mha(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
@@ -350,3 +356,17 @@ def rmsnorm(x, g, *, eps=1e-6, backend=None) -> torch.Tensor:
     if be == "ref":
         return ref.rmsnorm(x, g, eps)
     return _pw.rmsnorm(x, g, eps)
+
+
+def ssd_scan(x, dt, A, B, C, *, h0=None, backend=None) -> tuple:
+    """Mamba-2 chunked SSD scan. x: (Bt, T, H, P); dt: (Bt, T, H); A:
+    (H,); B, C: (Bt, T, G, N) per group (head h reads group
+    h // (H / G)); h0: optional initial state (Bt, H, N, P). Any T.
+    Returns (y (Bt, T, H, P), final state (Bt, H, N, P) float32). Split
+    views (the mixer's x, B and C) are made contiguous here."""
+    be = _resolve(backend, x)
+    x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
+    h0 = h0.contiguous() if h0 is not None else None
+    if be == "ref":
+        return ref.ssd_chunked(x, dt, A, B, C, h0=h0)
+    return _ssd.ssd_scan(x, dt, A, B, C, h0=h0)

@@ -1,11 +1,12 @@
 """Plain PyTorch versions of the port's CNN, quantized and LM kernels.
 
 The semantic ground truth the CUDA kernels are held against, on the CPU
-in the tests and on the card in ``chip_smoke.py``. A port of the CNN,
-quantized-matmul, attention and RMSNorm parts of the JAX package's
-``kernels/ref.py`` (not ``ssd_scan``): NHWC
-activations, HWIO ``(K, K, C, F)`` weights, float32 arithmetic, integer
-accumulators exact.
+in the tests and on the card in ``chip_smoke.py``. A port of the JAX
+package's ``kernels/ref.py`` (CNN, quantized matmuls, attention,
+RMSNorm and the Mamba-2 SSD scan), plus :func:`ssd_chunked`, the
+batched chunked form of ``nn/ssm.py:ssd_chunked`` that the SSD kernel
+is held against: NHWC activations, HWIO ``(K, K, C, F)`` weights,
+float32 arithmetic, integer accumulators exact.
 
 SAME padding is asymmetric, as ``lax`` computes it: the total pad is
 ``max((out - 1)·s + K - in, 0)``, ``total // 2`` before and the rest
@@ -315,3 +316,113 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor,
     xf = x.to(torch.float32)
     r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * r * (1.0 + g.to(torch.float32))).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality): the sequential oracle and one decode
+# step (copies of the JAX package's ref.ssd_scan and ref.ssd_decode_step),
+# and the batched chunked form the SSD kernel computes
+# --------------------------------------------------------------------------
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, h0: torch.Tensor | None = None,
+             return_state: bool = False):
+    """Mamba-2 selective state-space recurrence, one sequence, one step
+    at a time.
+
+    x: (T, H, P); dt: (T, H) softplus'd timestep (> 0); A: (H,) negative
+    decay; B, C: (T, G, N), head h reading group h // (H / G) (the
+    ``repeat`` layout). Per head:
+
+        S_t = exp(dt_t · A_h) · S_{t-1} + dt_t · B_t ⊗ x_t
+        y_t = C_t · S_t
+
+    Returns y: (T, H, P), and the final state (H, N, P) with
+    ``return_state``."""
+    T, H, P = x.shape
+    G, N = B.shape[1], B.shape[2]
+    rep = H // G
+    Bh = B.repeat_interleave(rep, dim=1) if rep > 1 else B   # (T, H, N)
+    Ch = C.repeat_interleave(rep, dim=1) if rep > 1 else C
+    decay = torch.exp(dt.to(torch.float32) * A[None, :].to(torch.float32))
+    xb = dt[..., None].to(torch.float32) * x.to(torch.float32)
+    S = torch.zeros((H, N, P), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.to(torch.float32)
+    Bh, Ch = Bh.to(torch.float32), Ch.to(torch.float32)
+    ys = []
+    for t in range(T):
+        S = decay[t][:, None, None] * S + Bh[t][:, :, None] * xb[t][:, None, :]
+        ys.append(torch.einsum("hn,hnp->hp", Ch[t], S))
+    y = torch.stack(ys).to(x.dtype) if T else x.new_zeros((0, H, P))
+    return (y, S) if return_state else y
+
+
+def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, state: torch.Tensor):
+    """One recurrent step. x: (H, P), dt: (H,), B/C: (G, N), state:
+    (H, N, P). Returns (y (H, P), new state)."""
+    H, P = x.shape
+    G, N = B.shape
+    rep = H // G
+    Bh = B.repeat_interleave(rep, dim=0) if rep > 1 else B
+    Ch = C.repeat_interleave(rep, dim=0) if rep > 1 else C
+    d = torch.exp(dt.to(torch.float32) * A.to(torch.float32))
+    S = d[:, None, None] * state.to(torch.float32) \
+        + Bh[:, :, None] * (dt[:, None] * x.to(torch.float32))[:, None, :]
+    y = torch.einsum("hn,hnp->hp", Ch.to(torch.float32), S)
+    return y.to(x.dtype), S
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor,
+                h0: torch.Tensor | None = None, chunk: int = 64):
+    """Batched chunked SSD: the function of ``nn/ssm.py:ssd_chunked``
+    (and of the Pallas kernel ``kernels/ssd_scan.py``), in the kernel's
+    chunk of 64 tokens by default; any chunk gives the same math.
+
+    x: (Bt, T, H, P); dt: (Bt, T, H); A: (H,); B, C: (Bt, T, G, N) per
+    GROUP, head h reading group h // (H / G) (no repeat is made); h0:
+    optional initial state (Bt, H, N, P). Any T: a ragged last chunk is
+    padded with dt = 0 (decay 1, no input), which leaves y and the state
+    unchanged. Per chunk, with cs the cumulative sum of dt·A in it:
+
+        y  = (C Bᵀ ⊙ exp(cs_t − cs_s) · dt_s, s ≤ t) · x + (C ⊙ exp(cs)) · S
+        S ← exp(cs_last) · S + Σ_s exp(cs_last − cs_s) · dt_s · B_s ⊗ x_s
+
+    the exponent masked to -inf before ``exp`` where s > t (there it is
+    positive and would overflow). Returns (y (Bt, T, H, P) in x's dtype,
+    final state (Bt, H, N, P) float32)."""
+    Bt, T, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    c = max(1, min(chunk, T))
+    pad = (-T) % c
+    f32 = torch.float32
+    xf, dtf, Bf, Cf = (t.to(f32) for t in (x, dt, B, C))
+    if pad:
+        xf, Bf, Cf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xf, Bf, Cf))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+    Af = A.to(f32)
+    S = torch.zeros((Bt, G, rep, N, P), dtype=f32, device=x.device) \
+        if h0 is None else h0.to(f32).reshape(Bt, G, rep, N, P).clone()
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
+    ys = []
+    for j in range(0, T + pad, c):
+        xc = xf[:, j:j + c].reshape(Bt, c, G, rep, P)
+        dtc, Bc, Cc = dtf[:, j:j + c], Bf[:, j:j + c], Cf[:, j:j + c]
+        cs = torch.cumsum(dtc * Af, dim=1)                       # (Bt,c,H)
+        diff = cs[:, :, None, :] - cs[:, None, :, :]             # (Bt,t,s,H)
+        diff = torch.where(tri[None, :, :, None], diff, float("-inf"))
+        Wd = (torch.exp(diff) * dtc[:, None, :, :]).reshape(
+            Bt, c, c, G, rep)
+        CB = torch.einsum("btgn,bsgn->btsg", Cc, Bc)             # per group
+        W = CB[..., None] * Wd                                   # (Bt,t,s,G,r)
+        y = torch.einsum("btsgr,bsgrp->btgrp", W, xc)
+        y = y + torch.einsum("btgn,bgrnp->btgrp", Cc, S) \
+            * torch.exp(cs).reshape(Bt, c, G, rep)[..., None]
+        ys.append(y.reshape(Bt, c, H, P))
+        w_s = (torch.exp(cs[:, -1:, :] - cs) * dtc).reshape(Bt, c, G, rep)
+        S = torch.exp(cs[:, -1]).reshape(Bt, G, rep)[..., None, None] * S \
+            + torch.einsum("bsgn,bsgrp->bgrnp", Bc, xc * w_s[..., None])
+    y = torch.cat(ys, dim=1)[:, :T] if ys else xf
+    return y.to(x.dtype), S.reshape(Bt, H, N, P)

@@ -33,7 +33,8 @@ roles that every workload (vision detection, LM decoding) shares:
 
 A torch port of the JAX package's ``serve/deployment.py``. Not ported
 yet: tensor-parallel replicas (the multi-GPU slice), which raise
-``NotImplementedError``; ``LmReplica`` serves the dense LM family.
+``NotImplementedError``; ``LmReplica`` serves the dense, ssm and
+hybrid LM families.
 
 Rejections are counted ONCE per request: a request that bounces off a
 full queue, drains under back-pressure, and is resubmitted is one
@@ -467,8 +468,10 @@ class LmReplica:
     and decode run under ``torch.inference_mode()``; the cache's
     ``len`` stays a device tensor that the attention kernels read on
     the card (one small host-to-device copy per step, no host sync).
-    Only the dense family with a float KV cache is ported
-    (``NotImplementedError`` otherwise)."""
+    The dense (float KV cache), ssm and hybrid families are ported
+    (``NotImplementedError`` otherwise); a prefilled row's cache leaves
+    (``k``/``v``, or ``conv``/``ssm`` and the shared block's ``sk``/``sv``,
+    all layer-stacked) go into the slot at ``[:, slot]``."""
 
     max_inflight = 1
 

@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package,
 its entry points refuse to fall back to the CPU, and what is not ported
-yet (the double-buffered K sweep, tensor parallelism, the LM families
-other than dense) raises ``NotImplementedError``."""
+yet (the double-buffered K sweep, tensor parallelism, the moe, vlm and
+encdec LM families) raises ``NotImplementedError``."""
 import ast
 import subprocess
 import sys
@@ -32,7 +32,8 @@ def test_no_file_imports_jax_or_the_jax_package():
     names = {str(f.relative_to(PKG)) for f in files}
     assert {"kernels/qmatmul.py", "serve/detection.py",
             "check/__main__.py", "models/lm.py", "nn/attention.py",
-            "serve/engine.py", "configs/registry.py"} <= names
+            "serve/engine.py", "configs/registry.py", "nn/ssm.py",
+            "kernels/ssd_scan.py"} <= names
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
@@ -73,6 +74,15 @@ def test_import_compile_and_run_load_no_jax():
         eng = Engine(cfg, params, max_batch=2, cache_size=16, device="cpu")
         eng.submit(Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2))
         assert len(eng.run()[0].out_tokens) == 2
+        from repro_torch.kernels import ops, ssd_scan
+        from repro_torch.nn import ssm
+        for name in ("mamba2-130m", "zamba2-1.2b"):
+            cfg = registry.reduced(name)
+            params = lm.init_params(cfg, torch.Generator(), device="cpu")
+            eng = Engine(cfg, params, max_batch=2, cache_size=16,
+                         device="cpu")
+            eng.submit(Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2))
+            assert len(eng.run()[0].out_tokens) == 2
         bad = sorted(m for m in sys.modules if m == "jax"
                      or m.startswith("jax") or m == "repro"
                      or m.startswith("repro."))
