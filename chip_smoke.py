@@ -23,11 +23,24 @@ non-zero:
    the int32 accumulator bit-equal, per-group scales aligned (grouped
    kernel) and unaligned (the float kernel, as the JAX package does);
    their bound uses the int8 tensor-core peak (1979 TOPS) for the A8
-   kernels and their yardstick is ``torch._int_mm`` ("n/a" where its
-   shape rules refuse the case) or ``torch.matmul`` on the dequantized
-   weight (TF32 off). The unaligned per-group case launches the float
-   kernel and is reported, bounded and timed as one of its cases.
-3. Six YOLO paths through the user's entry points, each with the launch
+   kernels and their yardstick is ``torch._int_mm`` (K zero-padded to a
+   multiple of 8 outside the timed call, so the stem's K = 27 is timed
+   too; "n/a" where its other shape rules refuse the case) or
+   ``torch.matmul`` on the dequantized weight (TF32 off). The unaligned
+   per-group case launches the float kernel and is reported, bounded
+   and timed as one of its cases; both per-group cases are launched once
+   more with ``pipeline="double"`` and must take the same kernel.
+   The double-buffered kernels (``pipeline="double"``): #2
+   (``conv2d_double``) at every conv case, against ``ref.conv2d``
+   (1e-4) and against #1 on the same inputs (DOUBLE_CONV_TOL, 1e-5);
+   #10 (``qmatmul_a8_double``) at every matmul shape in int8 and packed
+   int4 (K = 27 odd at the stem), against ``ref.qmatmul_a8`` (1e-4) and
+   #8, its int32 accumulator read through an identity epilogue bit-equal
+   to #8's. Each case launches twice (the two results equal bit for
+   bit: a missing wait or barrier shows as a difference), and its grid
+   sibling's time is printed beside its own, with the same bound and
+   yardstick as the sibling's.
+3. Seven YOLO paths through the user's entry points, each with the launch
    counters set to 0 just before it and read just after:
    ``main``: yolov8n at 640 → ``core.compile`` → ``serve.Deployment``
    (2 replicas, batch 8) serving 32 requests; ``fusion_off``: the same
@@ -38,7 +51,17 @@ non-zero:
    ``quant_w4a8``: the same at ``w_bits=4, a_bits=8``, one batch;
    ``quant_per_group``: yolov8n at 160 at W8A8 recalibrated with
    per-group activation scales, one batch; ``mixed``: yolov8n at 160
-   with ``CompileConfig(bits="mixed")``, one batch. Launch counts are
+   with ``CompileConfig(bits="mixed")``, one batch; ``double``: the
+   designs of ``main`` and ``quant_w4a8`` (no recompile), one batch
+   each through ``AcceleratorReplica(acc, backend=DoubleBuffered(...))``,
+   the executors' own lowering table with the conv and A8 matmul entry
+   points called with ``pipeline="double"`` (63 #2 + 3 maxpool + 2 resize; 63 #10 + 3
+   maxpool + 2 resize), every conv held against the grid kernel on the
+   grid path's input (float within 1e-5, W4A8 within one ulp; the
+   bit-equal count printed), the float outputs within MAIN_TOL of the
+   plain path, the W4A8 outputs equal to ``quant_w4a8``'s served batch
+   (within its A8 bound if a conv was one ulp apart),
+   and both designs' forward device time, double and grid. Launch counts are
    checked per forward, and every output against the same graph run
    through the plain versions on the card (``backend="ref"``, or a
    ``QuantBackend(dispatch="ref")`` for the quantized paths) at
@@ -99,13 +122,13 @@ non-zero:
    state (SSD_CASES; no PyTorch call computes an SSD scan, so its
    library time is "n/a"), and the attention kernels at zamba2's head
    width 64 (MHA_CASES, DEC_CASES).
-7. A JSON line listing every kernel (``launches`` is the count on the
-   path that runs it: ``main`` for conv, maxpool and resize,
+7. A JSON line listing all 13 kernels (``launches`` is the count on
+   the path that runs it: ``main`` for conv, maxpool and resize,
    ``fusion_off`` for pointwise, ``quant_w8a16`` for qmatmul,
    ``quant_w4a8`` for qmatmul_a8, ``quant_per_group`` for the grouped
-   kernel, ``lm`` for rmsnorm, mha and decode_attention, ``ssm`` for
-   ssd_scan; ``launches_by_path`` has every path), then the result
-   line.
+   kernel, ``double`` for conv2d_double and qmatmul_a8_double, ``lm``
+   for rmsnorm, mha and decode_attention, ``ssm`` for ssd_scan;
+   ``launches_by_path`` has every path), then the result line.
 
 Needs one CUDA card; exits non-zero without one, and in a directory that
 does not hold the repository's ``src/repro_torch``.
@@ -113,6 +136,7 @@ does not hold the repository's ``src/repro_torch``.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -131,13 +155,16 @@ MAIN_TOL = 1e-3
 # storage), which would make a 1e-3 output comparison vacuous; at 1.75
 # the heads stay at 0.1–1.
 WEIGHT_GAIN = 1.75
-KERNEL_TOL = {"conv2d": 1e-4, "pointwise": 1e-4,
+KERNEL_TOL = {"conv2d": 1e-4, "conv2d_double": 1e-4, "pointwise": 1e-4,
               "maxpool2d": 0.0, "resize_nearest": 0.0,   # 0: bit-equal
               "qmatmul": 1e-4, "qmatmul_a8": 1e-4,
-              "qmatmul_a8_grouped": 1e-4,
+              "qmatmul_a8_double": 1e-4, "qmatmul_a8_grouped": 1e-4,
               # the JAX package's kernel tests' own tolerances
               "rmsnorm": 1e-5, "mha": 2e-5, "decode_attention": 2e-5,
               "ssd_scan": 1e-3}
+# The double-buffered conv (#2) against the grid conv (#1) on the same
+# input: the JAX package's test_double_buffered_conv_matches_grid.
+DOUBLE_CONV_TOL = 1e-5
 # 16·2^-8 of the output range: the JAX package's _quant_atol at 8 bits
 A8_TOL = 16 * 2.0 ** -8
 # Paths whose design quantizes activations to 8 bits are also read end
@@ -153,6 +180,8 @@ ACT_FLOPS = {"identity": 0, "none": 0, "relu": 1, "leaky_relu": 2,
 SOURCES = {
     "conv2d": ("src/repro_torch/csrc/conv2d.cu",
                "src/repro/kernels/conv2d.py:132"),
+    "conv2d_double": ("src/repro_torch/csrc/conv2d.cu",
+                      "src/repro/kernels/conv2d.py:91"),
     "maxpool2d": ("src/repro_torch/csrc/maxpool.cu",
                   "src/repro/kernels/maxpool.py:39"),
     "resize_nearest": ("src/repro_torch/csrc/resize.cu",
@@ -163,6 +192,8 @@ SOURCES = {
                 "src/repro/kernels/qmatmul.py:100"),
     "qmatmul_a8": ("src/repro_torch/csrc/qmatmul.cu",
                    "src/repro/kernels/qmatmul.py:333"),
+    "qmatmul_a8_double": ("src/repro_torch/csrc/qmatmul.cu",
+                          "src/repro/kernels/qmatmul.py:252"),
     "qmatmul_a8_grouped": ("src/repro_torch/csrc/qmatmul.cu",
                            "src/repro/kernels/qmatmul.py:206"),
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
@@ -179,7 +210,8 @@ KERNEL_PATH = {"conv2d": "main", "maxpool2d": "main",
                "resize_nearest": "main", "pointwise": "fusion_off",
                "qmatmul": "quant_w8a16", "qmatmul_a8": "quant_w4a8",
                "qmatmul_a8_grouped": "quant_per_group", "rmsnorm": "lm",
-               "mha": "lm", "decode_attention": "lm", "ssd_scan": "ssm"}
+               "mha": "lm", "decode_attention": "lm", "ssd_scan": "ssm",
+               "conv2d_double": "double", "qmatmul_a8_double": "double"}
 # The LM paths (LM_PATHS below) at full width and depth, float32, served
 # by Engine (LmReplica + ContinuousBatch) with these slots and cache.
 LM_BATCH, LM_CACHE = 4, 4096
@@ -442,11 +474,16 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set):
         return qt, codes, qt.scale.reshape(1, -1), qt.zero.reshape(1, -1)
 
     def int_mm(xq, codes):
+        """torch._int_mm on the same codes, K zero-padded to a multiple
+        of 8 outside the timed call (exact: a zero code adds 0); None
+        where its other shape rules refuse the case."""
         M, Kf = xq.shape
-        if M <= 16 or Kf % 8 or codes.shape[1] % 8:
-            return None                 # torch._int_mm's shape rules
-        c = codes.contiguous()
-        return lambda: torch._int_mm(xq, c)
+        if M <= 16 or codes.shape[1] % 8:
+            return None
+        pad = (-Kf) % 8
+        a = torch.nn.functional.pad(xq, (0, pad)).contiguous()
+        c = torch.nn.functional.pad(codes, (0, 0, 0, pad)).contiguous()
+        return lambda: torch._int_mm(a, c)
 
     # #7: float x × int8 / int16 / packed-int4 codes
     for name, bits, pack in (("stem", 4, True), ("3x3_res_160", 8, False),
@@ -531,6 +568,93 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set):
             lib, 2 * M * Kf * N,
             M * Kf + qt.q.numel() + 4 * (M * N + 3 * N + Kf),
             peak, KERNEL_TOL[kname], moves, stays))
+        # the per-K scales with pipeline="double" take the same route
+        # (never #10), as in the JAX package: launch-checked, not timed
+        n10, n_moves = Q.qmatmul_a8.launches_double.value, moves.value
+        Q.qmatmul_a8(xq, qt.q, qt.scale, qt.zero, b, x_scale=sv, act=act,
+                     pipeline="double")
+        if (Q.qmatmul_a8.launches_double.value, moves.value) != (
+                n10, n_moves + 1):
+            raise AssertionError(f"per-K scales (runs of {run}) with "
+                                 f"pipeline='double' did not launch "
+                                 f"{kname}")
+    # #10: #8's cases with the K sweep double-buffered, int8 and packed
+    # int4 at every shape; beside each, #8 on the same inputs (the grid
+    # sibling) and the int32 accumulators of both read through an
+    # identity epilogue (unit scale, zero 0, no bias, x_scale 1). Built
+    # in a function of its own: the lambdas above read qt, b, act, ...
+    # of this scope when they run.
+    one, nil = torch.ones(1, device=dev), torch.zeros(1, device=dev)
+
+    def a8_double(name, bits, pack):
+        M, Kf, N, act, use_res = QMM_SHAPES[name]
+        x, w, b, r = data(M, Kf, N, use_res)
+        xs = float(x.abs().max()) / 127
+        xq = ref.quantize_activation(x, xs)
+        qt, codes, sc, zr = wq(w, bits, pack)
+        kw = dict(act=act, res=r, w_packed=pack)
+        return (
+            "qmatmul_a8_double", f"{name}_w{bits}a8",
+            lambda: Q.qmatmul_a8(xq, qt.q, qt.scale, qt.zero, b,
+                                 x_scale=xs, pipeline="double", **kw),
+            lambda: ref.qmatmul_a8(xq, codes, sc, zr, xs, b, act=act,
+                                   res=r),
+            int_mm(xq, codes), 2 * M * Kf * N,
+            M * Kf + qt.q.numel() + 4 * (
+                M * N * (2 if use_res else 1) + 3 * N),
+            PEAK_INT8_OPS, KERNEL_TOL["qmatmul_a8_double"],
+            Q.qmatmul_a8.launches_double, Q.qmatmul_a8.launches,
+            {"grid": lambda: Q.qmatmul_a8(xq, qt.q, qt.scale, qt.zero, b,
+                                          x_scale=xs, **kw),
+             "grid_tol": KERNEL_TOL["qmatmul_a8"],
+             "acc": tuple(
+                 lambda pl=pl: Q.qmatmul_a8(xq, qt.q, one, nil,
+                                            x_scale=1.0, w_packed=pack,
+                                            pipeline=pl)
+                 for pl in ("double", "grid"))})
+
+    cases += [a8_double(name, bits, pack) for name in QMM_SHAPES
+              for bits, pack in ((8, False), (4, True))]
+    return cases
+
+
+def conv_double_cases(torch, F, K, dev, conv_shapes: set):
+    """#2 at every CONV_CASES shape (each a conv launch of the compiled
+    yolov8n at 640), in ``qmm_cases``' form: against ``ref.conv2d``
+    (KERNEL_TOL) and against #1 on the same inputs (DOUBLE_CONV_TOL);
+    bound and yardstick (cuDNN fp32, TF32 off) as #1's."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    cases = []
+    for name, (H, C, Kk, Fo, s, act, use_res) in CONV_CASES.items():
+        Ho = -(-H // s)
+        if (Ho, C, Kk, Fo, s, act, use_res) not in conv_shapes:
+            raise AssertionError(f"conv case {name} is not a conv launch "
+                                 f"of the compiled yolov8n")
+        x = rnd(BATCH, H, H, C)
+        w = rnd(Kk, Kk, C, Fo, scale=(Kk * Kk * C) ** -0.5)
+        b = rnd(Fo, scale=0.1)
+        res = rnd(BATCH, Ho, Ho, Fo) if use_res else None
+        xn = x.permute(0, 3, 1, 2)
+        wn = w.permute(3, 2, 0, 1).contiguous()
+        kw = dict(stride=s, act=act, res=res)
+        cases.append((
+            "conv2d_double", name,
+            lambda x=x, w=w, b=b, kw=kw: K.conv2d.conv2d(
+                x, w, b, pipeline="double", **kw),
+            lambda x=x, w=w, b=b, kw=kw: K.ref.conv2d(x, w, b, **kw),
+            lambda xn=xn, wn=wn, b=b, s=s, k=Kk: F.conv2d(
+                xn, wn, b, stride=s, padding=k // 2),
+            2 * BATCH * Ho * Ho * Kk * Kk * C * Fo,
+            4 * (x.numel() + w.numel() + b.numel()
+                 + BATCH * Ho * Ho * Fo * (2 if use_res else 1)),
+            PEAK_FP32_FLOPS, KERNEL_TOL["conv2d_double"],
+            K.conv2d.launches_double, K.conv2d.launches,
+            {"grid": lambda x=x, w=w, b=b, kw=kw: K.conv2d.conv2d(
+                x, w, b, **kw), "grid_tol": DOUBLE_CONV_TOL}))
     return cases
 
 
@@ -740,13 +864,51 @@ def check_kernels(torch, F, K, dev, conv_shapes: set) -> dict:
     return per_kernel
 
 
+def check_sibling(torch, kname: str, case: str, got, kfn, sib: dict) -> dict:
+    """The checks of a double-buffered kernel's case beyond its plain
+    version: a second launch equal to the first bit for bit (a missing
+    wait or barrier between a slot's last read and its refill shows as
+    results that differ from run to run), the grid sibling on the same
+    inputs within ``sib["grid_tol"]`` (bit-equality reported), and
+    where ``sib["acc"]`` gives the two kernels through an identity
+    epilogue, their int32 accumulators equal (|acc| < 2^24, so float32
+    holds them exactly). Returns what it read, with the sibling's
+    time."""
+    again = kfn()
+    torch.cuda.synchronize()
+    if not torch.equal(again, got):
+        raise AssertionError(f"{kname}[{case}]: two launches on the same "
+                             f"inputs differ")
+    want = sib["grid"]()
+    torch.cuda.synchronize()
+    tol = sib["grid_tol"]
+    out = {"vs_grid_max_abs_err": float((got - want).abs().max()),
+           "bit_equal_to_grid": bool(torch.equal(got, want))}
+    if not torch.allclose(got, want, atol=tol, rtol=tol):
+        raise AssertionError(f"{kname}[{case}] disagrees with its grid "
+                             f"sibling: {out}")
+    if "acc" in sib:
+        a, b = (fn() for fn in sib["acc"])
+        torch.cuda.synchronize()
+        big = float(b.abs().max())
+        out["acc_bit_equal"] = bool(torch.equal(a, b))
+        if big >= 2 ** 24 or not out["acc_bit_equal"]:
+            raise AssertionError(f"{kname}[{case}]: int32 accumulator "
+                                 f"differs from the grid kernel's "
+                                 f"(max |acc| {big})")
+    out["grid_ms"] = cuda_ms(torch, sib["grid"])
+    return out
+
+
 def check_cases(torch, cases: list, per_kernel: dict):
-    """Phase 2 for the cases of ``qmm_cases`` and ``lm_cases``: each
-    launches its kernel once (its counter moves by one), agrees with its
+    """Phase 2 for the cases of ``qmm_cases``, ``lm_cases``,
+    ``ssd_cases`` and ``conv_double_cases``: each launches its kernel
+    once (its counter moves by one, ``stays`` does not), agrees with its
     plain version (every output, where it returns a tuple), and is
-    timed; adds to ``per_kernel``."""
+    timed; a case with a 12th entry also passes ``check_sibling``. Adds
+    to ``per_kernel``."""
     for (kname, case, kfn, pfn, lfn, ops, nbytes, peak, tol, moves,
-         stays) in cases:
+         stays, *sib) in cases:
         n_moves = moves.value
         n_stays = stays.value if stays is not None else 0
         got = kfn()
@@ -765,20 +927,29 @@ def check_cases(torch, cases: list, per_kernel: dict):
         # what allclose holds to 1: |got - plain| / (tol + tol·|plain|)
         ratio = max(float(((g - w).abs() / (tol * (1 + w.abs()))).max())
                     for g, w in pairs) if tol else 0.0
+        if not ok:
+            raise AssertionError(f"{kname}[{case}] disagrees with its "
+                                 f"plain version: max_abs_err={err}")
+        extra = check_sibling(torch, kname, case, got, kfn, sib[0]) \
+            if sib else {}
         t_k, t_p = cuda_ms(torch, kfn), cuda_ms(torch, pfn)
         t_l = cuda_ms(torch, lfn) if lfn is not None else None
         b_ops, b_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
         lib = f"{t_l:.4f}ms" if t_l is not None else "n/a"
+        grid = (f" grid={extra['grid_ms']:.4f}ms (double/grid "
+                f"{t_k / extra['grid_ms']:.3f}; vs grid max_abs_err "
+                f"{extra['vs_grid_max_abs_err']:.3e}, bit-equal "
+                f"{extra['bit_equal_to_grid']}"
+                + (f", int32 acc bit-equal {extra['acc_bit_equal']}"
+                   if "acc_bit_equal" in extra else "") + ")") \
+            if extra else ""
         print(f"  {kname:18s} {case:34s} max_abs_err={err:.3e} "
               f"(tol {'bit-equal' if tol == 0 else tol}; err/(tol·(1+|plain|)) "
               f"{ratio:.3f}) "
               f"kernel={t_k:.4f}ms plain={t_p:.4f}ms library={lib} "
               f"bound={max(b_ops, b_bytes):.4f}ms "
-              f"({'operations' if b_ops >= b_bytes else 'bytes'})",
+              f"({'operations' if b_ops >= b_bytes else 'bytes'}){grid}",
               flush=True)
-        if not ok:
-            raise AssertionError(f"{kname}[{case}] disagrees with its "
-                                 f"plain version: max_abs_err={err}")
         agg = per_kernel.setdefault(kname, {
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
             "library_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
@@ -797,7 +968,7 @@ def check_cases(torch, cases: list, per_kernel: dict):
                              "tol_ratio": ratio,
                              "bound_ms": max(b_ops, b_bytes),
                              "bound_by": "operations" if b_ops >= b_bytes
-                             else "bytes"})
+                             else "bytes", **extra})
 
 
 # --------------------------------------------------------------------------
@@ -865,12 +1036,19 @@ class LayerCompare:
     that a difference in one layer never reaches the next. Used where
     activations are quantized: an 8-bit code that rounds the other way
     in one layer (its float input differing in the last bit) would
-    otherwise be amplified by the random weights of later layers."""
+    otherwise be amplified by the random weights of later layers. Path
+    ``double`` uses it with the double-buffered kernels as ``kern`` and
+    the grid kernels as ``plain``: within ``tol`` (atol = rtol), or with
+    ``ulp`` within one unit in the last place; ``equal`` counts the
+    convs that agree bit for bit."""
     name = "layer_compare"
 
-    def __init__(self, kern, plain):
+    def __init__(self, kern, plain, tol: float | None = None,
+                 ulp: bool = False):
         self.kern, self.plain = kern, plain
-        self.worst, self.convs = 0.0, 0
+        self.tol = KERNEL_TOL["qmatmul"] if tol is None else tol
+        self.ulp = ulp
+        self.worst, self.convs, self.equal = 0.0, 0, 0
 
     def fuses_pool(self, node):
         return self.plain.fuses_pool(node)
@@ -878,15 +1056,21 @@ class LayerCompare:
     def conv(self, x, p, node, res=None, **kw):
         want = self.plain.conv(x, p, node, res, **kw)
         got = self.kern.conv(x, p, node, res, **kw)
-        tol = KERNEL_TOL["qmatmul"]
-        err = float((got - want).abs().max())
-        bad = float(((got - want).abs() - tol * want.abs()).max())
+        d = (got - want).abs()
+        err = float(d.max())
+        if self.ulp:
+            a = want.abs()
+            bad = bool((d > a.nextafter(a.new_full(a.shape, float("inf")))
+                        - a).any())
+        else:
+            bad = float((d - self.tol * want.abs()).max()) > self.tol
         self.worst = max(self.worst, err)
         self.convs += 1
-        if bad > tol:
-            raise AssertionError(f"{node.name}: kernel path disagrees with "
-                                 f"the plain path on the same input: "
-                                 f"max_abs_err {err}")
+        self.equal += int(err == 0.0)
+        if bad:
+            raise AssertionError(f"{node.name}: {self.kern.name} path "
+                                 f"disagrees with the {self.plain.name} path "
+                                 f"on the same input: max_abs_err {err}")
         return want
 
     def __getattr__(self, item):
@@ -988,6 +1172,74 @@ def a8_path_check(torch, np, ImageStream, acc, kern, plain, done, images,
                                  f"than either bound")
     return {"layer_max_abs_err": cmp.worst, "readings": readings,
             "max_abs_err": max(r["kernel_max"] for r in readings)}
+
+
+class DoubleBuffered:
+    """The lowering table of path ``double``: ``base``'s own lowering
+    (``KernelBackend`` or ``QuantBackend``, the code the executors run),
+    with the two kernel entry points its convs reach,
+    ``kernels.conv2d.conv2d`` and ``kernels.qmatmul.qmatmul_a8``, called
+    with ``pipeline="double"`` for the length of each conv. A float conv
+    then launches #2 (its fused pool the maxpool kernel, as
+    ``ops.conv2d(pool=)`` does) and an A8 conv #10 (through
+    ``ops.qconv2d_a8``); the launch counts show that every conv did."""
+    name = "double"
+
+    def __init__(self, K, base):
+        self.base = base
+        self.entries = ((K.conv2d, "conv2d"), (K.qmatmul, "qmatmul_a8"))
+
+    def conv(self, *args, **kw):
+        saved = [getattr(m, f) for m, f in self.entries]
+        for (m, f), fn in zip(self.entries, saved):
+            setattr(m, f, _with_double(fn))
+        try:
+            return self.base.conv(*args, **kw)
+        finally:
+            for (m, f), fn in zip(self.entries, saved):
+                setattr(m, f, fn)
+
+    def __getattr__(self, item):
+        return getattr(self.base, item)
+
+
+def _with_double(fn):
+    """``fn`` with its ``pipeline`` argument set to "double" whatever
+    the caller passes (its attributes, the launch counters, kept)."""
+    @functools.wraps(fn)
+    def double(*args, pipeline="grid", **kw):
+        return fn(*args, pipeline="double", **kw)
+    return double
+
+
+def double_forward(torch, np, AcceleratorReplica, DetectRequest, counters,
+                   acc, table, grid, images, compare) -> tuple:
+    """One forward of ``acc``'s design on path ``double``: a replica
+    pinned to the lowering table ``table`` (``AcceleratorReplica(acc,
+    backend=table)``) serves one batch of ``images``, the launch counters
+    set to 0 just before and read just after; then every conv is held
+    against ``grid`` on the grid path's own input (``compare``, a
+    LayerCompare of the two), and both forwards' device time is read
+    (``device_ms``). Returns (launches, the served requests, readings)."""
+    batch = [DetectRequest(uid=j, image=im)
+             for j, im in enumerate(images[:BATCH])]
+    rep = AcceleratorReplica(acc, backend=table)
+    for c in counters.values():
+        c.reset()
+    rep.complete(rep.dispatch(batch))
+    counts = {k: c.value for k, c in counters.items()}
+    xb = torch.from_numpy(np.stack(images[:BATCH])).to(acc.torch_device)
+    acc.forward(xb, backend=compare)
+    if compare.convs != 63:
+        raise AssertionError(f"double: the layer check ran {compare.convs} "
+                             f"convs")
+    dev_d, issue_d = device_ms(torch, lambda: acc.forward(xb, backend=table))
+    dev_g, issue_g = device_ms(torch, lambda: acc.forward(xb, backend=grid))
+    return counts, batch, {
+        "conv_max_abs_err_vs_grid": compare.worst,
+        "convs_bit_equal_to_grid": compare.equal,
+        "forward_device_ms": dev_d, "forward_issue_ms": issue_d,
+        "grid_forward_device_ms": dev_g, "grid_forward_issue_ms": issue_g}
 
 
 def replica_spans(torch, AcceleratorReplica, DetectRequest, QTensor,
@@ -1407,11 +1659,14 @@ def main() -> int:
                               attention=attention,
                               decode_attention=decode_attention,
                               ssd_scan=ssd_scan)
-    counters = {"conv2d": conv2d.launches, "maxpool2d": maxpool.launches,
+    counters = {"conv2d": conv2d.launches,
+                "conv2d_double": conv2d.launches_double,
+                "maxpool2d": maxpool.launches,
                 "resize_nearest": resize.launches,
                 "pointwise": pointwise.launches,
                 "qmatmul": qmatmul.qmatmul.launches,
                 "qmatmul_a8": qmatmul.qmatmul_a8.launches,
+                "qmatmul_a8_double": qmatmul.qmatmul_a8.launches_double,
                 "qmatmul_a8_grouped": qmatmul.qmatmul_a8_grouped.launches,
                 "rmsnorm": pointwise.rmsnorm_launches,
                 "mha": attention.launches,
@@ -1464,7 +1719,22 @@ def main() -> int:
     dev0 = torch.device("cuda", 0)
     check_cases(torch, qmm_cases(torch, K, quant, dev0, matmul_launch_shapes(
         codegen, acc_q.graph)) + lm_cases(torch, F, K, quant, dev0)
-        + ssd_cases(torch, F, K, dev0), per_kernel)
+        + ssd_cases(torch, F, K, dev0) + conv_double_cases(
+            torch, F, K, dev0, conv_launch_shapes(codegen, acc.graph)),
+        per_kernel)
+    # #10's stem cases include its wrapper's zero-pad copy of the
+    # activation codes to a K that is a multiple of 4: timed on its own
+    Ms, Ks, Ns, _, _ = QMM_SHAPES["stem"]
+    xq0 = torch.zeros(Ms, Ks, dtype=torch.int8, device=dev0)
+    q0 = torch.zeros((Ks + 1) // 2, Ns, dtype=torch.int8, device=dev0)
+    stem_pad_ms = cuda_ms(torch, lambda: qmatmul._pad_for_copies(
+        xq0, q0, True, Ks, Ns))
+    print(f"  qmatmul_a8_double  stem: the wrapper's zero-pad copy of the "
+          f"{Ms} x {Ks} codes to K = {-(-Ks // 4) * 4} takes "
+          f"{stem_pad_ms:.4f} ms of the stem cases' " + ", ".join(
+              f"{c['ms']:.4f}" for c in per_kernel["qmatmul_a8_double"][
+                  "cases"] if c["case"].startswith("stem")) + " ms",
+          flush=True)
 
     # ---------------------------------------------------------------- 3
     model_off = yolo.build("yolov8n", 160)
@@ -1626,9 +1896,72 @@ def main() -> int:
           f"against the plain quant path (max_abs_err {err_m:.3e})",
           flush=True)
 
+    # double: pipeline="double" on the designs that main and quant_w4a8
+    # compiled (no recompile), one forward each through a replica pinned
+    # to the DoubleBuffered table; each conv held against the grid
+    # kernels on the grid path's input
+    double = {}
+    auto = codegen.get_backend("auto")
+
+    def dbl(base):
+        return DoubleBuffered(K, base)
+    c_df, done_df, double["float"] = double_forward(
+        torch, np, AcceleratorReplica, DetectRequest, counters, acc,
+        dbl(auto), auto, images,
+        LayerCompare(dbl(auto), auto, tol=DOUBLE_CONV_TOL))
+    if c_df != zero(conv2d_double=63, maxpool2d=3, resize_nearest=2):
+        raise AssertionError(f"double (float) launches {c_df}")
+    err_df, _ = check_outputs(torch, np, acc, images[:BATCH], done_df,
+                              shapes640)
+    double["float"]["max_abs_err_vs_ref"] = err_df
+    c_dq, done_dq, double["w4a8"] = double_forward(
+        torch, np, AcceleratorReplica, DetectRequest, counters, acc_4,
+        dbl(quant_kern), quant_kern, images_4,
+        LayerCompare(dbl(quant_kern), quant_kern, ulp=True))
+    if c_dq != zero(qmatmul_a8_double=63, maxpool2d=3, resize_nearest=2):
+        raise AssertionError(f"double (W4A8) launches {c_dq}")
+    diffs = []
+    for r_d, r_g in zip(done_dq, done_4):
+        for o_d, o_g in zip(r_d.outputs, r_g.outputs):
+            if o_d.shape != o_g.shape or not np.isfinite(o_d).all():
+                raise AssertionError(f"double (W4A8): request {r_d.uid}")
+            diffs.append(float(np.abs(o_d - o_g).max()))
+    double["w4a8"]["max_abs_err_vs_grid_served"] = max(diffs)
+    # every conv bit-equal to the grid kernel's on the same input makes
+    # the served outputs equal too (the same pools, resizes and codes);
+    # a conv one ulp apart may flip a code downstream, so the outputs are
+    # then held to the A8 bound instead
+    bound_dq = 0.0 if double["w4a8"]["convs_bit_equal_to_grid"] == 63 \
+        else A8_TOL * max(float(np.abs(o).max())
+                          for r in done_4 for o in r.outputs)
+    if max(diffs) > bound_dq:
+        raise AssertionError(f"double (W4A8): served outputs "
+                             f"{max(diffs)} from quant_w4a8's, beyond "
+                             f"{bound_dq}")
+    double["w4a8"]["served_bound"] = bound_dq
+    for label, c, d, held in (
+            ("float", c_df, double["float"], f"within {DOUBLE_CONV_TOL}"),
+            ("W4A8", c_dq, double["w4a8"], "at most one ulp")):
+        e2e = (f"outputs within {MAIN_TOL} of backend='ref' (max_abs_err "
+               f"{d['max_abs_err_vs_ref']:.3e})" if label == "float" else
+               f"outputs within {d['served_bound']:.3e} of quant_w4a8's "
+               f"served batch (grid kernels): max_abs_err "
+               f"{d['max_abs_err_vs_grid_served']:.3e}")
+        print(f"[double] {label} design: launches per forward "
+              f"{_nonzero(c)}; every conv against the grid kernel on the "
+              f"grid path's input: max_abs_err "
+              f"{d['conv_max_abs_err_vs_grid']:.3e} ({held}), bit-equal "
+              f"at {d['convs_bit_equal_to_grid']}/63 convs; "
+              f"{e2e}; forward device ms double "
+              f"{d['forward_device_ms']:.3f} (issue "
+              f"{d['forward_issue_ms']:.3f}), grid "
+              f"{d['grid_forward_device_ms']:.3f} (issue "
+              f"{d['grid_forward_issue_ms']:.3f})", flush=True)
+
     paths = {"main": main_counts, "fusion_off": off_counts,
              "quant_w8a16": q_counts, "quant_w4a8": c4,
-             "quant_per_group": cg, "mixed": cm}
+             "quant_per_group": cg, "mixed": cm,
+             "double": {k: c_df[k] + c_dq[k] for k in counters}}
 
     # ---------------------------------------------------------------- 4
     # A short serving window after warm-up: a smoke reading of the
@@ -1713,6 +2046,7 @@ def main() -> int:
                       "mixed_max_abs_err": err_m, "probes": probes,
                       "w8a16_forward_ms": fwd_q,
                       "w8a16_replica_step_spans_ms": spans_q},
+            "double": {**double, "stem_pad_ms": stem_pad_ms},
             **lm_runs, "build_s": info["seconds"]}, indent=1))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T0:.0f}s")
     print(f"[card] {smi()}")

@@ -1,5 +1,6 @@
-// Shared pieces of the port's CUDA kernels: the activation epilogue and
-// the launch-status convention of the C interface.
+// Shared pieces of the port's CUDA kernels: the activation epilogue, the
+// cp.async helpers of the double-buffered kernels, and the launch-status
+// convention of the C interface.
 //
 // Every entry point is `extern "C"`, launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError() right after the
@@ -41,4 +42,29 @@ __device__ __forceinline__ float apply_act(float x, int act) {
     default:
         return x;
     }
+}
+
+// cp.async (sm_80+): an asynchronous copy of 4 bytes from global to
+// shared memory that bypasses the registers. `src_bytes` 0 reads nothing
+// and writes 4 zero bytes: the form every tile edge and every tap outside
+// the image takes in the double-buffered kernels, so that a slot never
+// keeps the previous stage's data. `gsrc` must be a valid address even
+// then (callers pass the operand's base).
+__device__ __forceinline__ void cp_async4(void* sdst, const void* gsrc,
+                                          bool valid) {
+    const unsigned s =
+        static_cast<unsigned>(__cvta_generic_to_shared(sdst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(s), "l"(gsrc), "r"(valid ? 4 : 0));
+}
+
+// Close the copies issued so far by this thread into one group.
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }

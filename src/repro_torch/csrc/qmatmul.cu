@@ -9,6 +9,9 @@
 //     activation codes x int8 / packed-int4 codes, int32 accumulator and
 //     row sum, epilogue with the activation scale folded into the weight
 //     scale (scale = wscale * x_scale, zero = wzero * scale);
+//   * repro_qmatmul_a8_double   <- `qmatmul_a8(pipeline="double")`
+//     (_qmm_a8_dma_kernel): #8 with the K slices of x and of the codes
+//     double-buffered in shared memory by cp.async (see its section);
 //   * repro_qmatmul_a8_grouped  <- `qmatmul_a8` with a per-K-run activation
 //     scale (_qmm_a8_grouped_kernel): the int32 sum of each K block of
 //     `tk` features is scaled by that block's f32 scale into f32
@@ -150,6 +153,22 @@ qmatmul_f32_kernel(const float* __restrict__ x, const void* __restrict__ q,
 // one __dp4a does four multiply-adds.
 constexpr int BK_W = 8;
 
+// One output of #8 and #10: the fold of qmatmul.py:382-383 in its order
+// (scale = wscale * x_scale, then zero * scale), bias, act, residual.
+__device__ __forceinline__ float a8_output(
+        int acc, int xsum, int m, int n, const float* __restrict__ wscale,
+        int scale_stride, const float* __restrict__ wzero, int zero_stride,
+        float x_scale, const float* __restrict__ b,
+        const float* __restrict__ res, int N, int act) {
+    const float sc = wscale[n * scale_stride] * x_scale;
+    const float zs = wzero[n * zero_stride] * sc;
+    float v = static_cast<float>(acc) * sc + static_cast<float>(xsum) * zs;
+    if (b != nullptr) v += b[n];
+    v = apply_act(v, act);
+    if (res != nullptr) v += res[m * N + n];
+    return v;
+}
+
 template <bool PACKED>
 __global__ void __launch_bounds__(THREADS)
 qmatmul_a8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ q,
@@ -236,15 +255,162 @@ qmatmul_a8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ q,
         for (int j = 0; j < 4; ++j) {
             const int n = n0 + tx + 16 * j;
             if (n >= N) continue;
-            // the fold of qmatmul.py:382-383, in its order
-            const float sc = wscale[n * scale_stride] * x_scale;
-            const float zs = wzero[n * zero_stride] * sc;
-            float v = static_cast<float>(acc[i][j]) * sc
-                      + static_cast<float>(xsum[i]) * zs;
-            if (b != nullptr) v += b[n];
-            v = apply_act(v, act);
-            if (res != nullptr) v += res[m * N + n];
-            y[m * N + n] = v;
+            y[m * N + n] = a8_output(acc[i][j], xsum[i], m, n, wscale,
+                                     scale_stride, wzero, zero_stride,
+                                     x_scale, b, res, N, act);
+        }
+    }
+}
+
+// ---------------------------------------------------------------- #10
+// #8's tile (64 x 64 outputs, 256 threads, a 4 x 4 int32 accumulator and
+// the row sums of its 4 rows, __dp4a, the same epilogue) with its K sweep
+// double-buffered, as _qmm_a8_dma_kernel walks K inside one (M, N) tile
+// on the TPU. Each 32-feature slice of xq (64 rows x 32 bytes) and of the
+// codes (32 rows x 64 columns of int8, or 16 byte rows x 64 columns of
+// packed int4: a stage boundary falls between byte rows, never inside
+// one) lands in shared memory by 4-byte cp.async into stage s & 1, while
+// slice s - 1 is contracted. cp.async copies raw bytes and cannot
+// transpose, so the code words that #8 packs while staging are built on
+// the shared -> register read here: each thread takes 4 consecutive
+// columns, reads one word of 4 columns from each of the slice's 4 feature
+// rows (2 byte rows when packed, whose nibbles are sign-extended four at
+// a time by __vsub4), and transposes the 4 x 4 bytes with __byte_perm.
+// Integer sums are exact in any order, so the accumulator equals #8's bit
+// for bit; the epilogue is #8's (a8_output).
+//
+// Operand rules (the wrapper meets them): K % 4 == 0 and the code rows
+// `ldq` bytes apart with ldq % 4 == 0, so that every copied word is
+// aligned and lies wholly inside or outside the data. The wrapper
+// zero-pads K (x columns and code rows, exact: a zero code adds 0 to the
+// sum and to the row sum, as the JAX wrapper's _pad_q) and, for N % 4 != 0,
+// the code columns. Rows past M, features past K and columns past ldq
+// read 0 by src-size 0.
+constexpr int BK_D = 32;             // features per slice
+
+__device__ __forceinline__ unsigned nibbles_lo(unsigned p) {
+    return __vsub4((p & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+}
+
+__device__ __forceinline__ unsigned nibbles_hi(unsigned p) {
+    return __vsub4(((p >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+}
+
+// Rows r0..r3 hold features f..f+3 of columns c..c+3 (byte j = column
+// c+j); col[j] gets features f..f+3 of column c+j (byte e = feature f+e).
+__device__ __forceinline__ void transpose4x4(unsigned r0, unsigned r1,
+                                             unsigned r2, unsigned r3,
+                                             unsigned (&col)[4]) {
+    const unsigned t0 = __byte_perm(r0, r1, 0x5140);
+    const unsigned t1 = __byte_perm(r0, r1, 0x7362);
+    const unsigned u0 = __byte_perm(r2, r3, 0x5140);
+    const unsigned u1 = __byte_perm(r2, r3, 0x7362);
+    col[0] = __byte_perm(t0, u0, 0x5410);
+    col[1] = __byte_perm(t0, u0, 0x7632);
+    col[2] = __byte_perm(t1, u1, 0x5410);
+    col[3] = __byte_perm(t1, u1, 0x7632);
+}
+
+template <bool PACKED>
+__global__ void __launch_bounds__(THREADS)
+qmatmul_a8_double_kernel(const int8_t* __restrict__ xq,
+                         const int8_t* __restrict__ q, int ldq,
+                         const float* __restrict__ wscale, int scale_stride,
+                         const float* __restrict__ wzero, int zero_stride,
+                         float x_scale, const float* __restrict__ b,
+                         const float* __restrict__ res,
+                         float* __restrict__ y, int M, int K, int N,
+                         int act) {
+    constexpr int QROWS = PACKED ? BK_D / 2 : BK_D;   // code rows a slice
+    __shared__ unsigned Xs[2][BM][BK_D / 4];          // 8 words a row
+    __shared__ unsigned Qs[2][QROWS][BN / 4];         // 16 words a row
+
+    const int tid = threadIdx.x;
+    const int tx = tid % 16;          // columns 4*tx .. 4*tx+3
+    const int ty = tid / 16;          // rows ty + 16*i
+    const int m0 = blockIdx.x * BM;
+    const int n0 = blockIdx.y * BN;
+    const int qcol = n0 + 4 * (tid % 16);     // code loader: first column
+    const int qrows = PACKED ? K / 2 : K;     // code rows of the operand
+
+    // Issue the copies of the slice at feature k0 into stage st.
+    auto stage = [&](int st, int k0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {         // 512 words of xq
+            const int r = tid / 8 + 32 * i;
+            const int m = m0 + r;
+            const int k = k0 + 4 * (tid % 8);
+            const bool in = m < M && k < K;
+            cp_async4(&Xs[st][r][tid % 8], in ? xq + m * K + k : xq, in);
+        }
+#pragma unroll
+        for (int i = 0; i < QROWS / 16; ++i) {  // 256 or 512 code words
+            const int r = tid / 16 + 16 * i;
+            const int kr = (PACKED ? k0 / 2 : k0) + r;
+            const bool in = kr < qrows && qcol < ldq;
+            cp_async4(&Qs[st][r][tid % 16], in ? q + kr * ldq + qcol : q,
+                      in);
+        }
+    };
+
+    int acc[4][4];
+    int xsum[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        xsum[i] = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+    }
+
+    const int n_k = (K + BK_D - 1) / BK_D;
+    stage(0, 0);
+    cp_async_commit();
+    for (int s = 0; s < n_k; ++s) {
+        const int st = s & 1;
+        if (s + 1 < n_k) stage(st ^ 1, (s + 1) * BK_D);
+        cp_async_commit();            // an empty group on the last slice
+        cp_async_wait<1>();           // slice s has landed (this thread)
+        __syncthreads();              // ... and every thread's copies
+#pragma unroll
+        for (int w = 0; w < BK_D / 4; ++w) {
+            int a[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                a[i] = static_cast<int>(Xs[st][ty + 16 * i][w]);
+            unsigned bv[4];
+            if constexpr (PACKED) {
+                const unsigned p0 = Qs[st][2 * w][tx];
+                const unsigned p1 = Qs[st][2 * w + 1][tx];
+                transpose4x4(nibbles_lo(p0), nibbles_hi(p0),
+                             nibbles_lo(p1), nibbles_hi(p1), bv);
+            } else {
+                transpose4x4(Qs[st][4 * w][tx], Qs[st][4 * w + 1][tx],
+                             Qs[st][4 * w + 2][tx], Qs[st][4 * w + 3][tx],
+                             bv);
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                xsum[i] = __dp4a(a[i], 0x01010101, xsum[i]);
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    acc[i][j] = __dp4a(a[i], static_cast<int>(bv[j]),
+                                       acc[i][j]);
+            }
+        }
+        __syncthreads();              // stage st is refilled next step
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int m = m0 + ty + 16 * i;
+        if (m >= M) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int n = n0 + 4 * tx + j;
+            if (n >= N) continue;
+            y[m * N + n] = a8_output(acc[i][j], xsum[i], m, n, wscale,
+                                     scale_stride, wzero, zero_stride,
+                                     x_scale, b, res, N, act);
         }
     }
 }
@@ -406,6 +572,25 @@ extern "C" int repro_qmatmul_a8(
         qmatmul_a8_kernel<false><<<grid, THREADS, 0, stream>>>(
             xq, q, wscale, scale_stride, wzero, zero_stride, x_scale, b,
             res, y, M, K, N, act);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_qmatmul_a8_double(
+        const int8_t* xq, const int8_t* q, int packed, int ldq,
+        const float* wscale, int scale_stride, const float* wzero,
+        int zero_stride, float x_scale, const float* b, const float* res,
+        float* y, int M, int K, int N, int act, cudaStream_t stream) {
+    if (K % 4 != 0 || ldq % 4 != 0 || ldq < N)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid = grid_for(M, N);
+    if (packed)
+        qmatmul_a8_double_kernel<true><<<grid, THREADS, 0, stream>>>(
+            xq, q, ldq, wscale, scale_stride, wzero, zero_stride, x_scale,
+            b, res, y, M, K, N, act);
+    else
+        qmatmul_a8_double_kernel<false><<<grid, THREADS, 0, stream>>>(
+            xq, q, ldq, wscale, scale_stride, wzero, zero_stride, x_scale,
+            b, res, y, M, K, N, act);
     return static_cast<int>(cudaGetLastError());
 }
 

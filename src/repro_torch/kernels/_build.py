@@ -41,6 +41,8 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 _SIGNATURES = {
     "repro_conv2d_nhwc_f32": [_P, _P, _P, _P, _P] + [_I] * 12 + [_P],
+    "repro_conv2d_nhwc_f32_double": [_P, _P, _P, _P, _P] + [_I] * 12
+    + [_P],
     "repro_maxpool2d_nhwc_f32": [_P, _P] + [_I] * 11 + [_P],
     "repro_resize_nearest_nhwc_f32": [_P, _P] + [_I] * 5 + [_P],
     "repro_pointwise_f32": [_P, _P, _LL, _I, _P],
@@ -48,6 +50,8 @@ _SIGNATURES = {
     + [_I] * 4 + [_P],
     "repro_qmatmul_a8": [_P, _P, _I, _P, _I, _P, _I, _F, _P, _P, _P]
     + [_I] * 4 + [_P],
+    "repro_qmatmul_a8_double": [_P, _P, _I, _I, _P, _I, _P, _I, _F, _P,
+                                _P, _P] + [_I] * 4 + [_P],
     "repro_qmatmul_a8_grouped": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P,
                                  _P, _P] + [_I] * 4 + [_P],
     "repro_rmsnorm_f32": [_P, _P, _P, _LL, _I, _F, _I, _P],
@@ -79,6 +83,18 @@ class LaunchCounter:
     @property
     def value(self) -> int:
         return self._n
+
+
+PIPELINES = ("grid", "double")
+
+
+def check_pipeline(pipeline: str) -> None:
+    """Raise on a ``pipeline`` other than ``"grid"`` or ``"double"``.
+    (The JAX package runs its grid kernel for any other string; the port
+    refuses it.)"""
+    if pipeline not in PIPELINES:
+        raise ValueError(f"pipeline={pipeline!r}: expected one of "
+                         f"{PIPELINES}")
 
 
 def act_code(act: str) -> int:

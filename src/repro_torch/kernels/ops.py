@@ -293,8 +293,13 @@ def qconv2d_a8(x, q, scale, zero, b=None, *, x_scale, a_bits=8, K=1,
     per-channel tuple), im2col-windowed in the code domain (padding is
     code 0), and contracted int8×int8 with int32 accumulation; dequant +
     bias + ``act`` + ``res`` run in the epilogue. ``a_bits < 8``
-    narrows the code range inside int8 storage. ``pipeline="double"`` is
-    not ported yet and raises ``NotImplementedError``."""
+    narrows the code range inside int8 storage. ``pipeline``: the K
+    sweep of the kernel backend, ``"grid"`` (#8) or ``"double"`` (#10,
+    double-buffered by ``cp.async``), passed to
+    :func:`repro_torch.kernels.qmatmul.qmatmul_a8` (a per-channel scale
+    takes the grouped or float kernel whatever it says, and an unknown
+    value raises there); ``backend="ref"`` does not read it, as in the
+    JAX package."""
     be = _resolve(backend, _first(x))
     xd = _dense(x)
     C = int(xd.shape[-1])

@@ -13,6 +13,12 @@ Replaces the Pallas kernels of ``src/repro/kernels/qmatmul.py``:
   (``scale = wscale·x_scale``, then ``zero = wzero·scale``, as
   ``qmatmul.py:382-383`` does; the CUDA epilogue computes these two
   products per column, in that order).
+* ``qmatmul_a8(pipeline="double")`` (``_qmm_a8_dma_kernel``): the same
+  contraction with the K slices of x and of the codes double-buffered
+  in shared memory by ``cp.async``, counted on
+  ``qmatmul_a8.launches_double``; K is zero-padded to a multiple of 4
+  first (exact, as the JAX wrapper's ``_pad_q``), and the code columns
+  too where N is not a multiple of 4.
 * :func:`qmatmul_a8_grouped` (``_qmm_a8_grouped_kernel``,
   ``_group_tile``): one activation scale per K run, int32 sums within a
   block of ``tk`` features scaled into float32 accumulators.
@@ -23,8 +29,9 @@ it runs the plain version (``ref.qmatmul`` / ``ref.qmatmul_a8``).
 :func:`qmatmul_a8` with a per-K scale tuple launches the grouped kernel
 when the scale runs align to a usable K tile, and otherwise — the JAX
 package's own semantics (``qmatmul.py:369-377``) — the float kernel on
-``xq·s_k``. ``pipeline="double"`` (the DMA double-buffered K sweep) is
-not ported yet. Bound on the H100: see the source's note.
+``xq·s_k``, whatever ``pipeline`` says; with a float scale,
+``pipeline="double"`` launches the double-buffered kernel. Bound on the
+H100: see the source's note.
 """
 from __future__ import annotations
 
@@ -33,9 +40,11 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import ref
-from ._build import LaunchCounter, act_code, check_operand, launch
+from ._build import (LaunchCounter, act_code, check_aligned, check_operand,
+                     check_pipeline, launch)
 
 _CODE_KIND = {torch.int8: 0, torch.int16: 1}
 _PACKED = 2
@@ -221,6 +230,24 @@ def qmatmul_a8_grouped(xq: torch.Tensor, q: torch.Tensor, scale, zero,
 qmatmul_a8_grouped.launches = LaunchCounter()
 
 
+def _pad_for_copies(xq: torch.Tensor, q: torch.Tensor, w_packed: bool,
+                    K: int, N: int):
+    """The operands of the double-buffered kernel, which copies aligned
+    4-byte words: K zero-padded to a multiple of 4 (x columns and code
+    rows; a zero code adds 0 to the sum and the row sum, so this is
+    exact) and the code columns to a multiple of 4. Returns (xq, q, K',
+    code row stride). A copy is made only where a pad is needed (at
+    yolov8n's shapes: the stem's K = 27)."""
+    K4 = -(-K // 4) * 4
+    if K4 != K:
+        xq = F.pad(xq, (0, K4 - K))
+    rows = K4 // 2 if w_packed else K4
+    ldq = -(-N // 4) * 4
+    if rows != q.shape[0] or ldq != N:
+        q = F.pad(q, (0, ldq - N, 0, rows - int(q.shape[0])))
+    return xq, q, K4, ldq
+
+
 def qmatmul_a8(xq: torch.Tensor, q: torch.Tensor, scale, zero,
                b: torch.Tensor | None = None, *, x_scale,
                act: str = "identity", res: torch.Tensor | None = None,
@@ -233,17 +260,12 @@ def qmatmul_a8(xq: torch.Tensor, q: torch.Tensor, scale, zero,
 
     ``x_scale`` is static: a float (→ the int32 kernel, scale folded in
     its epilogue) or a per-K-feature tuple (→ the grouped kernel when
-    its runs align to a K tile, else the float kernel on ``xq·s_k``).
-    ``tk`` is the K tile the runs are aligned to, as in the JAX package.
-    ``pipeline="double"`` is not ported yet."""
-    if pipeline == "double":
-        raise NotImplementedError(
-            "qmatmul_a8(pipeline='double'), the DMA double-buffered K "
-            "sweep, is not ported yet (ROADMAP.md, kernels still to port: "
-            "#10 and #2, the double-buffered variants)")
-    if pipeline != "grid":
-        raise ValueError(f"pipeline={pipeline!r}: expected 'grid' or "
-                         f"'double'")
+    its runs align to a K tile of ``tk``, else the float kernel on
+    ``xq·s_k``; ``pipeline`` is not read there, as in the JAX package).
+    ``pipeline``: with a float scale, ``"grid"`` launches #8 and
+    ``"double"`` #10 (its K sweep double-buffered by ``cp.async``); any
+    other value raises ``ValueError``."""
+    check_pipeline(pipeline)
     M, K, N = _check_shapes(xq, q, w_packed)
     grouped = not isinstance(x_scale, (int, float))
     if not xq.is_cuda:
@@ -267,17 +289,26 @@ def qmatmul_a8(xq: torch.Tensor, q: torch.Tensor, scale, zero,
     code = act_code(act)
     dev = xq.device
     _check_a8(xq, q, w_packed, dev, M, K, N)
+    double = pipeline == "double"
+    code_stride = ()                  # #10 takes the codes' row stride
+    if double:
+        xq, q, K, ldq = _pad_for_copies(xq, q, w_packed, K, N)
+        check_aligned("xq", xq)
+        check_aligned("q", q)
+        code_stride = (ldq,)
     s, ss = _meta("scale", scale, N, dev)
     z, zs = _meta("zero", zero, N, dev)
     bp = _optional("b", b, dev, (N,))
     rp = _optional("res", res, dev, (M, N))
     y = torch.empty((M, N), device=dev, dtype=torch.float32)
     check_operand("y", y, dev)
-    launch("repro_qmatmul_a8", dev, xq.data_ptr(), q.data_ptr(),
-           int(w_packed), s.data_ptr(), ss, z.data_ptr(), zs,
-           float(x_scale), bp, rp, y.data_ptr(), M, K, N, code)
-    qmatmul_a8.launches.add()
+    launch("repro_qmatmul_a8_double" if double else "repro_qmatmul_a8",
+           dev, xq.data_ptr(), q.data_ptr(), int(w_packed), *code_stride,
+           s.data_ptr(), ss, z.data_ptr(), zs, float(x_scale), bp, rp,
+           y.data_ptr(), M, K, N, code)
+    (qmatmul_a8.launches_double if double else qmatmul_a8.launches).add()
     return y
 
 
 qmatmul_a8.launches = LaunchCounter()
+qmatmul_a8.launches_double = LaunchCounter()

@@ -13,7 +13,6 @@ import torch
 
 import repro_torch.core as tcore
 from repro_torch.configs import registry
-from repro_torch.kernels.qmatmul import qmatmul_a8
 from repro_torch.models import lm, yolo
 from repro_torch.serve import Deployment, LmReplica
 from repro_torch.serve.engine import Engine
@@ -119,10 +118,6 @@ def test_entry_points_refuse_silent_cpu(monkeypatch, cpu_acc):
 
 
 def test_unported_paths_raise(cpu_acc):
-    q = torch.zeros((16, 8), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qmatmul_a8(torch.zeros((4, 16), dtype=torch.int8), q, 1.0, 0.0,
-                   x_scale=0.1, pipeline="double")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Deployment(cpu_acc, devices=["cpu"], tensor_parallel=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

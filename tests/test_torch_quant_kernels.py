@@ -250,15 +250,26 @@ def test_qmatmul_a8_per_group_matches_jax(runs, launch):
         np.testing.assert_array_equal(direct.numpy(), got.numpy())
 
 
-def test_double_pipeline_raises():
-    xq = torch.zeros((8, 16), dtype=torch.int8)
-    q = torch.zeros((16, 8), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqmm.qmatmul_a8(xq, q, 1.0, 0.0, x_scale=1.0, pipeline="double")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.qconv2d_a8(torch.zeros((1, 4, 4, 16)), q.reshape(1, 1, 16, 8),
-                       torch.ones(1), torch.zeros(1), x_scale=0.1,
-                       pipeline="double")
+def test_double_pipeline_equals_grid_on_cpu():
+    """``pipeline`` raises only on a value other than "grid" and
+    "double": "double" (kernel #10 on the card) runs, and on the CPU it
+    equals "grid" (tests/test_torch_double_kernels.py holds it against
+    the JAX package's DMA kernel)."""
+    rng = np.random.default_rng(3)
+    xq = _t(rng.integers(-127, 128, (8, 16)).astype(np.int8))
+    q = _t(rng.integers(-127, 128, (16, 8)).astype(np.int8))
+    x = _t(_np(4, (1, 4, 4, 16)))
+    got = {p: (tqmm.qmatmul_a8(xq, q, 0.01, 0.0, x_scale=0.1, pipeline=p),
+               ops.qconv2d_a8(x, q.reshape(1, 1, 16, 8), torch.ones(1),
+                              torch.zeros(1), x_scale=0.1, pipeline=p))
+           for p in ("grid", "double")}
+    for g, d in zip(got["grid"], got["double"]):
+        np.testing.assert_array_equal(d.numpy(), g.numpy())
+    with pytest.raises(ValueError, match="pipeline"):
+        tqmm.qmatmul_a8(xq, q, 1.0, 0.0, x_scale=1.0, pipeline="dma")
+    with pytest.raises(ValueError, match="pipeline"):
+        ops.qconv2d_a8(x, q.reshape(1, 1, 16, 8), torch.ones(1),
+                       torch.zeros(1), x_scale=0.1, pipeline="dma")
 
 
 # --------------------------------------------------------------------------
