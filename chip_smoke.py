@@ -23,7 +23,14 @@ non-zero:
    the int32 accumulator bit-equal, per-group scales aligned (grouped
    kernel) and unaligned (the float kernel, as the JAX package does);
    their bound uses the int8 tensor-core peak (1979 TOPS) for the A8
-   kernels and their yardstick is ``torch._int_mm`` (K zero-padded to a
+   kernels, and for #7 the dense TF32 peak (495 TFLOP/s) over its
+   passes (2 a product, 4 with int16 codes: ``QMM_PASSES``), the route
+   its tensor-core kernel takes at fp32 accuracy; every #7 case prints
+   its plan (BM, BN, splits), launches twice, bit-equal, and prints
+   its device time and its yardstick's beside the back-to-back ones
+   (``device_mean_ms``: launches queued behind a spin, the host's issue
+   hidden). Their
+   yardstick is ``torch._int_mm`` (K zero-padded to a
    multiple of 8 outside the timed call, so the stem's K = 27 is timed
    too; "n/a" where its other shape rules refuse the case) or
    ``torch.matmul`` on the dequantized weight (TF32 off). The unaligned
@@ -146,6 +153,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PEAK_FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12         # H100 SXM, TF32 tensor cores, dense
 PEAK_INT8_OPS = 1979e12          # H100 SXM, int8 tensor cores, dense
 PEAK_BYTES = 3.35e12             # H100 SXM HBM3
 IMG, BATCH, N_REQ = 640, 8, 32
@@ -167,6 +175,9 @@ KERNEL_TOL = {"conv2d": 1e-4, "conv2d_double": 1e-4, "pointwise": 1e-4,
 DOUBLE_CONV_TOL = 1e-5
 # 16·2^-8 of the output range: the JAX package's _quant_atol at 8 bits
 A8_TOL = 16 * 2.0 ** -8
+# #7's TF32 passes over each product, by int16 codes: x split in two
+# TF32 terms, and int16 codes in two exact planes (csrc/qmatmul.cu)
+QMM_PASSES = {False: 2, True: 4}
 # Paths whose design quantizes activations to 8 bits are also read end
 # to end on three input batches (the first is the one served) and may
 # land up to this many times the plain path's own one-ulp spread from
@@ -338,6 +349,13 @@ def device_ms(torch, fn, reps: int = 3) -> tuple[float, float]:
     return sorted(dev)[reps // 2], sorted(host)[reps // 2]
 
 
+def device_mean_ms(torch, fn, n: int = 20) -> float:
+    """Mean device time of ``fn`` over ``n`` launches queued behind
+    ``device_ms``'s spin: unlike ``cuda_ms``, a call whose host issue
+    outlasts its kernels is timed by its kernels."""
+    return device_ms(torch, lambda: [fn() for _ in range(n)])[0] / n
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, float]:
     """(ms bound by operations, ms bound by bytes)."""
     return flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -443,6 +461,18 @@ def kernel_cases(torch, F, K, dev, conv_shapes: set):
     return cases
 
 
+def qmm_extra(Q, M: int, Kf: int, N: int, kind: int, dev) -> dict:
+    """#7's case extras: its plan, printed; the case launches twice,
+    bit-equal (split K sums its partials in order, with no atomics)."""
+    bm, bn, _, splits = Q._plan(M, Kf, N, kind, Q._sm_count(dev))
+    return {"again": True, "plan": {"BM": bm, "BN": bn, "splits": splits}}
+
+
+def qmm_ops(M: int, Kf: int, N: int, int16: bool) -> int:
+    """#7's tensor-core operations: 2MKN a pass, QMM_PASSES passes."""
+    return QMM_PASSES[int16] * 2 * M * Kf * N
+
+
 def qmm_cases(torch, K, quant, dev, mm_shapes: set):
     """The quantized matmul cases: (kernel, case, kernel_fn, plain_fn,
     library_fn or None, ops, bytes, peak, tol, counter that must move,
@@ -495,6 +525,9 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set):
         qt, codes, sc, zr = wq(w, bits, pack)
         wd = qt.dequantize().reshape(Kf, N)
         qbytes = qt.q.numel() * qt.q.element_size()
+        nbytes = 4 * (M * Kf + M * N * (2 if use_res else 1) + 3 * N) \
+            + qbytes
+        kind = Q._PACKED if pack else Q._CODE_KIND[qt.q.dtype]
         cases.append((
             "qmatmul", f"{name}_w{bits}",
             lambda x=x, qt=qt, b=b, r=r, a=act, p=pack: Q.qmatmul(
@@ -502,10 +535,9 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set):
             lambda x=x, c=codes, sc=sc, zr=zr, b=b, r=r, a=act:
                 ref.qmatmul(x, c, sc, zr, b, act=a, res=r),
             lambda x=x, wd=wd: torch.matmul(x, wd),
-            2 * M * Kf * N,
-            4 * (M * Kf + M * N * (2 if use_res else 1) + 3 * N) + qbytes,
-            PEAK_FP32_FLOPS, KERNEL_TOL["qmatmul"], Q.qmatmul.launches,
-            None))
+            qmm_ops(M, Kf, N, bits == 16), nbytes,
+            PEAK_TF32_FLOPS, KERNEL_TOL["qmatmul"], Q.qmatmul.launches,
+            None, qmm_extra(Q, M, Kf, N, kind, dev)))
     # #8: int8 codes × int8 / packed-int4 codes, int32 accumulator
     for name, bits, pack, acc_only in (
             ("stem", 4, True, False), ("3x3_res_160", 8, False, False),
@@ -550,7 +582,7 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set):
     for run, kname, peak, moves, stays in (
             (16, "qmatmul_a8_grouped", PEAK_INT8_OPS,
              Q.qmatmul_a8_grouped.launches, Q.qmatmul.launches),
-            (6, "qmatmul", PEAK_FP32_FLOPS, Q.qmatmul.launches,
+            (6, "qmatmul", PEAK_TF32_FLOPS, Q.qmatmul.launches,
              Q.qmatmul_a8_grouped.launches)):
         amax = x.abs().amax(dim=0).reshape(-1, run).amax(dim=1)
         sv = tuple(float(v) / 127 for v in amax.repeat_interleave(run))
@@ -559,15 +591,18 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set):
         xf = xq.to(torch.float32) * svt
         lib = int_mm(xq, codes) if kname == "qmatmul_a8_grouped" \
             else (lambda xf=xf: torch.matmul(xf, wd))
+        nbytes = M * Kf + qt.q.numel() + 4 * (M * N + 3 * N + Kf)
+        float7 = kname == "qmatmul"
         cases.append((
             kname, f"3x3_head_80_a8_groups_of_{run}",
             lambda xq=xq, sv=sv: Q.qmatmul_a8(
                 xq, qt.q, qt.scale, qt.zero, b, x_scale=sv, act=act),
             lambda xq=xq, svt=svt: ref.qmatmul_a8(
                 xq, codes, sc, zr, svt, b, act=act),
-            lib, 2 * M * Kf * N,
-            M * Kf + qt.q.numel() + 4 * (M * N + 3 * N + Kf),
-            peak, KERNEL_TOL[kname], moves, stays))
+            lib, qmm_ops(M, Kf, N, False) if float7 else 2 * M * Kf * N,
+            nbytes, peak, KERNEL_TOL[kname], moves, stays,
+            *([qmm_extra(Q, M, Kf, N, Q._CODE_KIND[qt.q.dtype], dev)]
+              if float7 else [])))
         # the per-K scales with pipeline="double" take the same route
         # (never #10), as in the JAX package: launch-checked, not timed
         n10, n_moves = Q.qmatmul_a8.launches_double.value, moves.value
@@ -750,13 +785,14 @@ def lm_cases(torch, F, K, quant, dev):
     qt = quant.quantize(w, quant.QuantConfig(bits=8))   # per tensor, as
     wd = qt.dequantize().reshape(Kf, N)                 # one W8 layer's
     sc, zr = qt.scale.reshape(1, -1), qt.zero.reshape(1, -1)
+    nbytes = 4 * (M * Kf + M * N + 2) + Kf * N
     cases.append((
         "qmatmul", "granite_decode_up_4x4096x12800_w8",
         lambda: K.qmatmul.qmatmul(x, qt.q, qt.scale, qt.zero),
         lambda: K.ref.qmatmul(x, qt.q, sc, zr),
-        lambda: torch.matmul(x, wd), 2 * M * Kf * N,
-        4 * (M * Kf + M * N + 2) + Kf * N, PEAK_FP32_FLOPS,
-        KERNEL_TOL["qmatmul"], K.qmatmul.qmatmul.launches, None))
+        lambda: torch.matmul(x, wd), qmm_ops(M, Kf, N, False), nbytes,
+        PEAK_TF32_FLOPS, KERNEL_TOL["qmatmul"], K.qmatmul.qmatmul.launches,
+        None, qmm_extra(K.qmatmul, M, Kf, N, 0, dev)))
     return cases
 
 
@@ -905,8 +941,12 @@ def check_cases(torch, cases: list, per_kernel: dict):
     ``ssd_cases`` and ``conv_double_cases``: each launches its kernel
     once (its counter moves by one, ``stays`` does not), agrees with its
     plain version (every output, where it returns a tuple), and is
-    timed; a case with a 12th entry also passes ``check_sibling``. Adds
-    to ``per_kernel``."""
+    timed. A case's 12th entry, a dict, adds checks: with ``grid`` it
+    passes ``check_sibling``; with ``again`` (#7's cases) a second
+    launch must equal the first bit for bit, its ``plan`` is printed,
+    and the kernel's and the library call's device times
+    (``device_mean_ms``) are printed and kept beside the back-to-back
+    ones. Adds to ``per_kernel``."""
     for (kname, case, kfn, pfn, lfn, ops, nbytes, peak, tol, moves,
          stays, *sib) in cases:
         n_moves = moves.value
@@ -931,9 +971,24 @@ def check_cases(torch, cases: list, per_kernel: dict):
             raise AssertionError(f"{kname}[{case}] disagrees with its "
                                  f"plain version: max_abs_err={err}")
         extra = check_sibling(torch, kname, case, got, kfn, sib[0]) \
-            if sib else {}
+            if sib and "grid" in sib[0] else {}
+        note = ""
+        if sib and sib[0].get("again"):
+            again = kfn()
+            torch.cuda.synchronize()
+            if not torch.equal(again, got):
+                raise AssertionError(f"{kname}[{case}]: two launches on "
+                                     f"the same inputs differ")
+            plan = sib[0]["plan"]
+            extra.update(bit_equal_twice=True, plan=plan)
+            note = (f" plan BM={plan['BM']} BN={plan['BN']} splits="
+                    f"{plan['splits']}, two launches bit-equal")
         t_k, t_p = cuda_ms(torch, kfn), cuda_ms(torch, pfn)
         t_l = cuda_ms(torch, lfn) if lfn is not None else None
+        if "plan" in extra:
+            d_k, d_l = device_mean_ms(torch, kfn), device_mean_ms(torch, lfn)
+            extra.update(device_ms=d_k, library_device_ms=d_l)
+            note += f"; device time kernel={d_k:.4f}ms library={d_l:.4f}ms"
         b_ops, b_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
         lib = f"{t_l:.4f}ms" if t_l is not None else "n/a"
         grid = (f" grid={extra['grid_ms']:.4f}ms (double/grid "
@@ -942,14 +997,14 @@ def check_cases(torch, cases: list, per_kernel: dict):
                 f"{extra['bit_equal_to_grid']}"
                 + (f", int32 acc bit-equal {extra['acc_bit_equal']}"
                    if "acc_bit_equal" in extra else "") + ")") \
-            if extra else ""
+            if "grid_ms" in extra else ""
         print(f"  {kname:18s} {case:34s} max_abs_err={err:.3e} "
               f"(tol {'bit-equal' if tol == 0 else tol}; err/(tol·(1+|plain|)) "
               f"{ratio:.3f}) "
               f"kernel={t_k:.4f}ms plain={t_p:.4f}ms library={lib} "
               f"bound={max(b_ops, b_bytes):.4f}ms "
-              f"({'operations' if b_ops >= b_bytes else 'bytes'}){grid}",
-              flush=True)
+              f"({'operations' if b_ops >= b_bytes else 'bytes'}){grid}"
+              f"{note}", flush=True)
         agg = per_kernel.setdefault(kname, {
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
             "library_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,

@@ -1,6 +1,6 @@
 // Shared pieces of the port's CUDA kernels: the activation epilogue, the
-// cp.async helpers of the double-buffered kernels, and the launch-status
-// convention of the C interface.
+// cp.async helpers of the double-buffered and tensor-core kernels, and the
+// launch-status convention of the C interface.
 //
 // Every entry point is `extern "C"`, launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError() right after the
@@ -56,6 +56,16 @@ __device__ __forceinline__ void cp_async4(void* sdst, const void* gsrc,
         static_cast<unsigned>(__cvta_generic_to_shared(sdst));
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                  :: "r"(s), "l"(gsrc), "r"(valid ? 4 : 0));
+}
+
+// The same for 16 bytes (cp.async.cg: cached in L2 only); `gsrc` and
+// `sdst` 16-byte aligned. `valid` false writes 16 zero bytes.
+__device__ __forceinline__ void cp_async16(void* sdst, const void* gsrc,
+                                           bool valid) {
+    const unsigned s =
+        static_cast<unsigned>(__cvta_generic_to_shared(sdst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(gsrc), "r"(valid ? 16 : 0));
 }
 
 // Close the copies issued so far by this thread into one group.

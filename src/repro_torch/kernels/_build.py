@@ -6,7 +6,8 @@ loaded with ``ctypes``. The build happens at first use, never at import:
 every ``.cu`` compiles in its own ``nvcc`` process, all started together,
 and one link step makes the library. It lands in ``build/kernels/<hash>/``
 at the repository root (listed in ``.gitignore``), keyed by a hash of the
-sources and flags, so an unchanged checkout loads the existing library.
+sources, the headers written from Python (:func:`generated_headers`) and
+the flags, so an unchanged checkout loads the existing library.
 
 Each wrapper counts its launches on a :class:`LaunchCounter`, checks its
 operands with :func:`check_operand`, and raises when the C function
@@ -47,7 +48,7 @@ _SIGNATURES = {
     "repro_resize_nearest_nhwc_f32": [_P, _P] + [_I] * 5 + [_P],
     "repro_pointwise_f32": [_P, _P, _LL, _I, _P],
     "repro_qmatmul_f32": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P]
-    + [_I] * 4 + [_P],
+    + [_I] * 7 + [_P, _P],
     "repro_qmatmul_a8": [_P, _P, _I, _P, _I, _P, _I, _F, _P, _P, _P]
     + [_I] * 4 + [_P],
     "repro_qmatmul_a8_double": [_P, _P, _I, _I, _P, _I, _P, _I, _F, _P,
@@ -118,11 +119,26 @@ def _nvcc() -> str:
                        "are built from source at first use")
 
 
+def generated_headers() -> dict[str, str]:
+    """Headers the sources include that are written from Python at
+    build time: ``qmm_tiles.h``, kernel #7's K stage and compiled (BM, BN)
+    tiles, from ``kernels/qmatmul.py`` (``_BK``, ``TILES``), which plans
+    its launches from the same table."""
+    from .qmatmul import TILES, _BK   # imported late: qmatmul imports us
+    tiles = " ".join(f"REPRO_TILE({bm}, {bn})" for bm, bn in TILES)
+    return {"qmm_tiles.h": "#pragma once\n"
+            f"#define REPRO_QMM_BK {_BK}\n"
+            f"#define REPRO_QMM_TILES {tiles}\n"}
+
+
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.glob("*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
+    for name, text in sorted(generated_headers().items()):
+        h.update(name.encode())
+        h.update(text.encode())
     return h.hexdigest()[:16]
 
 
@@ -134,11 +150,14 @@ def _build(out_dir: Path) -> dict:
     # each other's half-written files
     work = out_dir / f"objs.{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
+    for name, text in generated_headers().items():
+        (work / name).write_text(text)
     t0 = time.perf_counter()
     procs = []
     for src in sorted(CSRC.glob("*.cu")):
         obj = work / (src.stem + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(work), "-c", str(src), "-o",
+               str(obj)]
         procs.append((src.name, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

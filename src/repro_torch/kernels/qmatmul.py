@@ -23,6 +23,10 @@ Replaces the Pallas kernels of ``src/repro/kernels/qmatmul.py``:
   ``_group_tile``): one activation scale per K run, int32 sums within a
   block of ``tk`` features scaled into float32 accumulators.
 
+:func:`qmatmul` runs on the tensor cores (TF32 with each x split into
+two TF32 terms, exact for int8 and int4 codes, int16 codes split in two
+more), its tile and split of K planned by :func:`_plan`.
+
 On a CUDA tensor each wrapper launches its kernel of ``csrc/qmatmul.cu``
 and counts the launch on its own ``launches`` attribute; on a CPU tensor
 it runs the plain version (``ref.qmatmul`` / ``ref.qmatmul_a8``).
@@ -48,6 +52,68 @@ from ._build import (LaunchCounter, act_code, check_aligned, check_operand,
 
 _CODE_KIND = {torch.int8: 0, torch.int16: 1}
 _PACKED = 2
+
+# Kernel #7's tiles: the (BM, BN) for large M, widest first, and the one
+# for M <= _SMALL_M (a decode step); TILES is what csrc/qmatmul.cu
+# compiles (kernels/_build.py writes it, with the K stage _BK, into the
+# header the source includes). Every tile runs _RESIDENT blocks an SM
+# (csrc TC_RESIDENT), so the persistent grid, and the slots the split of
+# K is sized to fill, are _RESIDENT x the card's SMs (132 on an H100 SXM).
+_LARGE_M_TILES = ((128, 64), (128, 32), (256, 16))
+_SMALL_M_TILE = (16, 128)
+TILES = _LARGE_M_TILES + (_SMALL_M_TILE,)
+_SMALL_M = 64
+_BK = 32
+_RESIDENT = 2
+_H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(M: int, K: int, N: int, kind: int,
+          sms: int = _H100_SMS) -> tuple[int, int, int, int]:
+    """(BM, BN, BK, splits) of kernel #7 for an (M, K) x (K, N) product
+    with codes of ``kind`` (0 int8, 1 int16, 2 packed int4) on a card of
+    ``sms`` streaming multiprocessors.
+
+    BN is the widest compiled tile whose columns exceed N by at most 25%
+    (the narrowest where none does, N < 16 or N = 20); M <= 64 takes the
+    16 x 128 tile. Where the tiles number fewer than the 2 x ``sms``
+    blocks the card holds at once, K is split into ``splits`` chunks of
+    ceil(ceil(K / BK) / splits) stages of BK features (even, so a packed
+    byte row never straddles two), none empty: at least enough
+    chunks to fill the slots, at most twice that, and of those the split
+    whose busiest block is shortest (its items times their stages plus
+    two, for an item's epilogue and pipeline fill). The same inputs give
+    the same plan, so the same bits."""
+    if kind not in (0, 1, _PACKED):
+        raise ValueError(f"unknown code kind {kind}")
+    if M <= _SMALL_M:
+        bm, bn = _SMALL_M_TILE
+    else:
+        bm, bn = next(((bm, bn) for bm, bn in _LARGE_M_TILES
+                       if -(-N // bn) * bn <= 1.25 * N), _LARGE_M_TILES[-1])
+    tiles = -(-M // bm) * -(-N // bn)
+    k_tiles = -(-K // _BK)
+    slots = _RESIDENT * sms
+    splits = 1
+    if tiles < slots and k_tiles > 1:
+        want = min(-(-slots // tiles), k_tiles)
+        best = None
+        for s in range(want, min(2 * want, k_tiles) + 1):
+            per = -(-k_tiles // s)
+            s = -(-k_tiles // per)            # chunks that hold stages
+            if s < want:
+                continue
+            cost = -(-tiles * s // slots) * (per + 2)
+            if best is None or cost < best[0]:
+                best = (cost, s)
+        splits = best[1]
+    return bm, bn, _BK, splits
 
 
 def _check_shapes(x: torch.Tensor, q: torch.Tensor, w_packed: bool,
@@ -173,9 +239,15 @@ def qmatmul(x: torch.Tensor, q: torch.Tensor, scale, zero,
     rp = _optional("res", res, dev, (M, N))
     y = torch.empty((M, N), device=dev, dtype=torch.float32)
     check_operand("y", y, dev)
+    bm, bn, _, splits = _plan(M, K, N, kind, _sm_count(dev))
+    # split K: the partial sums (splits, M, N), then the partial row sums
+    # (splits, M), summed in split order by the kernel's second pass
+    ws = torch.empty(splits * M * (N + 1), device=dev, dtype=torch.float32
+                     ) if splits > 1 else None
     launch("repro_qmatmul_f32", dev, x.data_ptr(), q.data_ptr(), kind,
            s.data_ptr(), ss, z.data_ptr(), zs, bp, rp, y.data_ptr(), M, K,
-           N, code)
+           N, code, bm, bn, splits,
+           None if ws is None else ws.data_ptr())
     qmatmul.launches.add()
     return y
 
@@ -281,8 +353,10 @@ def qmatmul_a8(xq: torch.Tensor, q: torch.Tensor, scale, zero,
             # unalignable groups: fold the per-feature scales into the
             # activations and run the float contraction (one launch)
             sv = _device_f32(xs, xq.device).reshape(1, -1)
-            return qmatmul(xq.to(torch.float32) * sv, q, scale, zero, b,
-                           act=act, res=res, w_packed=w_packed)
+            # int8 x float32 promotes to float32 in one pass, the same
+            # values as converting first
+            return qmatmul(xq * sv, q, scale, zero, b, act=act, res=res,
+                           w_packed=w_packed)
         return qmatmul_a8_grouped(xq, q, scale, zero, b, x_scale=xs,
                                   act=act, res=res, w_packed=w_packed,
                                   tk=tk)
