@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--out FILE.json]
+    python3 chip_smoke.py [--out FILE.json] [--stream]
 
 Phases, each printed as it runs; any failure raises and the script exits
 non-zero:
@@ -17,6 +17,16 @@ non-zero:
    plain version's time, one PyTorch library call's time as a yardstick
    (never called by the port), and the bound: max(FLOPs / 67 TFLOP/s
    fp32, bytes / 3.35 TB/s), H100 SXM data-sheet peaks.
+   #4 and #5 (``stream_cases``): main's two resizes at 640 (20×20×256
+   and 40×40×128, each checked to be a resize launch of the compiled
+   graph), the 7 activations on 8×80×80×64, and silu at fusion_off's
+   largest and smallest activation launches (8×80×80×16, 8×5×5×64);
+   each launches twice, bit-equal, and is read both ways: back to back
+   and, for the kernel and the library call, device time and host
+   issue per call (``per_call_ms``); the sums print on their own lines
+   (#5's 7 activation cases are the kernel table's earlier ones).
+   ``issue_split`` then times one #5 call's host issue by parts, the
+   launch path's steps in their earlier form and as they are now.
    The quantized matmuls (``csrc/qmatmul.cu``) are checked the same way
    at the matmul shapes of the quantized yolov8n at 640 (im2col rows
    M = 8·Ho·Wo, K = K·K·C, N = F): int8, int16 and packed-int4 codes,
@@ -53,7 +63,8 @@ non-zero:
    (2 replicas, batch 8) serving 32 requests; ``fusion_off``: the same
    entry points with the fusion passes off (yolov8n at 160,
    ``CompileConfig(passes=())``), where every activation, add, concat
-   and split launches on its own; ``quant_w8a16``: yolov8n at 640 with
+   and split launches on its own (its forward is also read as device
+   and host issue ms, ``device_ms``); ``quant_w8a16``: yolov8n at 640 with
    ``CompileConfig(backend="quant")`` serving 32 requests;
    ``quant_w4a8``: the same at ``w_bits=4, a_bits=8``, one batch;
    ``quant_per_group``: yolov8n at 160 at W8A8 recalibrated with
@@ -137,6 +148,11 @@ non-zero:
    for rmsnorm, mha and decode_attention, ``ssm`` for ssd_scan;
    ``launches_by_path`` has every path), then the result line.
 
+``--stream`` runs only phase 1, #4 and #5's cases and fusion_off's
+forward reading, and prints no result line: copied into a checkout of an
+earlier commit and run there, it reads that commit's #4 and #5 on the
+same card (before/after within one call).
+
 Needs one CUDA card; exits non-zero without one, and in a directory that
 does not hold the repository's ``src/repro_torch``.
 """
@@ -185,6 +201,11 @@ QMM_PASSES = {False: 2, True: 4}
 # H100 the kernel paths came to at most 0.93 of that spread's max and
 # 0.31 of its mean, on yolov8n W4A8 at 640 and per-group W8A8 at 160.
 A8_SPREAD = 2.0
+# Kernels whose cases also launch twice (bit-equal) and are read both
+# ways, device time and host issue per call, over this many calls (#3
+# too: its short cases are the next candidate for a redesign).
+BOTH_WAYS = ("pointwise", "resize_nearest", "maxpool2d")
+BOTH_WAYS_CALLS = 50
 # FLOPs per element of each activation (for the pointwise bound).
 ACT_FLOPS = {"identity": 0, "none": 0, "relu": 1, "leaky_relu": 2,
              "hardswish": 5, "silu": 5, "gelu": 10}
@@ -349,11 +370,19 @@ def device_ms(torch, fn, reps: int = 3) -> tuple[float, float]:
     return sorted(dev)[reps // 2], sorted(host)[reps // 2]
 
 
+def per_call_ms(torch, fn, n: int = 20) -> tuple[float, float]:
+    """(device ms, host issue ms) per call of ``fn`` over ``n`` calls
+    queued behind ``device_ms``'s spin: unlike ``cuda_ms``, a call whose
+    host issue outlasts its kernels is timed by its kernels, and the
+    issue is read on its own."""
+    dev, host = device_ms(torch, lambda: [fn() for _ in range(n)])
+    return dev / n, host / n
+
+
 def device_mean_ms(torch, fn, n: int = 20) -> float:
     """Mean device time of ``fn`` over ``n`` launches queued behind
-    ``device_ms``'s spin: unlike ``cuda_ms``, a call whose host issue
-    outlasts its kernels is timed by its kernels."""
-    return device_ms(torch, lambda: [fn() for _ in range(n)])[0] / n
+    ``device_ms``'s spin."""
+    return per_call_ms(torch, fn, n)[0]
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, float]:
@@ -371,6 +400,24 @@ def conv_launch_shapes(codegen, graph) -> set:
                      n.geom("stride"), n.attrs.get("act", "identity"),
                      bool(n.attrs.get("fuse_add"))))
     return out
+
+
+def resize_launch_shapes(codegen, graph) -> set:
+    """(input H, W, C, scale) of every resize launch."""
+    out = set()
+    for name in codegen.launch_nodes(graph):
+        n = graph.nodes[name]
+        if n.op == "resize":
+            s = n.geom("scale")
+            out.add((n.geom("H") // s, n.geom("W") // s, n.geom("C"), s))
+    return out
+
+
+def act_launch_shapes(codegen, graph) -> set:
+    """(activation, H, W, C) of every activation launch."""
+    return {(n.op, n.geom("H"), n.geom("W"), n.geom("C"))
+            for n in map(graph.nodes.get, codegen.launch_nodes(graph))
+            if n.op in ACT_FLOPS}
 
 
 def matmul_launch_shapes(codegen, graph) -> set:
@@ -438,33 +485,57 @@ def kernel_cases(torch, F, K, dev, conv_shapes: set):
             lambda xn=xn, k=k, s=s: F.max_pool2d(xn, k, s, (k - 1) // 2),
             BATCH * Ho * Ho * C * (k * k + ACT_FLOPS[act]),
             nb * (x.numel() + BATCH * Ho * Ho * C)))
-    xr = rnd(BATCH, 20, 20, 256)
-    xrn = xr.permute(0, 3, 1, 2)
-    cases.append((
-        "resize_nearest", "20x20x256_to_40",
-        lambda: K.resize.resize_nearest(xr, scale=2),
-        lambda: K.ref.resize_nearest(xr, scale=2),
-        lambda: F.interpolate(xrn, scale_factor=2, mode="nearest"),
-        0, nb * xr.numel() * 5))
-    xp = rnd(BATCH, 80, 80, 64, scale=3.0)
+    return cases
+
+
+def stream_cases(torch, F, K, dev, resize_shapes: set, act_shapes: set):
+    """#4 and #5, as ``kernel_cases``: main's two resizes at 640 (each
+    checked to be a resize launch of that graph); the 7 activations on
+    8×80×80×64 (the kernel table's first cases); silu at fusion_off's
+    largest and smallest activation launches (yolov8n at 160,
+    ``passes=()``)."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    nb = 4
+    cases = []
+    for H, C in ((20, 256), (40, 128)):
+        if (H, H, C, 2) not in resize_shapes:
+            raise AssertionError(f"resize {H}x{H}x{C} is not a resize "
+                                 f"launch of the compiled yolov8n")
+        xr = torch.randn(BATCH, H, H, C, generator=gen, device=dev)
+        xrn = xr.permute(0, 3, 1, 2)
+        cases.append((
+            "resize_nearest", f"{H}x{H}x{C}_to_{2 * H}",
+            lambda xr=xr: K.resize.resize_nearest(xr, scale=2),
+            lambda xr=xr: K.ref.resize_nearest(xr, scale=2),
+            lambda xrn=xrn: F.interpolate(xrn, scale_factor=2,
+                                          mode="nearest"),
+            0, nb * xr.numel() * 5))
     library = {"hardswish": F.hardswish, "relu": F.relu, "silu": F.silu,
                "leaky_relu": lambda t: F.leaky_relu(t, 0.1),
                "gelu": lambda t: F.gelu(t, approximate="tanh"),
                "identity": torch.clone, "none": torch.clone}
-    for act in sorted(ACT_FLOPS):
+    xp = torch.randn(BATCH, 80, 80, 64, generator=gen, device=dev) * 3.0
+    acts = [(a, a, xp) for a in sorted(ACT_FLOPS)]
+    for H, C in ((80, 16), (5, 64)):
+        if ("silu", H, H, C) not in act_shapes:
+            raise AssertionError(f"silu {H}x{H}x{C} is not an activation "
+                                 f"launch of the fusion_off graph")
+        acts.append((f"silu_{BATCH}x{H}x{H}x{C}", "silu", torch.randn(
+            BATCH, H, H, C, generator=gen, device=dev) * 3.0))
+    for case, act, x in acts:
         cases.append((
-            "pointwise", act,
-            lambda a=act: K.pointwise.pointwise(xp, a),
-            lambda a=act: K.ref.pointwise(xp, a),
-            lambda a=act: library[a](xp),
-            xp.numel() * ACT_FLOPS[act], nb * xp.numel() * 2))
+            "pointwise", case,
+            lambda a=act, x=x: K.pointwise.pointwise(x, a),
+            lambda a=act, x=x: K.ref.pointwise(x, a),
+            lambda a=act, x=x: library[a](x),
+            x.numel() * ACT_FLOPS[act], nb * x.numel() * 2))
     return cases
 
 
 def qmm_extra(Q, M: int, Kf: int, N: int, kind: int, dev) -> dict:
     """#7's case extras: its plan, printed; the case launches twice,
     bit-equal (split K sums its partials in order, with no atomics)."""
-    bm, bn, _, splits = Q._plan(M, Kf, N, kind, Q._sm_count(dev))
+    bm, bn, _, splits = Q._plan(M, Kf, N, kind, Q.sm_count(dev))
     return {"again": True, "plan": {"BM": bm, "BN": bn, "splits": splits}}
 
 
@@ -861,28 +932,48 @@ def ssd_cases(torch, F, K, dev):
     return cases
 
 
-def check_kernels(torch, F, K, dev, conv_shapes: set) -> dict:
+def check_kernels(torch, cases: list) -> dict:
+    """Phase 2 for the cases of ``kernel_cases`` and ``stream_cases``:
+    each agrees with its plain version and is timed back to back. A case
+    of a kernel in BOTH_WAYS also launches twice (the two results equal
+    bit for bit) and is read both ways: the kernel's and the library
+    call's device time and host issue per call (``per_call_ms``), kept
+    in the case beside the back-to-back times."""
     per_kernel: dict = {}
-    for kname, case, kfn, pfn, lfn, flops, nbytes in kernel_cases(
-            torch, F, K, dev, conv_shapes):
+    for kname, case, kfn, pfn, lfn, flops, nbytes in cases:
         got, want = kfn(), pfn()
         torch.cuda.synchronize()
         tol = KERNEL_TOL[kname]
         err = float((got - want).abs().max())
         ok = bool(torch.equal(got, want)) if tol == 0 else bool(
             torch.allclose(got, want, atol=tol, rtol=tol))
+        if not ok:
+            raise AssertionError(f"{kname}[{case}] disagrees with its "
+                                 f"plain version: max_abs_err={err}")
         t_k, t_p, t_l = (cuda_ms(torch, kfn), cuda_ms(torch, pfn),
                          cuda_ms(torch, lfn))
         b_ops, b_bytes = bound(flops, nbytes)
+        extra, note = {}, ""
+        if kname in BOTH_WAYS:
+            again = kfn()
+            torch.cuda.synchronize()
+            if not torch.equal(again, got):
+                raise AssertionError(f"{kname}[{case}]: two launches on "
+                                     f"the same inputs differ")
+            d_k, i_k = per_call_ms(torch, kfn, BOTH_WAYS_CALLS)
+            d_l, i_l = per_call_ms(torch, lfn, BOTH_WAYS_CALLS)
+            extra = {"bit_equal_twice": True, "device_ms": d_k,
+                     "issue_ms": i_k, "library_device_ms": d_l,
+                     "library_issue_ms": i_l}
+            note = (f"; two launches bit-equal; device kernel={d_k:.4f}ms "
+                    f"library={d_l:.4f}ms; issue per call kernel="
+                    f"{i_k:.4f}ms library={i_l:.4f}ms")
         print(f"  {kname:15s} {case:18s} max_abs_err={err:.3e} "
               f"(tol {'bit-equal' if tol == 0 else tol}) "
               f"kernel={t_k:.4f}ms plain={t_p:.4f}ms library={t_l:.4f}ms "
               f"bound={max(b_ops, b_bytes):.4f}ms "
-              f"({'operations' if b_ops >= b_bytes else 'bytes'})",
+              f"({'operations' if b_ops >= b_bytes else 'bytes'}){note}",
               flush=True)
-        if not ok:
-            raise AssertionError(f"{kname}[{case}] disagrees with its "
-                                 f"plain version: max_abs_err={err}")
         agg = per_kernel.setdefault(kname, {
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
             "library_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
@@ -896,8 +987,101 @@ def check_kernels(torch, F, K, dev, conv_shapes: set) -> dict:
                              "library_ms": t_l, "max_abs_err": err,
                              "bound_ms": max(b_ops, b_bytes),
                              "bound_by": "operations" if b_ops >= b_bytes
-                             else "bytes"})
+                             else "bytes", **extra})
     return per_kernel
+
+
+def stream_sums(per_kernel: dict) -> dict:
+    """Sums over #5's 7 activation cases on 8×80×80×64 (the cases of
+    the kernel table's earlier rows) and over #4's cases, each key of
+    the cases summed, printed on a line of their own."""
+    out = {}
+    for kname, label, pick in (
+            ("pointwise", "7 activations on 8x80x80x64",
+             lambda c: c["case"] in ACT_FLOPS),
+            ("resize_nearest", "both resizes", lambda c: True)):
+        cases = [c for c in per_kernel[kname]["cases"] if pick(c)]
+        sums = {k: sum(c[k] for c in cases) for k in (
+            "ms", "library_ms", "device_ms", "library_device_ms",
+            "issue_ms", "library_issue_ms", "bound_ms", "plain_ms")}
+        out[kname] = {"cases": len(cases), **sums}
+        print(f"  {kname} sum over {label}: kernel {sums['ms']:.4f} ms "
+              f"back to back, device {sums['device_ms']:.4f}, issue "
+              f"{sums['issue_ms']:.4f}; library {sums['library_ms']:.4f}, "
+              f"device {sums['library_device_ms']:.4f}, issue "
+              f"{sums['library_issue_ms']:.4f}; plain "
+              f"{sums['plain_ms']:.4f}; bound {sums['bound_ms']:.4f}",
+              flush=True)
+    return out
+
+
+def issue_split(torch, K, build, dev, n: int = 200) -> dict:
+    """Host issue per call, µs, of one #5 call (silu on 8×5×5×64, its
+    kernel queued behind ``device_ms``'s spin, ``n`` calls a reading) and
+    of its parts: the wrapper's steps, and the launch path's steps both
+    in the earlier form of ``_build.launch`` (the library's lock taken,
+    ``torch.cuda.device`` entered, a ``Stream`` built, the function
+    looked up by name) and as it takes them now."""
+    x = torch.randn(BATCH, 5, 5, 64, device=dev)
+    y = torch.empty_like(x)
+    lib, fn, idx = build.library(), "repro_pointwise_f32", dev.index
+    f = build._fns[fn]
+    xp, yp, numel = x.data_ptr(), y.data_ptr(), x.numel()
+    head, nvec, blocks = K.pointwise._plan(numel, xp, yp,
+                                           build.sm_count(dev))
+    args = (xp, yp, numel, head, nvec, build.act_code("silu"), blocks)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def locked():
+        with build._lock:
+            return build._lib
+
+    def device_ctx():
+        with torch.cuda.device(dev):
+            pass
+
+    def old_launch():
+        with build._lock:
+            lib_ = build._lib
+        with torch.cuda.device(dev):
+            rc = getattr(lib_, fn)(*args,
+                                   torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(rc)
+
+    parts = {
+        "wrapper pointwise(x, 'silu')": lambda: K.pointwise.pointwise(
+            x, "silu"),
+        "  act_code": lambda: build.act_code("silu"),
+        "  check_operand": lambda: build.check_operand("x", x, dev),
+        "  torch.empty_like": lambda: torch.empty_like(x),
+        "  data_ptr x2": lambda: (x.data_ptr(), y.data_ptr()),
+        "  _plan with sm_count": lambda: K.pointwise._plan(
+            numel, xp, yp, build.sm_count(dev)),
+        "  launch (now)": lambda: build.launch(fn, dev, *args),
+        "  LaunchCounter.add": K.pointwise.launches.add,
+        "launch, earlier form": old_launch,
+        "  old: library() under its lock": locked,
+        "  old: torch.cuda.device entered": device_ctx,
+        "  old: current_stream(dev).cuda_stream": lambda:
+            torch.cuda.current_stream(dev).cuda_stream,
+        "  old: getattr(lib, fn)": lambda: getattr(lib, fn),
+        "  now: _fns[fn]": lambda: build._fns[fn],
+        "  now: current device compared": lambda:
+            torch._C._cuda_getDevice() == idx,
+        "  now: raw stream handle": lambda:
+            torch._C._cuda_getCurrentRawStream(idx),
+        "  the ctypes call (launches)": lambda: f(*args, stream),
+        "an empty call (the reading's own cost)": lambda: None,
+    }
+    out = {}
+    for name, part in parts.items():
+        out[name] = per_call_ms(torch, part, n)[1] * 1e3
+    torch.cuda.synchronize()
+    print("[issue] host issue per call, us (n = " + str(n) + " calls behind "
+          "a spin, median of 3): " + "; ".join(
+              f"{k.strip()} {v:.2f}" for k, v in out.items()), flush=True)
+    return out
 
 
 def check_sibling(torch, kname: str, case: str, got, kfn, sib: dict) -> dict:
@@ -1029,6 +1213,16 @@ def check_cases(torch, cases: list, per_kernel: dict):
 # --------------------------------------------------------------------------
 # phase 3: the main path through the user's entry points
 # --------------------------------------------------------------------------
+
+def fusion_off_forward(torch, acc_off, xb) -> dict:
+    """Device and host issue ms of one forward of the fusion_off design
+    (its 57 #5 launches among 125; ``device_ms``, median of 9: the
+    host's issue spreads widely from one reading to the next)."""
+    dev, issue = device_ms(torch, lambda: acc_off.forward(xb), reps=9)
+    print(f"[fusion_off] forward (batch {BATCH}): device {dev:.3f} ms, "
+          f"host issue {issue:.3f} ms", flush=True)
+    return {"device_ms": dev, "issue_ms": issue}
+
 
 def serve(Deployment, DetectRequest, ImageStream, acc, n_req, img, seed,
           backend=None):
@@ -1677,6 +1871,11 @@ def _leaves(tree) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
+    ap.add_argument("--stream", action="store_true",
+                    help="only #4 and #5's cases and the fusion_off "
+                    "forward's device and issue time (a before/after "
+                    "reading: copied into an older checkout, it times "
+                    "that checkout's kernels); prints no result line")
     args = ap.parse_args()
 
     T0 = time.perf_counter()
@@ -1759,6 +1958,31 @@ def main() -> int:
     print(f"[main] compiled {acc.name} on {acc.torch_device} in "
           f"{time.perf_counter() - t0:.1f}s; launch nodes per forward: "
           f"{len(codegen.launch_nodes(acc.graph))}", flush=True)
+    model_off = yolo.build("yolov8n", 160)
+    acc_off = core.compile(model_off,
+                           core.CompileConfig(batch_size=BATCH, passes=()),
+                           params=random_params(torch, codegen,
+                                                model_off.graph, 1))
+    dev0 = torch.device("cuda", 0)
+    xb_off = torch.from_numpy(ImageStream(160, BATCH, seed=4).batch_at(0)
+                              ).to(dev0)
+    streams = stream_cases(torch, F, K, dev0,
+                           resize_launch_shapes(codegen, acc.graph),
+                           act_launch_shapes(codegen, acc_off.graph))
+    if args.stream:
+        print("[kernels] #4 and #5 vs their plain versions on the card",
+              flush=True)
+        per_kernel = check_kernels(torch, streams)
+        sums = stream_sums(per_kernel)
+        off_fwd = fusion_off_forward(torch, acc_off, xb_off)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({
+                "card": card, "torch": torch.__version__, "sums": sums,
+                "cases": {k: v["cases"] for k, v in per_kernel.items()},
+                "fusion_off_forward": off_fwd}, indent=1))
+        print(f"[card] {smi()}")
+        return 0
     t0 = time.perf_counter()
     params_q = random_params(torch, codegen, model.graph, 0)
     acc_q = core.compile(model, core.CompileConfig(
@@ -1769,9 +1993,10 @@ def main() -> int:
           f"quant_mean_rel_delta="
           f"{acc_q.report['quant_mean_rel_delta']:.4e}", flush=True)
     print("[kernels] each kernel vs its plain version on the card", flush=True)
-    per_kernel = check_kernels(torch, F, K, torch.device("cuda", 0),
-                               conv_launch_shapes(codegen, acc.graph))
-    dev0 = torch.device("cuda", 0)
+    per_kernel = check_kernels(torch, kernel_cases(
+        torch, F, K, dev0, conv_launch_shapes(codegen, acc.graph)) + streams)
+    sums = stream_sums(per_kernel)
+    split = issue_split(torch, K, _build, dev0)
     check_cases(torch, qmm_cases(torch, K, quant, dev0, matmul_launch_shapes(
         codegen, acc_q.graph)) + lm_cases(torch, F, K, quant, dev0)
         + ssd_cases(torch, F, K, dev0) + conv_double_cases(
@@ -1792,12 +2017,6 @@ def main() -> int:
           flush=True)
 
     # ---------------------------------------------------------------- 3
-    model_off = yolo.build("yolov8n", 160)
-    acc_off = core.compile(model_off,
-                           core.CompileConfig(batch_size=BATCH, passes=()),
-                           params=random_params(torch, codegen,
-                                                model_off.graph, 1))
-
     def drive(acc_, n_req, img, seed, backend=None):
         for c in counters.values():
             c.reset()
@@ -1838,6 +2057,7 @@ def main() -> int:
           f"{off_counts}; outputs within {MAIN_TOL} of backend='ref' "
           f"(max_abs_err {err_off:.3e}, max |output| {scale_off:.3e})",
           flush=True)
+    off_fwd = fusion_off_forward(torch, acc_off, xb_off)
     shapes640 = [(80, 80, 144), (40, 40, 144), (20, 20, 144)]
     shapes160 = [(20, 20, 144), (10, 10, 144), (5, 5, 144)]
     probes = {"quant_w8a16": {k: acc_q.report[k] for k in (
@@ -2102,6 +2322,8 @@ def main() -> int:
                       "w8a16_forward_ms": fwd_q,
                       "w8a16_replica_step_spans_ms": spans_q},
             "double": {**double, "stem_pad_ms": stem_pad_ms},
+            "stream": {"sums": sums, "issue_split_us": split,
+                       "fusion_off_forward": off_fwd},
             **lm_runs, "build_s": info["seconds"]}, indent=1))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T0:.0f}s")
     print(f"[card] {smi()}")

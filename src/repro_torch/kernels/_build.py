@@ -17,6 +17,7 @@ synchronise would not report it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -45,8 +46,8 @@ _SIGNATURES = {
     "repro_conv2d_nhwc_f32_double": [_P, _P, _P, _P, _P] + [_I] * 12
     + [_P],
     "repro_maxpool2d_nhwc_f32": [_P, _P] + [_I] * 11 + [_P],
-    "repro_resize_nearest_nhwc_f32": [_P, _P] + [_I] * 5 + [_P],
-    "repro_pointwise_f32": [_P, _P, _LL, _I, _P],
+    "repro_resize_nearest_nhwc_f32": [_P, _P] + [_I] * 9 + [_P],
+    "repro_pointwise_f32": [_P, _P, _LL, _LL, _LL, _I, _I, _P],
     "repro_qmatmul_f32": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P]
     + [_I] * 7 + [_P, _P],
     "repro_qmatmul_a8": [_P, _P, _I, _P, _I, _P, _I, _F, _P, _P, _P]
@@ -63,6 +64,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_fns: dict = {}                 # entry point name -> bound ctypes function
 build_info: dict = {}           # filled by the first library() call
 
 
@@ -184,8 +186,11 @@ def _build(out_dir: Path) -> dict:
 
 
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use."""
+    """The kernels' shared library, built on first use; its entry points
+    bound once, into ``_fns``."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -196,11 +201,20 @@ def library() -> ctypes.CDLL:
             info = _build(out_dir)
         lib = ctypes.CDLL(str(path))
         for fn, args in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = ctypes.c_int
+            f = getattr(lib, fn)
+            f.argtypes = args
+            f.restype = ctypes.c_int
+            _fns[fn] = f
         build_info.update(info, path=str(path))
-        _lib = lib
+        _lib = lib              # last: a reader that sees it sees _fns
         return lib
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device``'s card (132 on an H100
+    SXM), read once per device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_no_grad(*tensors: torch.Tensor) -> None:
@@ -249,10 +263,23 @@ def check_operand(name: str, t: torch.Tensor, device: torch.device,
 
 def launch(fn: str, device: torch.device, *args) -> None:
     """Call C entry point ``fn`` on ``device``'s current stream and raise
-    on a CUDA error code."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
+    on a CUDA error code.
+
+    It runs on every kernel call, so it does only what a launch needs:
+    the bound function from ``_fns``; the stream's raw handle
+    (``torch._C._cuda_getCurrentRawStream``, what ``torch.cuda.
+    current_stream(device).cuda_stream`` reads, without building a
+    ``Stream``); and ``torch.cuda.device(device)`` entered only when the
+    calling thread's current device is another (a kernel launches on the
+    current device, so the stream must be that device's)."""
+    if _lib is None:
+        library()
+    f = _fns[fn]
+    idx = device.index
+    if torch._C._cuda_getDevice() == idx:
+        rc = f(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            rc = f(*args, torch._C._cuda_getCurrentRawStream(idx))
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {rc}")

@@ -48,7 +48,7 @@ import torch.nn.functional as F
 
 from . import ref
 from ._build import (LaunchCounter, act_code, check_aligned, check_operand,
-                     check_pipeline, launch)
+                     check_pipeline, launch, sm_count)
 
 _CODE_KIND = {torch.int8: 0, torch.int16: 1}
 _PACKED = 2
@@ -66,11 +66,6 @@ _SMALL_M = 64
 _BK = 32
 _RESIDENT = 2
 _H100_SMS = 132
-
-
-@functools.lru_cache(maxsize=16)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=1024)
@@ -239,7 +234,7 @@ def qmatmul(x: torch.Tensor, q: torch.Tensor, scale, zero,
     rp = _optional("res", res, dev, (M, N))
     y = torch.empty((M, N), device=dev, dtype=torch.float32)
     check_operand("y", y, dev)
-    bm, bn, _, splits = _plan(M, K, N, kind, _sm_count(dev))
+    bm, bn, _, splits = _plan(M, K, N, kind, sm_count(dev))
     # split K: the partial sums (splits, M, N), then the partial row sums
     # (splits, M), summed in split order by the kernel's second pass
     ws = torch.empty(splits * M * (N + 1), device=dev, dtype=torch.float32
