@@ -35,11 +35,16 @@ non-zero:
    their bound uses the int8 tensor-core peak (1979 TOPS) for the A8
    kernels, and for #7 the dense TF32 peak (495 TFLOP/s) over its
    passes (2 a product, 4 with int16 codes: ``QMM_PASSES``), the route
-   its tensor-core kernel takes at fp32 accuracy; every #7 case prints
-   its plan (BM, BN, splits), launches twice, bit-equal, and prints
-   its device time and its yardstick's beside the back-to-back ones
-   (``device_mean_ms``: launches queued behind a spin, the host's issue
-   hidden). Their
+   its tensor-core kernel takes at fp32 accuracy; every #7, #8 and #10
+   case prints its plan (BM, BN, splits; ``_plan`` / ``_plan_a8``),
+   launches twice, bit-equal, and is read both ways: its device time and
+   its yardstick's beside the back-to-back ones (``per_call_ms``:
+   launches queued behind a spin, the host's issue hidden), and the host
+   issue per call. #8 and #10 also run at the widest N among the
+   graph's matmul launches, and their sums over the earlier 6 and 10
+   cases print on lines of their own (``a8_sums``); #10 at the stem is
+   checked to launch on the caller's own codes (``a8_pointer_check``:
+   no padded copy). Their
    yardstick is ``torch._int_mm`` (K zero-padded to a
    multiple of 8 outside the timed call, so the stem's K = 27 is timed
    too; "n/a" where its other shape rules refuse the case) or
@@ -56,7 +61,9 @@ non-zero:
    to #8's. Each case launches twice (the two results equal bit for
    bit: a missing wait or barrier shows as a difference), and its grid
    sibling's time is printed beside its own, with the same bound and
-   yardstick as the sibling's.
+   yardstick as the sibling's. The W4A8 design's forward is read grid
+   and double (``a8_forward``: device and issue ms, and a
+   ``torch.profiler`` split with the A8 kernels' share).
 3. Seven YOLO paths through the user's entry points, each with the launch
    counters set to 0 just before it and read just after:
    ``main``: yolov8n at 640 → ``core.compile`` → ``serve.Deployment``
@@ -151,7 +158,8 @@ non-zero:
 ``--stream`` runs only phase 1, #4 and #5's cases and fusion_off's
 forward reading, and prints no result line: copied into a checkout of an
 earlier commit and run there, it reads that commit's #4 and #5 on the
-same card (before/after within one call).
+same card (before/after within one call). ``--a8`` does the same for #8
+and #10's cases and the W4A8 forward (``a8_forward``).
 
 Needs one CUDA card; exits non-zero without one, and in a directory that
 does not hold the repository's ``src/repro_torch``.
@@ -379,12 +387,6 @@ def per_call_ms(torch, fn, n: int = 20) -> tuple[float, float]:
     return dev / n, host / n
 
 
-def device_mean_ms(torch, fn, n: int = 20) -> float:
-    """Mean device time of ``fn`` over ``n`` launches queued behind
-    ``device_ms``'s spin."""
-    return per_call_ms(torch, fn, n)[0]
-
-
 def bound(flops: float, nbytes: float) -> tuple[float, float]:
     """(ms bound by operations, ms bound by bytes)."""
     return flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -534,9 +536,20 @@ def stream_cases(torch, F, K, dev, resize_shapes: set, act_shapes: set):
 
 def qmm_extra(Q, M: int, Kf: int, N: int, kind: int, dev) -> dict:
     """#7's case extras: its plan, printed; the case launches twice,
-    bit-equal (split K sums its partials in order, with no atomics)."""
+    bit-equal (split K sums its partials in order, with no atomics), and
+    is read both ways."""
     bm, bn, _, splits = Q._plan(M, Kf, N, kind, Q.sm_count(dev))
-    return {"again": True, "plan": {"BM": bm, "BN": bn, "splits": splits}}
+    return {"again": True, "both_ways": True,
+            "plan": {"BM": bm, "BN": bn, "splits": splits}}
+
+
+def a8_plan(Q, M: int, Kf: int, N: int, dev):
+    """#8's and #10's plan (BM, BN, splits), or None in a checkout from
+    before their tensor-core kernels (``--a8`` run there)."""
+    if not hasattr(Q, "_plan_a8"):
+        return None
+    bm, bn, splits = Q._plan_a8(M, Kf, N, Q.sm_count(dev))
+    return {"BM": bm, "BN": bn, "splits": splits}
 
 
 def qmm_ops(M: int, Kf: int, N: int, int16: bool) -> int:
@@ -544,10 +557,12 @@ def qmm_ops(M: int, Kf: int, N: int, int16: bool) -> int:
     return QMM_PASSES[int16] * 2 * M * Kf * N
 
 
-def qmm_cases(torch, K, quant, dev, mm_shapes: set):
+def qmm_cases(torch, K, quant, dev, mm_shapes: set, kinds=None):
     """The quantized matmul cases: (kernel, case, kernel_fn, plain_fn,
     library_fn or None, ops, bytes, peak, tol, counter that must move,
-    counter that must not)."""
+    counter that must not[, extras]); only the kernels in ``kinds``
+    where given. #8 and #10 also run at the widest N among the graph's
+    matmul launches (``widest_N...``, packed int4 as on quant_w4a8)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     Q, ref = K.qmatmul, K.ref
     cases = []
@@ -555,6 +570,8 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set):
         if (M, Kf, N, act, use_res) not in mm_shapes:
             raise AssertionError(f"matmul case {name} is not a conv "
                                  f"launch of the compiled yolov8n")
+    wide = max(mm_shapes, key=lambda s: (s[2], s[1], s[0]))
+    shapes = {**QMM_SHAPES, f"widest_N{wide[2]}": wide}
     rows = {}
 
     def data(M, Kf, N, use_res):
@@ -613,8 +630,9 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set):
     for name, bits, pack, acc_only in (
             ("stem", 4, True, False), ("3x3_res_160", 8, False, False),
             ("3x3_head_80", 8, False, False), ("3x3_head_80", 8, False, True),
-            ("3x3_20", 8, False, False), ("1x1_cls_80", 8, False, False)):
-        M, Kf, N, act, use_res = QMM_SHAPES[name]
+            ("3x3_20", 8, False, False), ("1x1_cls_80", 8, False, False),
+            (f"widest_N{wide[2]}", 4, True, False)):
+        M, Kf, N, act, use_res = shapes[name]
         x, w, b, r = data(M, Kf, N, use_res)
         qt, codes, sc, zr = wq(w, bits, pack)
         xs = float(x.abs().max()) / 127
@@ -641,7 +659,9 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set):
             2 * M * Kf * N,
             M * Kf + qbytes + 4 * (M * N * (2 if r is not None else 1)
                                    + 3 * N),
-            PEAK_INT8_OPS, tol, Q.qmatmul_a8.launches, None))
+            PEAK_INT8_OPS, tol, Q.qmatmul_a8.launches, None,
+            {"again": True, "both_ways": True,
+             "plan": a8_plan(Q, M, Kf, N, dev)}))
     # #9: per-group activation scales aligned to groups of 16; and runs
     # of 6, which share no K tile >= 8, so that qmatmul_a8 launches #7
     # on xq·s_k (a float32 contraction: counted, bounded and timed as a
@@ -693,7 +713,7 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set):
     one, nil = torch.ones(1, device=dev), torch.zeros(1, device=dev)
 
     def a8_double(name, bits, pack):
-        M, Kf, N, act, use_res = QMM_SHAPES[name]
+        M, Kf, N, act, use_res = shapes[name]
         x, w, b, r = data(M, Kf, N, use_res)
         xs = float(x.abs().max()) / 127
         xq = ref.quantize_activation(x, xs)
@@ -717,11 +737,13 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set):
                  lambda pl=pl: Q.qmatmul_a8(xq, qt.q, one, nil,
                                             x_scale=1.0, w_packed=pack,
                                             pipeline=pl)
-                 for pl in ("double", "grid"))})
+                 for pl in ("double", "grid")),
+             "both_ways": True, "plan": a8_plan(Q, M, Kf, N, dev)})
 
     cases += [a8_double(name, bits, pack) for name in QMM_SHAPES
               for bits, pack in ((8, False), (4, True))]
-    return cases
+    cases.append(a8_double(f"widest_N{wide[2]}", 4, True))
+    return [c for c in cases if kinds is None or c[0] in kinds]
 
 
 def conv_double_cases(torch, F, K, dev, conv_shapes: set):
@@ -1015,6 +1037,86 @@ def stream_sums(per_kernel: dict) -> dict:
     return out
 
 
+def a8_sums(per_kernel: dict) -> dict:
+    """#8's 6 and #10's 10 cases of the kernel table's earlier rows (all
+    but ``widest_N...``), each key summed and printed on a line of its
+    own."""
+    out = {}
+    for kname in ("qmatmul_a8", "qmatmul_a8_double"):
+        cases = [c for c in per_kernel[kname]["cases"]
+                 if not c["case"].startswith("widest")]
+        sums = {k: sum(c[k] for c in cases) for k in (
+            "ms", "library_ms", "device_ms", "library_device_ms",
+            "issue_ms", "library_issue_ms", "bound_ms", "plain_ms")}
+        out[kname] = {"cases": len(cases), **sums}
+        f = {k: f"{v:.4f}" for k, v in sums.items()}
+        print(f"  {kname} sum over its {len(cases)} earlier cases: kernel "
+              f"{f['ms']} ms back to back, device {f['device_ms']}, issue "
+              f"{f['issue_ms']}; library {f['library_ms']}, device "
+              f"{f['library_device_ms']}, issue {f['library_issue_ms']}; "
+              f"plain {f['plain_ms']}; bound {f['bound_ms']}", flush=True)
+    return out
+
+
+def a8_pointer_check(torch, Q, dev) -> dict:
+    """#10 at the stem's shape (K = 27, packed int4) launches on the
+    caller's own xq and codes: no padded copy of either is made."""
+    M, Kf, N, _, _ = QMM_SHAPES["stem"]
+    xq = torch.zeros(M, Kf, dtype=torch.int8, device=dev)
+    q = torch.zeros((Kf + 1) // 2, N, dtype=torch.int8, device=dev)
+    one, nil = torch.ones(1, device=dev), torch.zeros(1, device=dev)
+    seen, real = [], Q.launch
+
+    def spy(fn, d, *args):
+        seen.append((fn, args[0], args[1]))
+        return real(fn, d, *args)
+    Q.launch = spy
+    try:
+        Q.qmatmul_a8(xq, q, one, nil, x_scale=1.0, w_packed=True,
+                     pipeline="double")
+    finally:
+        Q.launch = real
+    if seen != [("repro_qmatmul_a8_double", xq.data_ptr(), q.data_ptr())]:
+        raise AssertionError(f"qmatmul_a8_double at the stem launched "
+                             f"{seen}, not on the caller's xq and codes")
+    print(f"  qmatmul_a8_double  stem: one launch, on the caller's own "
+          f"{M} x {Kf} codes (K = {Kf}, no padded copy)", flush=True)
+    return {"launches": len(seen), "on_callers_xq": True}
+
+
+def a8_forward(torch, K, acc, xb, grid, counters) -> dict:
+    """The W4A8 design's forward on batch ``xb``, through the grid table
+    (#8) and the DoubleBuffered one (#10): 63 launches of the kernel a
+    forward (counted), device and host issue ms (``device_ms``, median of
+    5), and a ``torch.profiler`` split of one forward (``profile_call``:
+    the A8 kernels' summed time and count, the top kernels by time)."""
+    out = {}
+    for label, table, kname in (
+            ("grid", grid, "qmatmul_a8"),
+            ("double", DoubleBuffered(K, grid), "qmatmul_a8_double")):
+        for c in counters.values():
+            c.reset()
+        acc.forward(xb, backend=table)
+        torch.cuda.synchronize()
+        if counters[kname].value != 63:
+            raise AssertionError(f"W4A8 forward ({label}) launched "
+                                 f"{counters[kname].value} {kname}")
+        dev, issue = device_ms(torch, lambda: acc.forward(xb, backend=table),
+                               reps=5)
+        prof = profile_call(torch, lambda: acc.forward(xb, backend=table),
+                            top=8, match="qmatmul_a8")
+        out[label] = {"device_ms": dev, "issue_ms": issue, "profile": prof}
+        split = (f"kernels busy {prof['busy']:.3f} ms over "
+                 f"{prof['kernels']} launches, of it {prof['match_ms']:.3f} "
+                 f"ms in {prof['match_kernels']} A8 matmul launches; top "
+                 f"{prof['top']}" if prof["busy"] is not None
+                 else "no kernel records")
+        print(f"[w4a8_forward] {label}: 63 {kname} a forward; device "
+              f"{dev:.3f} ms, host issue {issue:.3f} ms; profiler: {split}",
+              flush=True)
+    return out
+
+
 def issue_split(torch, K, build, dev, n: int = 200) -> dict:
     """Host issue per call, µs, of one #5 call (silu on 8×5×5×64, its
     kernel queued behind ``device_ms``'s spin, ``n`` calls a reading) and
@@ -1126,11 +1228,11 @@ def check_cases(torch, cases: list, per_kernel: dict):
     once (its counter moves by one, ``stays`` does not), agrees with its
     plain version (every output, where it returns a tuple), and is
     timed. A case's 12th entry, a dict, adds checks: with ``grid`` it
-    passes ``check_sibling``; with ``again`` (#7's cases) a second
-    launch must equal the first bit for bit, its ``plan`` is printed,
-    and the kernel's and the library call's device times
-    (``device_mean_ms``) are printed and kept beside the back-to-back
-    ones. Adds to ``per_kernel``."""
+    passes ``check_sibling``; with ``again`` (#7's and #8's cases) a
+    second launch must equal the first bit for bit; its ``plan`` is
+    printed; with ``both_ways`` the kernel's and the library call's
+    device time and host issue per call (``per_call_ms``) are printed
+    and kept beside the back-to-back times. Adds to ``per_kernel``."""
     for (kname, case, kfn, pfn, lfn, ops, nbytes, peak, tol, moves,
          stays, *sib) in cases:
         n_moves = moves.value
@@ -1157,22 +1259,31 @@ def check_cases(torch, cases: list, per_kernel: dict):
         extra = check_sibling(torch, kname, case, got, kfn, sib[0]) \
             if sib and "grid" in sib[0] else {}
         note = ""
+        if sib and "plan" in sib[0]:
+            plan = sib[0]["plan"]
+            extra["plan"] = plan
+            note = " plan " + (f"BM={plan['BM']} BN={plan['BN']} splits="
+                               f"{plan['splits']}" if plan else "n/a")
         if sib and sib[0].get("again"):
             again = kfn()
             torch.cuda.synchronize()
             if not torch.equal(again, got):
                 raise AssertionError(f"{kname}[{case}]: two launches on "
                                      f"the same inputs differ")
-            plan = sib[0]["plan"]
-            extra.update(bit_equal_twice=True, plan=plan)
-            note = (f" plan BM={plan['BM']} BN={plan['BN']} splits="
-                    f"{plan['splits']}, two launches bit-equal")
+            extra["bit_equal_twice"] = True
+            note += ", two launches bit-equal"
         t_k, t_p = cuda_ms(torch, kfn), cuda_ms(torch, pfn)
         t_l = cuda_ms(torch, lfn) if lfn is not None else None
-        if "plan" in extra:
-            d_k, d_l = device_mean_ms(torch, kfn), device_mean_ms(torch, lfn)
-            extra.update(device_ms=d_k, library_device_ms=d_l)
-            note += f"; device time kernel={d_k:.4f}ms library={d_l:.4f}ms"
+        if sib and sib[0].get("both_ways"):
+            d_k, i_k = per_call_ms(torch, kfn, BOTH_WAYS_CALLS)
+            extra.update(device_ms=d_k, issue_ms=i_k)
+            note += f"; device time kernel={d_k:.4f}ms"
+            if lfn is not None:
+                d_l, i_l = per_call_ms(torch, lfn, BOTH_WAYS_CALLS)
+                extra.update(library_device_ms=d_l, library_issue_ms=i_l)
+                note += f" library={d_l:.4f}ms"
+            note += f"; issue per call kernel={i_k:.4f}ms" + (
+                f" library={i_l:.4f}ms" if lfn is not None else "")
         b_ops, b_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
         lib = f"{t_l:.4f}ms" if t_l is not None else "n/a"
         grid = (f" grid={extra['grid_ms']:.4f}ms (double/grid "
@@ -1677,7 +1788,7 @@ def replay_plain(torch, np, lm, ops, cfg, params, dev, prompts, done,
             "tokens_within_margin": skipped}
 
 
-def profile_call(torch, fn, top: int = 6) -> dict:
+def profile_call(torch, fn, top: int = 6, match: str | None = None) -> dict:
     """Three calls of ``fn`` (after a warm-up call) on the host clock,
     then one under ``torch.profiler``: ``issue`` (the host's time to
     return from ``fn``, the queue empty at its start, median), ``wall``
@@ -1685,8 +1796,9 @@ def profile_call(torch, fn, top: int = 6) -> dict:
     profiler's kernel records
     ``busy`` (the kernels' summed time), ``span`` (first kernel start to
     last kernel end), ``kernels`` (launches) and the ``top`` kernel
-    names by time; the device numbers are None where the profiler
-    records no kernel."""
+    names by time; with ``match``, ``match_ms`` and ``match_kernels``,
+    the time and count of the kernels whose name contains it; the device
+    numbers are None where the profiler records no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1717,6 +1829,11 @@ def profile_call(torch, fn, top: int = 6) -> dict:
                   - min(e.time_range.start for e in ks)) / 1e3,
             top=sorted(((round(v, 3), k[:60]) for k, v in by_name.items()),
                        reverse=True)[:top])
+        if match is not None:
+            hit = [e for e in ks if match in e.name]
+            out.update(match_ms=sum(e.time_range.elapsed_us()
+                                    for e in hit) / 1e3,
+                       match_kernels=len(hit))
     return out
 
 
@@ -1876,6 +1993,11 @@ def main() -> int:
                     "forward's device and issue time (a before/after "
                     "reading: copied into an older checkout, it times "
                     "that checkout's kernels); prints no result line")
+    ap.add_argument("--a8", action="store_true",
+                    help="only #8 and #10's cases and the W4A8 forward's "
+                    "device time and profiler split, grid and double (a "
+                    "before/after reading, as --stream); prints no result "
+                    "line")
     args = ap.parse_args()
 
     T0 = time.perf_counter()
@@ -1951,6 +2073,29 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 2
     model = yolo.build("yolov8n")
+    dev0 = torch.device("cuda", 0)
+    if args.a8:
+        acc_4 = core.compile(model, core.CompileConfig(
+            backend="quant", w_bits=4, a_bits=8, batch_size=BATCH),
+            params=random_params(torch, codegen, model.graph, 0))
+        print("[kernels] #8 and #10 vs their plain versions on the card",
+              flush=True)
+        per_kernel: dict = {}
+        check_cases(torch, qmm_cases(
+            torch, K, quant, dev0, matmul_launch_shapes(codegen, acc_4.graph),
+            kinds=("qmatmul_a8", "qmatmul_a8_double")), per_kernel)
+        sums = a8_sums(per_kernel)
+        xb4 = torch.from_numpy(ImageStream(IMG, BATCH, seed=5).batch_at(0)
+                               ).to(dev0)
+        fwd = a8_forward(torch, K, acc_4, xb4, quant_kern, counters)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({
+                "card": card, "torch": torch.__version__, "sums": sums,
+                "cases": {k: v["cases"] for k, v in per_kernel.items()},
+                "w4a8_forward": fwd}, indent=1))
+        print(f"[card] {smi()}")
+        return 0
     t0 = time.perf_counter()
     acc = core.compile(model, core.CompileConfig(batch_size=BATCH,
                                                  replicas=2),
@@ -1963,7 +2108,6 @@ def main() -> int:
                            core.CompileConfig(batch_size=BATCH, passes=()),
                            params=random_params(torch, codegen,
                                                 model_off.graph, 1))
-    dev0 = torch.device("cuda", 0)
     xb_off = torch.from_numpy(ImageStream(160, BATCH, seed=4).batch_at(0)
                               ).to(dev0)
     streams = stream_cases(torch, F, K, dev0,
@@ -2002,19 +2146,8 @@ def main() -> int:
         + ssd_cases(torch, F, K, dev0) + conv_double_cases(
             torch, F, K, dev0, conv_launch_shapes(codegen, acc.graph)),
         per_kernel)
-    # #10's stem cases include its wrapper's zero-pad copy of the
-    # activation codes to a K that is a multiple of 4: timed on its own
-    Ms, Ks, Ns, _, _ = QMM_SHAPES["stem"]
-    xq0 = torch.zeros(Ms, Ks, dtype=torch.int8, device=dev0)
-    q0 = torch.zeros((Ks + 1) // 2, Ns, dtype=torch.int8, device=dev0)
-    stem_pad_ms = cuda_ms(torch, lambda: qmatmul._pad_for_copies(
-        xq0, q0, True, Ks, Ns))
-    print(f"  qmatmul_a8_double  stem: the wrapper's zero-pad copy of the "
-          f"{Ms} x {Ks} codes to K = {-(-Ks // 4) * 4} takes "
-          f"{stem_pad_ms:.4f} ms of the stem cases' " + ", ".join(
-              f"{c['ms']:.4f}" for c in per_kernel["qmatmul_a8_double"][
-                  "cases"] if c["case"].startswith("stem")) + " ms",
-          flush=True)
+    sums_a8 = a8_sums(per_kernel)
+    pointer = a8_pointer_check(torch, qmatmul, dev0)
 
     # ---------------------------------------------------------------- 3
     def drive(acc_, n_req, img, seed, backend=None):
@@ -2195,6 +2328,9 @@ def main() -> int:
         LayerCompare(dbl(quant_kern), quant_kern, ulp=True))
     if c_dq != zero(qmatmul_a8_double=63, maxpool2d=3, resize_nearest=2):
         raise AssertionError(f"double (W4A8) launches {c_dq}")
+    double["w4a8_forward"] = a8_forward(
+        torch, K, acc_4, torch.from_numpy(np.stack(images_4[:BATCH])).to(
+            acc_4.torch_device), quant_kern, counters)
     diffs = []
     for r_d, r_g in zip(done_dq, done_4):
         for o_d, o_g in zip(r_d.outputs, r_g.outputs):
@@ -2321,7 +2457,8 @@ def main() -> int:
                       "mixed_max_abs_err": err_m, "probes": probes,
                       "w8a16_forward_ms": fwd_q,
                       "w8a16_replica_step_spans_ms": spans_q},
-            "double": {**double, "stem_pad_ms": stem_pad_ms},
+            "double": {**double, "a8_sums": sums_a8,
+                       "a8_stem_pointer": pointer},
             "stream": {"sums": sums, "issue_split_us": split,
                        "fusion_off_forward": off_fwd},
             **lm_runs, "build_s": info["seconds"]}, indent=1))

@@ -9,10 +9,12 @@
 //   * repro_qmatmul_a8          <- `qmatmul_a8` (_qmm_a8_kernel): int8
 //     activation codes x int8 / packed-int4 codes, int32 accumulator and
 //     row sum, epilogue with the activation scale folded into the weight
-//     scale (scale = wscale * x_scale, zero = wzero * scale);
+//     scale (scale = wscale * x_scale, zero = wzero * scale); on the int8
+//     tensor cores (see "#8, #10");
 //   * repro_qmatmul_a8_double   <- `qmatmul_a8(pipeline="double")`
 //     (_qmm_a8_dma_kernel): #8 with the K slices of x and of the codes
-//     double-buffered in shared memory by cp.async (see its section);
+//     copied into shared-memory stages by cp.async, the TPU kernel's DMA
+//     double buffer;
 //   * repro_qmatmul_a8_grouped  <- `qmatmul_a8` with a per-K-run activation
 //     scale (_qmm_a8_grouped_kernel): the int32 sum of each K block of
 //     `tk` features is scaled by that block's f32 scale into f32
@@ -29,11 +31,11 @@
 // nibble is padding when K is odd). Scale and zero are per tensor
 // (stride 0) or per column (stride 1).
 //
-// #8-#10 (int8 activations): one 256-thread block owns a 64 x 64 tile,
-// every thread a 4 x 4 register tile of int32 accumulators and the row
-// sums of its 4 rows, on __dp4a in the CUDA cores. Their bound is bytes
-// against the int8 tensor-core peak (1979 TOPS), far from where they run;
-// wgmma, int8 mma.sync and TMA are later work.
+// #8 and #10 run on the int8 tensor cores (mma.sync m16n8k32, int32
+// sums) with tiles sized to N and a split of K, one tile and epilogue for
+// both (their section). #9 (per-K-block scales): one 256-thread block
+// owns a 64 x 64 tile, every thread a 4 x 4 register tile of int32
+// accumulators on the CUDA cores, scaled into f32 at each block's end.
 //
 // #7 on the tensor cores. TF32 keeps 11 significant bits, and every int8
 // or int4 code (|code| <= 128) is exact in it. Each x value is split into
@@ -86,6 +88,7 @@
 // the TF32 peak out of reach; the hi/lo split and the int8 -> float
 // conversion cost CUDA-core instructions in every stage.
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 // #7's plan table, REPRO_QMM_BK and REPRO_QMM_TILES: written into the
@@ -703,152 +706,261 @@ cudaError_t launch_tc(const QmmArgs& a, int bm, int bn, bool x16,
     return cudaErrorInvalidValue;
 }
 
-// ---------------------------------------------------------------- #8
-// K slice of 32 features, staged as 8 words of 4 int8 codes each, so that
-// one __dp4a does four multiply-adds.
-constexpr int BK_W = 8;
+// ---------------------------------------------------------------- #8, #10
+// The int8 x int8 product on the tensor cores, one tile for both kernels.
+// A 256-thread block owns a BM x BN output tile (kernels/qmatmul.py
+// A8_TILES, _plan_a8: BN a multiple of 16 sized to N, split K where the
+// tiles are too few to fill the card) and loops over its K chunk in
+// slices of A8_BK = 64 features: two k32 steps of
+// mma.sync.m16n8k32.s32.s8.s8.s32, whose fragments the PTX ISA fixes:
+// lane (g = lane / 4, t = lane % 4) holds A at rows g and g + 8, columns
+// 4t..4t+3 and 16+4t..; B at rows (features) 4t..4t+3 and 16+4t.. of
+// column g; C at rows g and g + 8, columns 2t and 2t + 1. Integer sums
+// are exact in any order, so the int32 accumulator equals the plain int64
+// contraction bit for bit, across any split of K.
+//
+// N in groups of 16 columns, two n8 tiles each: tile j's column c is the
+// group's column 2c + j, so a lane's C holds columns 4t..4t+3 of its
+// rows, one float4 store a row and group. A warp owns FM m16 tiles x G
+// groups; the warps of a block split the rows, and the columns in two
+// where a tile has four groups or more. The codes arrive row-major
+// (K, N), as the caller gives them (packed int4: byte row r holds
+// features 2r and 2r + 1); once a slice, the block transposes them into
+// Bt, each column's 64 features contiguous (a8_transpose_b: 4 x 4 byte
+// blocks, nibbles unpacked first), so a B register is one 32-bit load.
+// Building B in every warp instead (four 16-bit loads and four byte
+// permutations a register pair, repeated by each warp that shares the
+// columns) made the kernels issue-bound: a tile twice as wide at the
+// same bytes took twice the time.
+//
+// Shared memory banks. A's 32-bit loads read rows g = 0..7 at lane t's
+// byte 4t: x rows 80 bytes apart (20 words) start in distinct 4-bank
+// groups; B's read columns 2g at byte 4t: Bt columns 72 bytes apart (18
+// words) do the same.
+//
+// x where it lies. The kernels take xq as the caller gives it, at any K
+// and any byte offset: no padded copy. With K % 16 == 0 and x 16-byte
+// aligned, a slice of a row is four aligned 16-byte copies. Otherwise a
+// row's slice is copied as the 16-byte blocks that hold it (at most five,
+// into a 112-byte row) and read from its own byte offset, which is the
+// same in every slice (k0 % 16 == 0): two aligned 32-bit loads and a
+// funnel shift make each A register. Where K <= 64 (the stem's 27) the
+// tile's BM rows are BM·K contiguous bytes and are copied as one range
+// and read at r·K + k. A block that holds bytes outside x (its first or
+// last) is assembled byte by byte. Features past K read whatever a stage
+// holds there: each B register is masked to zero past K, so the bytes
+// never count.
+//
+// The row sum of x is one more MMA a step, of the A fragments against a
+// tile of ones (masked past K): exact int32, in C's layout, so each lane
+// holds the sums of its own rows. The epilogue is the fold of
+// qmatmul.py:382-383 (a8_output): sc = wscale·x_scale, zs = wzero·sc,
+// acc·sc + xsum·zs + b -> act -> + res, float4 stores and res loads where
+// N % 4 == 0 and the pointers allow. A split chunk writes its int32 sums
+// and row sums to a scratch (splits, M, N) + (splits, M), and a second
+// kernel sums them and applies the epilogue once.
+//
+// #8 and #10 are this kernel with another way for a slice to reach shared
+// memory: #10 (the TPU kernel's DMA double buffer) by 16-byte cp.async
+// into as many stages as a block's share of shared memory holds (3 to
+// A8_MAX_STAGES), all but one in flight ahead of the slice contracted;
+// #8 through registers, the 16-byte global loads of slice s + 1 issued
+// before slice s's MMAs and stored to the other of two buffers after
+// them. The two give the same bits.
+//
+// Blocks are persistent: a block's slices form one stream across its
+// work items (m tile, n tile, K chunk), so the next item's first slices
+// load under this item's last MMAs and its epilogue. Where every item
+// has the same one slice of codes (K <= 64 and one column tile: the
+// stem, the 1x1 convs), they are copied and transposed once a block.
+//
+// Bound on this card: bytes (x once, the codes, y and res once) against
+// 3.35 TB/s at every yolov8n shape; the int8 tensor-core peak (1979 TOPS)
+// is two orders of magnitude away. The kernels run at 2.5-3x that bound
+// on the large shapes (chip_smoke.py --a8, H100): an output-heavy shape
+// is held back by the epilogue's per-output arithmetic (hardswish's IEEE
+// division; the activation is a constant in the epilogue, a runtime
+// switch an output cost the stem a third of its time), a K-heavy one by
+// the two barriers a slice.
+constexpr int A8_THREADS = 256;
+constexpr int A8_BK = REPRO_A8_BK;     // features a slice
+static_assert(A8_BK == 64, "a slice is two k32 steps; row strides below");
+// blocks an SM (__launch_bounds__; kernels/qmatmul.py _RESIDENT plans
+// the split to it), and the shared memory they share; #10 takes as many
+// stages (3 to A8_MAX_STAGES) as its share holds
+constexpr int A8_RESIDENT = 2;
+constexpr int A8_MAX_STAGES = 8;
+constexpr int A8_SM_SMEM = 228 * 1024;  // an SM's shared memory, with
+constexpr int A8_BLOCK_RESERVE = 1024;  // 1 KB reserved for each block
+constexpr int A8_LDBT = 72;             // a transposed code column
+// x row strides in a stage (bytes): 64 features and 16 (20 words); a
+// copied row's byte offset (< 16), its fifth block and the second word
+// of an unaligned read (28 words: also a distinct 4-bank group per row)
+constexpr int A8_LDX16 = 80;
+constexpr int A8_LDXSPAN = 112;
+
+template <int TBM, int TBN, bool PACKED, bool X16>
+struct A8Tile {
+    static constexpr int GROUPS = TBN / 16;           // 16-column groups
+    static constexpr int WN = GROUPS % 2 == 0 && GROUPS >= 4 ? 2 : 1;
+    static constexpr int WM = 8 / WN;                 // warps along M
+    static constexpr int WTM = TBM / WM;              // a warp's rows
+    static constexpr int G = GROUPS / WN;             // a warp's groups
+    static constexpr int FM = WTM / 16;               // m16 tiles a warp
+    static constexpr int FN = 2 * G;                  // n8 tiles a warp
+    static constexpr int LDX = X16 ? A8_LDX16 : A8_LDXSPAN;
+    static constexpr int QROWS = PACKED ? A8_BK / 2 : A8_BK;
+    static constexpr int Q_STAGE = QROWS * TBN;       // raw code rows
+    // the slice's codes transposed (a8_transpose_b): column n's 64
+    // features at n·A8_LDBT, 72 bytes (18 words: the columns 2g of a B
+    // read start in distinct 4-bank groups)
+    static constexpr int BT_BYTES = TBN * A8_LDBT;
+    // 16-byte copies of a slice: a row of x, a thread; a code row, a thread
+    static constexpr int X_CPR = A8_BK / 16 + (X16 ? 0 : 1);
+    static constexpr int X_CPT = (TBM * X_CPR + A8_THREADS - 1) / A8_THREADS;
+    static constexpr int Q_CPR = GROUPS;
+    static constexpr int Q_CPT =
+        (QROWS * Q_CPR + A8_THREADS - 1) / A8_THREADS;
+    static constexpr int STAGE_MAX = TBM * LDX + Q_STAGE;
+    static_assert(TBN % 16 == 0 && GROUPS % WN == 0 && WTM % 16 == 0
+                  && TBM == WM * WTM, "warp grid");
+    static_assert(A8_RESIDENT * (3 * STAGE_MAX + BT_BYTES
+                                 + A8_BLOCK_RESERVE) <= A8_SM_SMEM,
+                  "A8_RESIDENT blocks of three stages an SM");
+};
+
+struct A8Args {
+    const int8_t* x;
+    const int8_t* q;
+    const float* wscale;
+    int scale_stride;
+    const float* wzero;
+    int zero_stride;
+    float x_scale;
+    const float* b;
+    const float* res;
+    float* y;
+    int* part;        // splits > 1: (splits, M, N) sums, then (splits, M)
+    int M, K, N, act;
+    int qvec;         // codes copied 16 bytes at a time
+    int ovec;         // y, res and part written and read 16 bytes at a time
+};
+
+// acc·sc + xsum·zs + bias -> act, its roundings pinned (the product
+// xsum·zs, then one fma) so that the tile's epilogue and the split reduce
+// give the same bits. The caller loads the column's scale, zero and bias
+// (has_b: b is given), once a column.
+__device__ __forceinline__ float a8_fold(int acc, int xsum, float sc,
+                                         float zs, bool has_b, float bias,
+                                         int act) {
+    float v = __fmaf_rn(static_cast<float>(acc), sc,
+                        __fmul_rn(static_cast<float>(xsum), zs));
+    if (has_b) v = __fadd_rn(v, bias);
+    return apply_act(v, act);
+}
 
 // One output of #8 and #10: the fold of qmatmul.py:382-383 in its order
 // (scale = wscale * x_scale, then zero * scale), bias, act, residual.
-__device__ __forceinline__ float a8_output(
-        int acc, int xsum, int m, int n, const float* __restrict__ wscale,
-        int scale_stride, const float* __restrict__ wzero, int zero_stride,
-        float x_scale, const float* __restrict__ b,
-        const float* __restrict__ res, int N, int act) {
-    const float sc = wscale[n * scale_stride] * x_scale;
-    const float zs = wzero[n * zero_stride] * sc;
-    float v = static_cast<float>(acc) * sc + static_cast<float>(xsum) * zs;
-    if (b != nullptr) v += b[n];
-    v = apply_act(v, act);
-    if (res != nullptr) v += res[m * N + n];
-    return v;
+__device__ __forceinline__ float a8_output(const A8Args& a, int acc,
+                                           int xsum, int m, int n) {
+    const float sc = a.wscale[n * a.scale_stride] * a.x_scale;
+    const float zs = a.wzero[n * a.zero_stride] * sc;
+    const float v = a8_fold(acc, xsum, sc, zs, a.b != nullptr,
+                            a.b != nullptr ? a.b[n] : 0.0f, a.act);
+    return a.res != nullptr
+        ? __fadd_rn(v, a.res[static_cast<size_t>(m) * a.N + n]) : v;
 }
 
-template <bool PACKED>
-__global__ void __launch_bounds__(THREADS)
-qmatmul_a8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ q,
-                  const float* __restrict__ wscale, int scale_stride,
-                  const float* __restrict__ wzero, int zero_stride,
-                  float x_scale, const float* __restrict__ b,
-                  const float* __restrict__ res, float* __restrict__ y,
-                  int M, int K, int N, int act) {
-    __shared__ int As[BK_W][BM + 1];
-    __shared__ int Bs[BK_W][BN];
-
-    const int tid = threadIdx.x;
-    const int tx = tid % 16;
-    const int ty = tid / 16;
-    const int m0 = blockIdx.x * BM;
-    const int n0 = blockIdx.y * BN;
-    const int aw = tid % BK_W;        // x loader: word of the slice
-    const int bn = n0 + tid % BN;     // code loader: column
-
-    int acc[4][4];
-    int xsum[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        xsum[i] = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-    }
-
-    for (int k0 = 0; k0 < K; k0 += 4 * BK_W) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int r = tid / BK_W + 32 * i;
-            const int m = m0 + r;
-            unsigned word = 0;
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int k = k0 + 4 * aw + e;
-                const int8_t v = (m < M && k < K) ? xq[m * K + k] : 0;
-                word |= static_cast<unsigned>(static_cast<uint8_t>(v))
-                        << (8 * e);
-            }
-            As[aw][r] = static_cast<int>(word);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int w = tid / BN + 4 * i;
-            unsigned word = 0;
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int k = k0 + 4 * w + e;
-                int v = 0;
-                if (k < K && bn < N)
-                    v = load_code<PACKED ? CODES_PACKED4 : CODES_INT8>(
-                        q, k, bn, N);
-                word |= static_cast<unsigned>(static_cast<uint8_t>(v))
-                        << (8 * e);
-            }
-            Bs[w][tid % BN] = static_cast<int>(word);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int w = 0; w < BK_W; ++w) {
-            int a[4], bv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = As[w][ty + 16 * i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) bv[j] = Bs[w][tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                xsum[i] = __dp4a(a[i], 0x01010101, xsum[i]);
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    acc[i][j] = __dp4a(a[i], bv[j], acc[i][j]);
-            }
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int m = m0 + ty + 16 * i;
-        if (m >= M) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int n = n0 + tx + 16 * j;
-            if (n >= N) continue;
-            y[m * N + n] = a8_output(acc[i][j], xsum[i], m, n, wscale,
-                                     scale_stride, wzero, zero_stride,
-                                     x_scale, b, res, N, act);
-        }
-    }
-}
-
-// ---------------------------------------------------------------- #10
-// #8's tile (64 x 64 outputs, 256 threads, a 4 x 4 int32 accumulator and
-// the row sums of its 4 rows, __dp4a, the same epilogue) with its K sweep
-// double-buffered, as _qmm_a8_dma_kernel walks K inside one (M, N) tile
-// on the TPU. Each 32-feature slice of xq (64 rows x 32 bytes) and of the
-// codes (32 rows x 64 columns of int8, or 16 byte rows x 64 columns of
-// packed int4: a stage boundary falls between byte rows, never inside
-// one) lands in shared memory by 4-byte cp.async into stage s & 1, while
-// slice s - 1 is contracted. cp.async copies raw bytes and cannot
-// transpose, so the code words that #8 packs while staging are built on
-// the shared -> register read here: each thread takes 4 consecutive
-// columns, reads one word of 4 columns from each of the slice's 4 feature
-// rows (2 byte rows when packed, whose nibbles are sign-extended four at
-// a time by __vsub4), and transposes the 4 x 4 bytes with __byte_perm.
-// Integer sums are exact in any order, so the accumulator equals #8's bit
-// for bit; the epilogue is #8's (a8_output).
-//
-// Operand rules (the wrapper meets them): K % 4 == 0 and the code rows
-// `ldq` bytes apart with ldq % 4 == 0, so that every copied word is
-// aligned and lies wholly inside or outside the data. The wrapper
-// zero-pads K (x columns and code rows, exact: a zero code adds 0 to the
-// sum and to the row sum, as the JAX wrapper's _pad_q) and, for N % 4 != 0,
-// the code columns. Rows past M, features past K and columns past ldq
-// read 0 by src-size 0.
-constexpr int BK_D = 32;             // features per slice
-
+// Packed int4 bytes -> the signed low and high nibbles, a byte each.
 __device__ __forceinline__ unsigned nibbles_lo(unsigned p) {
     return __vsub4((p & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
 }
 
 __device__ __forceinline__ unsigned nibbles_hi(unsigned p) {
     return __vsub4(((p >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+}
+
+// One 16-byte copy of a slice: from `src` (16-byte aligned where
+// `whole`) to byte `dst` of its stage, of bytes lo..hi-1 (hi 0: no copy).
+struct A8Copy {
+    const int8_t* src;
+    int dst, lo, hi;
+    bool whole;
+};
+
+// Bytes lo..hi-1 of the 16 at `src`, zero elsewhere: a block that a
+// 16-byte load would take past an operand's edge or off its alignment.
+__device__ __forceinline__ uint4 load16_part(const int8_t* src, int lo,
+                                             int hi) {
+    unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+        if (e >= lo && e < hi)
+            w[e / 4] |= static_cast<unsigned>(static_cast<uint8_t>(src[e]))
+                        << (8 * (e % 4));
+    return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ const int8_t* align16(const int8_t* p) {
+    return reinterpret_cast<const int8_t*>(
+        reinterpret_cast<uintptr_t>(p) & ~static_cast<uintptr_t>(15));
+}
+
+// Copy c of the x slice at feature k0 of rows m0.. (see "x where it lies").
+template <int TBM, bool X16>
+__device__ __forceinline__ A8Copy a8_x_copy(const A8Args& a, int c, int m0,
+                                            int k0, bool flat) {
+    A8Copy cp{a.x, 0, 0, 0, false};
+    if constexpr (X16) {
+        const int r = c / (A8_BK / 16), j = c % (A8_BK / 16);
+        if (r < TBM && m0 + r < a.M && k0 + 16 * j < a.K) {
+            cp.src = a.x + static_cast<size_t>(m0 + r) * a.K + k0 + 16 * j;
+            cp.dst = r * A8_LDX16 + 16 * j;
+            cp.hi = 16;
+            cp.whole = true;
+        }
+        return cp;
+    } else {
+        const int8_t* from;           // the first byte wanted
+        int need;                     // bytes wanted from there
+        if (flat) {                   // the tile's rows, one range
+            from = a.x + static_cast<size_t>(m0) * a.K;
+            need = min(TBM, a.M - m0) * a.K;
+            cp.dst = 16 * c;
+        } else {                      // a row's slice, up to five blocks
+            const int r = c / (A8_BK / 16 + 1);
+            c %= A8_BK / 16 + 1;
+            if (r >= TBM || m0 + r >= a.M) return cp;
+            from = a.x + static_cast<size_t>(m0 + r) * a.K + k0;
+            need = min(A8_BK, a.K - k0);
+            cp.dst = r * A8_LDXSPAN + 16 * c;
+        }
+        const int8_t* blk = align16(from) + 16 * c;
+        if (blk >= from + need) return cp;
+        const int8_t* end = a.x + static_cast<size_t>(a.M) * a.K;
+        cp.src = blk;
+        cp.lo = blk < a.x ? static_cast<int>(a.x - blk) : 0;
+        cp.hi = end < blk + 16 ? static_cast<int>(end - blk) : 16;
+        cp.whole = cp.lo == 0 && cp.hi == 16;
+        return cp;
+    }
+}
+
+// Copy c of the code rows kr0.. (a slice: 64 rows, or 32 packed byte
+// rows) at columns n0..: 16 columns a copy, whole where `qvec`.
+template <class T>
+__device__ __forceinline__ A8Copy a8_q_copy(const A8Args& a, int c, int n0,
+                                            int kr0, int qrows) {
+    A8Copy cp{a.q, 0, 0, 0, false};
+    const int r = c / T::Q_CPR, j = c % T::Q_CPR;
+    const int kr = kr0 + r, n = n0 + 16 * j;
+    if (r < T::QROWS && kr < qrows && n < a.N) {
+        cp.src = a.q + static_cast<size_t>(kr) * a.N + n;
+        cp.dst = r * T::Q_CPR * 16 + 16 * j;
+        cp.hi = min(16, a.N - n);
+        cp.whole = a.qvec != 0;
+    }
+    return cp;
 }
 
 // Rows r0..r3 hold features f..f+3 of columns c..c+3 (byte j = column
@@ -866,108 +978,552 @@ __device__ __forceinline__ void transpose4x4(unsigned r0, unsigned r1,
     col[3] = __byte_perm(t1, u1, 0x7632);
 }
 
-template <bool PACKED>
-__global__ void __launch_bounds__(THREADS)
-qmatmul_a8_double_kernel(const int8_t* __restrict__ xq,
-                         const int8_t* __restrict__ q, int ldq,
-                         const float* __restrict__ wscale, int scale_stride,
-                         const float* __restrict__ wzero, int zero_stride,
-                         float x_scale, const float* __restrict__ b,
-                         const float* __restrict__ res,
-                         float* __restrict__ y, int M, int K, int N,
-                         int act) {
-    constexpr int QROWS = PACKED ? BK_D / 2 : BK_D;   // code rows a slice
-    __shared__ unsigned Xs[2][BM][BK_D / 4];          // 8 words a row
-    __shared__ unsigned Qs[2][QROWS][BN / 4];         // 16 words a row
+// A slice's raw codes (QROWS rows of TBN bytes: int8, or packed int4
+// whose byte row r holds features 2r and 2r + 1) -> Bt, column n's 64
+// features at n·A8_LDBT, byte k = feature k: what each warp's B
+// registers read with one 32-bit load. Once a slice for the block, so
+// that no warp builds B itself. A thread takes 4 features x 4 columns.
+template <int TBN, bool PACKED>
+__device__ __forceinline__ void a8_transpose_b(const int8_t* raw,
+                                               int8_t* bt, int tid) {
+    constexpr int CW = TBN / 4;                   // column words a row
+#pragma unroll
+    for (int w = tid; w < CW * (A8_BK / 4); w += A8_THREADS) {
+        const int c = w % CW, kg = w / CW;        // columns 4c.., k 4kg..
+        const unsigned* rw = reinterpret_cast<const unsigned*>(raw) + c;
+        unsigned r[4];
+        if constexpr (PACKED) {
+            const unsigned p0 = rw[(2 * kg) * CW];
+            const unsigned p1 = rw[(2 * kg + 1) * CW];
+            r[0] = nibbles_lo(p0);
+            r[1] = nibbles_hi(p0);
+            r[2] = nibbles_lo(p1);
+            r[3] = nibbles_hi(p1);
+        } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) r[e] = rw[(4 * kg + e) * CW];
+        }
+        unsigned col[4];
+        transpose4x4(r[0], r[1], r[2], r[3], col);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            *reinterpret_cast<unsigned*>(bt + (4 * c + j) * A8_LDBT
+                                         + 4 * kg) = col[j];
+    }
+}
+
+// Four bytes of x at byte `b` of a stage: aligned where X16, else from
+// the two words that hold them.
+template <bool X16>
+__device__ __forceinline__ unsigned a8_lds_a(const int8_t* X, int b) {
+    if constexpr (X16) {
+        return *reinterpret_cast<const unsigned*>(X + b);
+    } else {
+        const unsigned* w = reinterpret_cast<const unsigned*>(X + (b & ~3));
+        return __funnelshift_r(w[0], w[1], 8 * (b & 3));
+    }
+}
+
+// The bytes of a B register whose feature kb + byte lies below K.
+__device__ __forceinline__ unsigned a8_kmask(int K, int kb) {
+    const int n = K - kb;
+    return n >= 4 ? 0xFFFFFFFFu : n <= 0 ? 0u : (1u << (8 * n)) - 1u;
+}
+
+// d += a·b on the int8 tensor cores: m16n8k32, int32 accumulator.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+    asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// cp.async.wait_group with a count known only at run time (#10's
+// stages less two)
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+    switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    default: cp_async_wait<A8_MAX_STAGES - 2>(); break;
+    }
+}
+
+template <int TBM, int TBN, bool PACKED, bool X16, bool DOUBLE>
+__global__ void __launch_bounds__(A8_THREADS, A8_RESIDENT)
+qmatmul_a8_tc_kernel(const A8Args a, int splits, int xstage, int stages) {
+    using T = A8Tile<TBM, TBN, PACKED, X16>;
+    constexpr int FM = T::FM, FN = T::FN, G = T::G;
+    extern __shared__ __align__(128) int8_t a8_smem[];
+    int8_t* Xs = a8_smem;                          // [stages][xstage]
+    int8_t* Qs = a8_smem + stages * xstage;        // [stages][Q_STAGE]
+    int8_t* Bt = Qs + stages * T::Q_STAGE;         // [TBN][A8_LDBT]
 
     const int tid = threadIdx.x;
-    const int tx = tid % 16;          // columns 4*tx .. 4*tx+3
-    const int ty = tid / 16;          // rows ty + 16*i
-    const int m0 = blockIdx.x * BM;
-    const int n0 = blockIdx.y * BN;
-    const int qcol = n0 + 4 * (tid % 16);     // code loader: first column
-    const int qrows = PACKED ? K / 2 : K;     // code rows of the operand
+    const int lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wm = (tid / 32) / T::WN;
+    const int wn = (tid / 32) % T::WN;
+    const int m_tiles = (a.M + TBM - 1) / TBM;
+    const int n_tiles = (a.N + TBN - 1) / TBN;
+    const int items = m_tiles * n_tiles * splits;
+    const int k_tiles = (a.K + A8_BK - 1) / A8_BK;
+    const int per = (k_tiles + splits - 1) / splits;
+    const int qrows = PACKED ? (a.K + 1) / 2 : a.K;
+    const bool flat = !X16 && a.K <= A8_BK;
+    // one slice of K and one column tile: every item contracts the same
+    // codes, so they are copied and transposed once, for the block's
+    // first item
+    const bool codes_fixed = k_tiles == 1 && n_tiles == 1;
 
-    // Issue the copies of the slice at feature k0 into stage st.
-    auto stage = [&](int st, int k0) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {         // 512 words of xq
-            const int r = tid / 8 + 32 * i;
-            const int m = m0 + r;
-            const int k = k0 + 4 * (tid % 8);
-            const bool in = m < M && k < K;
-            cp_async4(&Xs[st][r][tid % 8], in ? xq + m * K + k : xq, in);
+    // item -> its tile and K chunk (m fastest, then n, then the split);
+    // returns its slices
+    auto item_tiles = [&](int it, int& m0, int& n0, int& kt0) -> int {
+        m0 = (it % m_tiles) * TBM;
+        n0 = (it / m_tiles % n_tiles) * TBN;
+        kt0 = it / (m_tiles * n_tiles) * per;
+        return max(min(k_tiles, kt0 + per) - kt0, 0);
+    };
+
+    // the producer: the next slice to bring in, across this block's items
+    int p_item = blockIdx.x, p_s = 0, p_slot = 0;
+    bool p_codes = true;              // the producer's slice copies codes
+    int p_m0 = 0, p_n0 = 0, p_kt0 = 0, p_nt = 0;
+    auto p_seek = [&]() {             // first item from p_item with slices
+        for (; p_item < items; p_item += gridDim.x) {
+            p_nt = item_tiles(p_item, p_m0, p_n0, p_kt0);
+            if (p_nt > 0) break;
         }
+    };
+    auto p_next = [&]() {             // past the slice just brought in
+        p_codes = !codes_fixed;
+        if (++p_s == p_nt) {
+            p_s = 0;
+            p_item += gridDim.x;
+            p_seek();
+        }
+    };
+    // #10: issue the producer's slice's copies into stage `slot` (cp.async
+    // where whole, else loaded and stored), then close the group (an empty
+    // one past the block's last slice)
+    auto produce = [&]() {
+        if (p_item < items) {
+            const int k0 = (p_kt0 + p_s) * A8_BK;
+            int8_t* xd = Xs + p_slot * xstage;
 #pragma unroll
-        for (int i = 0; i < QROWS / 16; ++i) {  // 256 or 512 code words
-            const int r = tid / 16 + 16 * i;
-            const int kr = (PACKED ? k0 / 2 : k0) + r;
-            const bool in = kr < qrows && qcol < ldq;
-            cp_async4(&Qs[st][r][tid % 16], in ? q + kr * ldq + qcol : q,
-                      in);
+            for (int i = 0; i < T::X_CPT; ++i) {
+                const A8Copy cp = a8_x_copy<TBM, X16>(
+                    a, tid + i * A8_THREADS, p_m0, k0, flat);
+                if (cp.whole)
+                    cp_async16(xd + cp.dst, cp.src, true);
+                else if (cp.hi)
+                    *reinterpret_cast<uint4*>(xd + cp.dst) =
+                        load16_part(cp.src, cp.lo, cp.hi);
+            }
+            int8_t* qd = Qs + p_slot * T::Q_STAGE;
+#pragma unroll
+            for (int i = 0; i < T::Q_CPT; ++i) {
+                if (!p_codes) break;
+                const A8Copy cp = a8_q_copy<T>(a, tid + i * A8_THREADS, p_n0,
+                                               PACKED ? k0 / 2 : k0, qrows);
+                if (cp.whole)
+                    cp_async16(qd + cp.dst, cp.src, true);
+                else if (cp.hi)
+                    *reinterpret_cast<uint4*>(qd + cp.dst) =
+                        load16_part(cp.src, cp.lo, cp.hi);
+            }
+            p_next();
+        }
+        p_slot = p_slot + 1 == stages ? 0 : p_slot + 1;
+        cp_async_commit();
+    };
+    // #8: load the producer's slice into registers (fetch), then store
+    // them into a buffer (put)
+    uint4 xv[DOUBLE ? 1 : T::X_CPT], qv[DOUBLE ? 1 : T::Q_CPT];
+    int xdst[DOUBLE ? 1 : T::X_CPT], qdst[DOUBLE ? 1 : T::Q_CPT];
+    auto fetch = [&]() {
+        if constexpr (!DOUBLE) {
+            const int k0 = (p_kt0 + p_s) * A8_BK;
+#pragma unroll
+            for (int i = 0; i < T::X_CPT; ++i) {
+                const A8Copy cp = a8_x_copy<TBM, X16>(
+                    a, tid + i * A8_THREADS, p_m0, k0, flat);
+                xdst[i] = cp.hi ? cp.dst : -1;
+                if (cp.whole)
+                    xv[i] = __ldg(reinterpret_cast<const uint4*>(cp.src));
+                else if (cp.hi)
+                    xv[i] = load16_part(cp.src, cp.lo, cp.hi);
+            }
+#pragma unroll
+            for (int i = 0; i < T::Q_CPT; ++i) {
+                const A8Copy cp = p_codes
+                    ? a8_q_copy<T>(a, tid + i * A8_THREADS, p_n0,
+                                   PACKED ? k0 / 2 : k0, qrows)
+                    : A8Copy{a.q, 0, 0, 0, false};
+                qdst[i] = cp.hi ? cp.dst : -1;
+                if (cp.whole)
+                    qv[i] = __ldg(reinterpret_cast<const uint4*>(cp.src));
+                else if (cp.hi)
+                    qv[i] = load16_part(cp.src, cp.lo, cp.hi);
+            }
+            p_next();
+        }
+    };
+    auto put = [&](int slot) {
+        if constexpr (!DOUBLE) {
+#pragma unroll
+            for (int i = 0; i < T::X_CPT; ++i)
+                if (xdst[i] >= 0)
+                    *reinterpret_cast<uint4*>(Xs + slot * xstage + xdst[i]) =
+                        xv[i];
+#pragma unroll
+            for (int i = 0; i < T::Q_CPT; ++i)
+                if (qdst[i] >= 0)
+                    *reinterpret_cast<uint4*>(Qs + slot * T::Q_STAGE
+                                              + qdst[i]) = qv[i];
         }
     };
 
-    int acc[4][4];
-    int xsum[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        xsum[i] = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-    }
+    int acc[FM][FN][4];
+    int xs[FM][4];                    // row sums: [0] row g, [2] row g + 8
+    int rb[FM][2];                    // this lane's rows' first byte
+    // this lane's column 2g of the warp's first group, in Bt
+    const int8_t* Bw = Bt + (wn * 16 * G + 2 * g) * A8_LDBT + 4 * t;
 
-    const int n_k = (K + BK_D - 1) / BK_D;
-    stage(0, 0);
-    cp_async_commit();
-    for (int s = 0; s < n_k; ++s) {
-        const int st = s & 1;
-        if (s + 1 < n_k) stage(st ^ 1, (s + 1) * BK_D);
-        cp_async_commit();            // an empty group on the last slice
-        cp_async_wait<1>();           // slice s has landed (this thread)
-        __syncthreads();              // ... and every thread's copies
+    auto contract = [&](int slot, int kt) {
+        const int8_t* X = Xs + slot * xstage;
+        const int k0 = kt * A8_BK;
 #pragma unroll
-        for (int w = 0; w < BK_D / 4; ++w) {
-            int a[4];
+        for (int ks = 0; ks < A8_BK / 32; ++ks) {
+            if (k0 + 32 * ks >= a.K) break;          // a step past K
+            const unsigned mk0 = a8_kmask(a.K, k0 + 32 * ks + 4 * t);
+            const unsigned mk1 = a8_kmask(a.K, k0 + 32 * ks + 16 + 4 * t);
+            // tile f = 2·gi + j is the group's column 2g + j: features
+            // 4t.. and 16 + 4t.. of the step, masked past K
+            unsigned bf[FN][2];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-                a[i] = static_cast<int>(Xs[st][ty + 16 * i][w]);
-            unsigned bv[4];
-            if constexpr (PACKED) {
-                const unsigned p0 = Qs[st][2 * w][tx];
-                const unsigned p1 = Qs[st][2 * w + 1][tx];
-                transpose4x4(nibbles_lo(p0), nibbles_hi(p0),
-                             nibbles_lo(p1), nibbles_hi(p1), bv);
+            for (int f = 0; f < FN; ++f) {
+                const int8_t* p = Bw + (16 * (f / 2) + f % 2) * A8_LDBT
+                    + 32 * ks;
+                bf[f][0] = *reinterpret_cast<const unsigned*>(p) & mk0;
+                bf[f][1] = *reinterpret_cast<const unsigned*>(p + 16) & mk1;
+            }
+            const unsigned one0 = 0x01010101u & mk0;
+            const unsigned one1 = 0x01010101u & mk1;
+#pragma unroll
+            for (int i = 0; i < FM; ++i) {
+                const int c = 32 * ks + 4 * t;
+                const unsigned av[4] = {a8_lds_a<X16>(X, rb[i][0] + c),
+                                        a8_lds_a<X16>(X, rb[i][1] + c),
+                                        a8_lds_a<X16>(X, rb[i][0] + c + 16),
+                                        a8_lds_a<X16>(X, rb[i][1] + c + 16)};
+#pragma unroll
+                for (int f = 0; f < FN; ++f)
+                    mma_s8(acc[i][f], av, bf[f][0], bf[f][1]);
+                mma_s8(xs[i], av, one0, one1);
+            }
+        }
+    };
+
+    // epilogue from registers: lane t holds columns 4t..4t+3 of each group
+    // for rows g and g + 8 of each m16 tile (column 4t + c is tile c % 2,
+    // element c / 2 of the row's pair); the activation a constant, so
+    // that a thread's outputs interleave (a switch an output kept them
+    // apart)
+    auto epilogue_as = [&](int it, int m0, int n0, auto act_c) {
+        constexpr int ACT = decltype(act_c)::value;
+        const int split = it / (m_tiles * n_tiles);
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+            const int n = n0 + wn * 16 * G + 16 * gi + 4 * t;
+            if (n >= a.N) continue;
+            const bool vec = a.ovec && n + 3 < a.N;
+            // the columns' scale, zero and bias, loaded before any store
+            // (y might alias them, as far as the compiler knows)
+            float sc[4], zs[4], bias[4];
+            if (splits == 1) {
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    const int nn = min(n + c, a.N - 1);
+                    sc[c] = a.wscale[nn * a.scale_stride] * a.x_scale;
+                    zs[c] = a.wzero[nn * a.zero_stride] * sc[c];
+                    bias[c] = a.b != nullptr ? a.b[nn] : 0.0f;
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < FM; ++i)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int m = m0 + wm * T::WTM + 16 * i + 8 * h + g;
+                    if (m >= a.M) continue;
+                    const int v[4] = {acc[i][2 * gi][2 * h],
+                                      acc[i][2 * gi + 1][2 * h],
+                                      acc[i][2 * gi][2 * h + 1],
+                                      acc[i][2 * gi + 1][2 * h + 1]};
+                    const int xsum = xs[i][2 * h];
+                    const size_t row = static_cast<size_t>(m) * a.N;
+                    if (splits > 1) {
+                        int* dst = a.part + static_cast<size_t>(split) * a.M
+                            * a.N + row + n;
+                        if (vec) {
+                            *reinterpret_cast<int4*>(dst) =
+                                make_int4(v[0], v[1], v[2], v[3]);
+                        } else {
+#pragma unroll
+                            for (int c = 0; c < 4; ++c)
+                                if (n + c < a.N) dst[c] = v[c];
+                        }
+                        if (gi == 0 && t == 0 && wn == 0 && n0 == 0)
+                            a.part[static_cast<size_t>(splits) * a.M * a.N
+                                   + static_cast<size_t>(split) * a.M + m] =
+                                xsum;
+                        continue;
+                    }
+                    float o[4];
+#pragma unroll
+                    for (int c = 0; c < 4; ++c)
+                        o[c] = a8_fold(v[c], xsum, sc[c], zs[c],
+                                       a.b != nullptr, bias[c], ACT);
+                    float* dst = a.y + row + n;
+                    if (vec) {
+                        if (a.res != nullptr) {
+                            const float4 r4 = *reinterpret_cast<const float4*>(
+                                a.res + row + n);
+                            o[0] = __fadd_rn(o[0], r4.x);
+                            o[1] = __fadd_rn(o[1], r4.y);
+                            o[2] = __fadd_rn(o[2], r4.z);
+                            o[3] = __fadd_rn(o[3], r4.w);
+                        }
+                        *reinterpret_cast<float4*>(dst) =
+                            make_float4(o[0], o[1], o[2], o[3]);
+                    } else {
+#pragma unroll
+                        for (int c = 0; c < 4; ++c)
+                            if (n + c < a.N)
+                                dst[c] = a.res != nullptr
+                                    ? __fadd_rn(o[c], a.res[row + n + c])
+                                    : o[c];
+                    }
+                }
+        }
+    };
+    auto epilogue = [&](int it, int m0, int n0) {
+        using std::integral_constant;
+        switch (a.act) {
+        case ACT_HARDSWISH:
+            epilogue_as(it, m0, n0, integral_constant<int, ACT_HARDSWISH>());
+            break;
+        case ACT_LEAKY_RELU:
+            epilogue_as(it, m0, n0, integral_constant<int, ACT_LEAKY_RELU>());
+            break;
+        case ACT_SILU:
+            epilogue_as(it, m0, n0, integral_constant<int, ACT_SILU>());
+            break;
+        case ACT_RELU:
+            epilogue_as(it, m0, n0, integral_constant<int, ACT_RELU>());
+            break;
+        case ACT_GELU:
+            epilogue_as(it, m0, n0, integral_constant<int, ACT_GELU>());
+            break;
+        default:
+            epilogue_as(it, m0, n0, integral_constant<int, ACT_IDENTITY>());
+        }
+    };
+
+    // The block's slices form one stream across its items: #10 keeps
+    // stages - 1 of them in flight, so the next item's first slices load
+    // under this item's last MMAs and its epilogue; #8 keeps one, under
+    // the MMAs (its epilogue inside the slice loop, to overlap the
+    // loads, spilled the loop's registers and took twice the time).
+    p_seek();
+    int slot = 0;
+    bool transpose = true;            // the slice's codes go to Bt
+    if constexpr (DOUBLE) {
+        for (int s = 0; s + 1 < stages; ++s) produce();
+    } else {
+        if (p_item < items) {
+            fetch();
+            put(0);
+        }
+        __syncthreads();
+    }
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        int m0, n0, kt0;
+        const int n_t = item_tiles(it, m0, n0, kt0);
+#pragma unroll
+        for (int i = 0; i < FM; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int r = wm * T::WTM + 16 * i + 8 * h + g;
+                if constexpr (X16) {
+                    rb[i][h] = r * A8_LDX16;
+                } else {
+                    const int off = static_cast<int>(
+                        reinterpret_cast<uintptr_t>(a.x + static_cast<size_t>(
+                            flat ? m0 : m0 + r) * a.K) & 15);
+                    rb[i][h] = flat ? off + r * a.K : r * A8_LDXSPAN + off;
+                }
+            }
+#pragma unroll
+        for (int i = 0; i < FM; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                xs[i][e] = 0;
+#pragma unroll
+                for (int f = 0; f < FN; ++f) acc[i][f][e] = 0;
+            }
+        for (int s = 0; s < n_t; ++s) {
+            if constexpr (DOUBLE) {
+                cp_async_wait_n(stages - 2);  // slice landed (this thread)
+                __syncthreads();              // ... every thread's; the slot
+                produce();                    // and Bt read last are free
+                if (transpose) {
+                    a8_transpose_b<TBN, PACKED>(Qs + slot * T::Q_STAGE, Bt,
+                                                tid);
+                    __syncthreads();
+                    transpose = !codes_fixed;
+                }
+                contract(slot, kt0 + s);
+                slot = slot + 1 == stages ? 0 : slot + 1;
             } else {
-                transpose4x4(Qs[st][4 * w][tx], Qs[st][4 * w + 1][tx],
-                             Qs[st][4 * w + 2][tx], Qs[st][4 * w + 3][tx],
-                             bv);
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                xsum[i] = __dp4a(a[i], 0x01010101, xsum[i]);
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    acc[i][j] = __dp4a(a[i], static_cast<int>(bv[j]),
-                                       acc[i][j]);
+                if (transpose) {
+                    a8_transpose_b<TBN, PACKED>(Qs + slot * T::Q_STAGE, Bt,
+                                                tid);
+                    __syncthreads();
+                    transpose = !codes_fixed;
+                }
+                const bool more = p_item < items;
+                if (more) fetch();            // loads in flight under the
+                contract(slot, kt0 + s);      // MMAs
+                if (more) put(slot ^ 1);
+                __syncthreads();
+                slot ^= 1;
             }
         }
-        __syncthreads();              // stage st is refilled next step
+        epilogue(it, m0, n0);
     }
+    if constexpr (DOUBLE) cp_async_wait<0>();
+}
 
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int m = m0 + ty + 16 * i;
-        if (m >= M) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int n = n0 + 4 * tx + j;
-            if (n >= N) continue;
-            y[m * N + n] = a8_output(acc[i][j], xsum[i], m, n, wscale,
-                                     scale_stride, wzero, zero_stride,
-                                     x_scale, b, res, N, act);
-        }
+// The split-K pass of #8 and #10: each output sums its int32 partials
+// and its row's partial row sums (exact in any order), then the epilogue.
+__global__ void __launch_bounds__(A8_THREADS)
+qmatmul_a8_split_reduce_kernel(const A8Args a, int splits) {
+    const size_t mn = static_cast<size_t>(a.M) * a.N;
+    const size_t i = static_cast<size_t>(blockIdx.x) * A8_THREADS
+        + threadIdx.x;
+    if (i >= mn) return;
+    const int m = static_cast<int>(i / a.N);
+    const int n = static_cast<int>(i % a.N);
+    const int* xs = a.part + splits * mn;
+    int acc = 0, xsum = 0;
+    for (int s = 0; s < splits; ++s) {
+        acc += a.part[s * mn + i];
+        xsum += xs[static_cast<size_t>(s) * a.M + m];
     }
+    a.y[i] = a8_output(a, acc, xsum, m, n);
+}
+
+// One launch of an instantiation. The grid is persistent: the blocks
+// that fit the card at once (A8_RESIDENT an SM), each walking work items
+// (m tile, n tile, K chunk) blockIdx.x, blockIdx.x + gridDim.x, ...; the
+// SM count and the opt-in to shared memory past 48 KB are read once per
+// device. A stage's x holds BM rows of 80 or 112 bytes, or the one range
+// of BM·K bytes where K <= A8_BK and x is copied by its blocks (and the
+// 68 bytes that the last row's reads may reach past it, rounded up).
+template <int TBM, int TBN, bool PACKED, bool X16, bool DOUBLE>
+cudaError_t launch_a8_tile(const A8Args& a, int splits,
+                           cudaStream_t stream) {
+    using T = A8Tile<TBM, TBN, PACKED, X16>;
+    constexpr int SHARE = A8_SM_SMEM / A8_RESIDENT - A8_BLOCK_RESERVE;
+    constexpr int MAX_DEVICES = 16;
+    static int sms[MAX_DEVICES] = {};
+    auto kern = qmatmul_a8_tc_kernel<TBM, TBN, PACKED, X16, DOUBLE>;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    int n_sm = dev < MAX_DEVICES ? sms[dev] : 0;
+    if (n_sm == 0) {
+        e = cudaFuncSetAttribute(kern,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SHARE);
+        if (e != cudaSuccess) return e;
+        e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                   dev);
+        if (e != cudaSuccess) return e;
+        if (dev < MAX_DEVICES) sms[dev] = n_sm;
+    }
+    const int xstage = X16 ? TBM * A8_LDX16
+        : a.K <= A8_BK ? (TBM * a.K + 96 + 15) / 16 * 16
+        : TBM * A8_LDXSPAN;
+    int stages = 2;                   // #8's two buffers
+    if (DOUBLE) {
+        stages = (SHARE - T::BT_BYTES) / (xstage + T::Q_STAGE);
+        stages = stages > A8_MAX_STAGES ? A8_MAX_STAGES : stages;
+    }
+    const int smem = stages * (xstage + T::Q_STAGE) + T::BT_BYTES;
+    const long long items = static_cast<long long>((a.M + TBM - 1) / TBM)
+        * ((a.N + TBN - 1) / TBN) * splits;
+    if (items <= 0 || items >= (1LL << 31)) return cudaErrorInvalidValue;
+    const long long slots = static_cast<long long>(A8_RESIDENT) * n_sm;
+    kern<<<static_cast<unsigned>(items < slots ? items : slots), A8_THREADS,
+           smem, stream>>>(a, splits, xstage, stages);
+    return cudaGetLastError();
+}
+
+// The compiled (BM, BN) table, REPRO_A8_TILES; kernels/qmatmul.py
+// _plan_a8 picks from it.
+template <bool PACKED, bool X16, bool DOUBLE>
+cudaError_t launch_a8_table(const A8Args& a, int bm, int bn, int splits,
+                            cudaStream_t s) {
+#define REPRO_A8_TILE(BM_, BN_)                                           \
+    if (bm == BM_ && bn == BN_)                                           \
+        return launch_a8_tile<BM_, BN_, PACKED, X16, DOUBLE>(a, splits, s);
+    REPRO_A8_TILES
+#undef REPRO_A8_TILE
+    return cudaErrorInvalidValue;
+}
+
+// #8 (DOUBLE false) or #10: the tile, then the split reduce.
+template <bool DOUBLE>
+int launch_a8(const int8_t* xq, const int8_t* q, int packed,
+              const float* wscale, int scale_stride, const float* wzero,
+              int zero_stride, float x_scale, const float* b,
+              const float* res, float* y, int M, int K, int N, int act,
+              int bm, int bn, int splits, int* ws, cudaStream_t stream) {
+    if (splits < 1 || (splits > 1 && ws == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    auto aligned = [](const void* p) {
+        return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    };
+    const A8Args a{xq, q, wscale, scale_stride, wzero, zero_stride, x_scale,
+                   b, res, y, splits > 1 ? ws : nullptr, M, K, N, act,
+                   N % 16 == 0 && aligned(q),
+                   N % 4 == 0 && aligned(y)
+                       && (res == nullptr || aligned(res))
+                       && (splits == 1 || aligned(ws))};
+    const bool x16 = K % 16 == 0 && aligned(xq);
+    cudaError_t e;
+    if (packed)
+        e = x16 ? launch_a8_table<true, true, DOUBLE>(a, bm, bn, splits,
+                                                      stream)
+                : launch_a8_table<true, false, DOUBLE>(a, bm, bn, splits,
+                                                       stream);
+    else
+        e = x16 ? launch_a8_table<false, true, DOUBLE>(a, bm, bn, splits,
+                                                       stream)
+                : launch_a8_table<false, false, DOUBLE>(a, bm, bn, splits,
+                                                        stream);
+    if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+    const long long mn = static_cast<long long>(M) * N;
+    qmatmul_a8_split_reduce_kernel<<<
+        static_cast<unsigned>((mn + A8_THREADS - 1) / A8_THREADS),
+        A8_THREADS, 0, stream>>>(a, splits);
+    return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- #9
@@ -1130,36 +1686,22 @@ extern "C" int repro_qmatmul_a8(
         const int8_t* xq, const int8_t* q, int packed, const float* wscale,
         int scale_stride, const float* wzero, int zero_stride,
         float x_scale, const float* b, const float* res, float* y, int M,
-        int K, int N, int act, cudaStream_t stream) {
-    const dim3 grid = grid_for(M, N);
-    if (packed)
-        qmatmul_a8_kernel<true><<<grid, THREADS, 0, stream>>>(
-            xq, q, wscale, scale_stride, wzero, zero_stride, x_scale, b,
-            res, y, M, K, N, act);
-    else
-        qmatmul_a8_kernel<false><<<grid, THREADS, 0, stream>>>(
-            xq, q, wscale, scale_stride, wzero, zero_stride, x_scale, b,
-            res, y, M, K, N, act);
-    return static_cast<int>(cudaGetLastError());
+        int K, int N, int act, int bm, int bn, int splits, int* ws,
+        cudaStream_t stream) {
+    return launch_a8<false>(xq, q, packed, wscale, scale_stride, wzero,
+                            zero_stride, x_scale, b, res, y, M, K, N, act,
+                            bm, bn, splits, ws, stream);
 }
 
 extern "C" int repro_qmatmul_a8_double(
-        const int8_t* xq, const int8_t* q, int packed, int ldq,
-        const float* wscale, int scale_stride, const float* wzero,
-        int zero_stride, float x_scale, const float* b, const float* res,
-        float* y, int M, int K, int N, int act, cudaStream_t stream) {
-    if (K % 4 != 0 || ldq % 4 != 0 || ldq < N)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid = grid_for(M, N);
-    if (packed)
-        qmatmul_a8_double_kernel<true><<<grid, THREADS, 0, stream>>>(
-            xq, q, ldq, wscale, scale_stride, wzero, zero_stride, x_scale,
-            b, res, y, M, K, N, act);
-    else
-        qmatmul_a8_double_kernel<false><<<grid, THREADS, 0, stream>>>(
-            xq, q, ldq, wscale, scale_stride, wzero, zero_stride, x_scale,
-            b, res, y, M, K, N, act);
-    return static_cast<int>(cudaGetLastError());
+        const int8_t* xq, const int8_t* q, int packed, const float* wscale,
+        int scale_stride, const float* wzero, int zero_stride,
+        float x_scale, const float* b, const float* res, float* y, int M,
+        int K, int N, int act, int bm, int bn, int splits, int* ws,
+        cudaStream_t stream) {
+    return launch_a8<true>(xq, q, packed, wscale, scale_stride, wzero,
+                           zero_stride, x_scale, b, res, y, M, K, N, act,
+                           bm, bn, splits, ws, stream);
 }
 
 extern "C" int repro_qmatmul_a8_grouped(

@@ -51,9 +51,9 @@ _SIGNATURES = {
     "repro_qmatmul_f32": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P]
     + [_I] * 7 + [_P, _P],
     "repro_qmatmul_a8": [_P, _P, _I, _P, _I, _P, _I, _F, _P, _P, _P]
-    + [_I] * 4 + [_P],
-    "repro_qmatmul_a8_double": [_P, _P, _I, _I, _P, _I, _P, _I, _F, _P,
-                                _P, _P] + [_I] * 4 + [_P],
+    + [_I] * 7 + [_P, _P],
+    "repro_qmatmul_a8_double": [_P, _P, _I, _P, _I, _P, _I, _F, _P, _P,
+                                _P] + [_I] * 7 + [_P, _P],
     "repro_qmatmul_a8_grouped": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P,
                                  _P, _P] + [_I] * 4 + [_P],
     "repro_rmsnorm_f32": [_P, _P, _P, _LL, _I, _F, _I, _P],
@@ -123,14 +123,19 @@ def _nvcc() -> str:
 
 def generated_headers() -> dict[str, str]:
     """Headers the sources include that are written from Python at
-    build time: ``qmm_tiles.h``, kernel #7's K stage and compiled (BM, BN)
-    tiles, from ``kernels/qmatmul.py`` (``_BK``, ``TILES``), which plans
-    its launches from the same table."""
-    from .qmatmul import TILES, _BK   # imported late: qmatmul imports us
+    build time: ``qmm_tiles.h``, the K stage and compiled (BM, BN) tiles
+    of kernel #7 and of kernels #8/#10, from ``kernels/qmatmul.py``
+    (``_BK``, ``TILES``; ``_A8_BK``, ``A8_TILES``), which plans their
+    launches from the same tables."""
+    # imported late: qmatmul imports us
+    from .qmatmul import A8_TILES, TILES, _A8_BK, _BK
     tiles = " ".join(f"REPRO_TILE({bm}, {bn})" for bm, bn in TILES)
+    a8 = " ".join(f"REPRO_A8_TILE({bm}, {bn})" for bm, bn in A8_TILES)
     return {"qmm_tiles.h": "#pragma once\n"
             f"#define REPRO_QMM_BK {_BK}\n"
-            f"#define REPRO_QMM_TILES {tiles}\n"}
+            f"#define REPRO_QMM_TILES {tiles}\n"
+            f"#define REPRO_A8_BK {_A8_BK}\n"
+            f"#define REPRO_A8_TILES {a8}\n"}
 
 
 def _source_hash() -> str:

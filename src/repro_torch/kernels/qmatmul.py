@@ -14,18 +14,20 @@ Replaces the Pallas kernels of ``src/repro/kernels/qmatmul.py``:
   ``qmatmul.py:382-383`` does; the CUDA epilogue computes these two
   products per column, in that order).
 * ``qmatmul_a8(pipeline="double")`` (``_qmm_a8_dma_kernel``): the same
-  contraction with the K slices of x and of the codes double-buffered
-  in shared memory by ``cp.async``, counted on
-  ``qmatmul_a8.launches_double``; K is zero-padded to a multiple of 4
-  first (exact, as the JAX wrapper's ``_pad_q``), and the code columns
-  too where N is not a multiple of 4.
+  contraction with the K slices of x and of the codes copied into three
+  shared-memory stages by ``cp.async``, counted on
+  ``qmatmul_a8.launches_double``.
 * :func:`qmatmul_a8_grouped` (``_qmm_a8_grouped_kernel``,
   ``_group_tile``): one activation scale per K run, int32 sums within a
   block of ``tk`` features scaled into float32 accumulators.
 
 :func:`qmatmul` runs on the tensor cores (TF32 with each x split into
 two TF32 terms, exact for int8 and int4 codes, int16 codes split in two
-more), its tile and split of K planned by :func:`_plan`.
+more), its tile and split of K planned by :func:`_plan`. #8 and #10 run
+on the int8 tensor cores with int32 sums, their tile and split of K
+planned by :func:`_plan_a8`; they take x and the codes as the caller
+gives them, any K and any byte offset (no padded copy), and differ only
+in how a K slice reaches shared memory.
 
 On a CUDA tensor each wrapper launches its kernel of ``csrc/qmatmul.cu``
 and counts the launch on its own ``launches`` attribute; on a CPU tensor
@@ -44,11 +46,10 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from . import ref
-from ._build import (LaunchCounter, act_code, check_aligned, check_operand,
-                     check_pipeline, launch, sm_count)
+from ._build import (LaunchCounter, act_code, check_operand, check_pipeline,
+                     launch, sm_count)
 
 _CODE_KIND = {torch.int8: 0, torch.int16: 1}
 _PACKED = 2
@@ -92,23 +93,71 @@ def _plan(M: int, K: int, N: int, kind: int,
     else:
         bm, bn = next(((bm, bn) for bm, bn in _LARGE_M_TILES
                        if -(-N // bn) * bn <= 1.25 * N), _LARGE_M_TILES[-1])
-    tiles = -(-M // bm) * -(-N // bn)
-    k_tiles = -(-K // _BK)
-    slots = _RESIDENT * sms
-    splits = 1
-    if tiles < slots and k_tiles > 1:
-        want = min(-(-slots // tiles), k_tiles)
-        best = None
-        for s in range(want, min(2 * want, k_tiles) + 1):
-            per = -(-k_tiles // s)
-            s = -(-k_tiles // per)            # chunks that hold stages
-            if s < want:
-                continue
-            cost = -(-tiles * s // slots) * (per + 2)
-            if best is None or cost < best[0]:
-                best = (cost, s)
-        splits = best[1]
+    splits = _splits(-(-M // bm) * -(-N // bn), -(-K // _BK),
+                     _RESIDENT * sms)
     return bm, bn, _BK, splits
+
+
+def _splits(tiles: int, k_tiles: int, slots: int) -> int:
+    """Chunks of K for ``tiles`` output tiles of ``k_tiles`` stages each
+    on a card that holds ``slots`` blocks at once: 1 where the tiles fill
+    the slots; else at least enough chunks to fill them, at most twice
+    that, none empty, and of those the split whose busiest block is
+    shortest (its items times their stages plus two, for an item's
+    epilogue and pipeline fill)."""
+    if tiles >= slots or k_tiles <= 1:
+        return 1
+    want = min(-(-slots // tiles), k_tiles)
+    best = None
+    for s in range(want, min(2 * want, k_tiles) + 1):
+        per = -(-k_tiles // s)
+        s = -(-k_tiles // per)                # chunks that hold stages
+        if s < want:
+            continue
+        cost = -(-tiles * s // slots) * (per + 2)
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    return best[1]
+
+
+# Kernels #8 and #10 (int8 x int8 on the tensor cores): the (BM, BN) tiles
+# csrc/qmatmul.cu compiles for both (written, with the K slice _A8_BK,
+# into the same header as TILES), each of 256 threads in 16-column
+# groups, so any multiple of 16 is a width; both kernels run at least
+# _RESIDENT blocks an SM, so the split of K fills the same slots as #7's.
+A8_TILES = ((256, 16), (256, 32), (128, 64), (128, 80), (64, 128))
+_A8_BK = 64
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_a8(M: int, K: int, N: int,
+             sms: int = _H100_SMS) -> tuple[int, int, int]:
+    """(BM, BN, splits) of kernels #8 and #10 for an (M, K) x (K, N)
+    int8 product on a card of ``sms`` streaming multiprocessors.
+
+    Of the compiled tiles whose columns exceed N by at most 25%, the one
+    with the fewest column tiles (each reads x once more), then the
+    fewest columns; where none does (N < 16, or N = 20), the fewest
+    columns, then the widest. K is split into chunks of whole slices of
+    ``_A8_BK`` features (even, so a packed byte row never straddles two)
+    by :func:`_splits`, none empty, and at most K / 4N chunks: each
+    chunk's int32 partial sums (4·M·N bytes) are written and read back
+    once, and all of them stay below x's M·K bytes (on the H100, 9 splits
+    of yolov8n's 3x3 at 20 ran in 14 µs, 18 in 18). The same inputs give
+    the same plan, and an int32 sum is exact in any order, so any split
+    gives the same bits."""
+    def cols(t):
+        return -(-N // t[1]) * t[1]
+    fits = [t for t in A8_TILES if cols(t) <= 1.25 * N]
+    if fits:
+        bm, bn = min(fits, key=lambda t: (-(-N // t[1]), cols(t)))
+    else:
+        bm, bn = min(A8_TILES, key=lambda t: (cols(t), -t[1]))
+    k_tiles = -(-K // _A8_BK)
+    splits = min(_splits(-(-M // bm) * -(-N // bn), k_tiles,
+                         _RESIDENT * sms), max(1, K // (4 * N)))
+    per = -(-k_tiles // splits)               # slices a chunk
+    return bm, bn, -(-k_tiles // per) if per else 1
 
 
 def _check_shapes(x: torch.Tensor, q: torch.Tensor, w_packed: bool,
@@ -297,24 +346,6 @@ def qmatmul_a8_grouped(xq: torch.Tensor, q: torch.Tensor, scale, zero,
 qmatmul_a8_grouped.launches = LaunchCounter()
 
 
-def _pad_for_copies(xq: torch.Tensor, q: torch.Tensor, w_packed: bool,
-                    K: int, N: int):
-    """The operands of the double-buffered kernel, which copies aligned
-    4-byte words: K zero-padded to a multiple of 4 (x columns and code
-    rows; a zero code adds 0 to the sum and the row sum, so this is
-    exact) and the code columns to a multiple of 4. Returns (xq, q, K',
-    code row stride). A copy is made only where a pad is needed (at
-    yolov8n's shapes: the stem's K = 27)."""
-    K4 = -(-K // 4) * 4
-    if K4 != K:
-        xq = F.pad(xq, (0, K4 - K))
-    rows = K4 // 2 if w_packed else K4
-    ldq = -(-N // 4) * 4
-    if rows != q.shape[0] or ldq != N:
-        q = F.pad(q, (0, ldq - N, 0, rows - int(q.shape[0])))
-    return xq, q, K4, ldq
-
-
 def qmatmul_a8(xq: torch.Tensor, q: torch.Tensor, scale, zero,
                b: torch.Tensor | None = None, *, x_scale,
                act: str = "identity", res: torch.Tensor | None = None,
@@ -329,9 +360,12 @@ def qmatmul_a8(xq: torch.Tensor, q: torch.Tensor, scale, zero,
     its epilogue) or a per-K-feature tuple (→ the grouped kernel when
     its runs align to a K tile of ``tk``, else the float kernel on
     ``xq·s_k``; ``pipeline`` is not read there, as in the JAX package).
-    ``pipeline``: with a float scale, ``"grid"`` launches #8 and
-    ``"double"`` #10 (its K sweep double-buffered by ``cp.async``); any
-    other value raises ``ValueError``."""
+    ``pipeline``: with a float scale, ``"grid"`` launches #8 (a K
+    slice staged through registers) and ``"double"`` #10 (K slices
+    copied into three stages by ``cp.async``), both on the int8 tensor
+    cores with the tile and split of :func:`_plan_a8`, bit-equal to each
+    other; any other value raises ``ValueError``. ``xq`` is read where
+    it lies: any K, any byte offset."""
     check_pipeline(pipeline)
     M, K, N = _check_shapes(xq, q, w_packed)
     grouped = not isinstance(x_scale, (int, float))
@@ -359,22 +393,21 @@ def qmatmul_a8(xq: torch.Tensor, q: torch.Tensor, scale, zero,
     dev = xq.device
     _check_a8(xq, q, w_packed, dev, M, K, N)
     double = pipeline == "double"
-    code_stride = ()                  # #10 takes the codes' row stride
-    if double:
-        xq, q, K, ldq = _pad_for_copies(xq, q, w_packed, K, N)
-        check_aligned("xq", xq)
-        check_aligned("q", q)
-        code_stride = (ldq,)
     s, ss = _meta("scale", scale, N, dev)
     z, zs = _meta("zero", zero, N, dev)
     bp = _optional("b", b, dev, (N,))
     rp = _optional("res", res, dev, (M, N))
     y = torch.empty((M, N), device=dev, dtype=torch.float32)
     check_operand("y", y, dev)
+    bm, bn, splits = _plan_a8(M, K, N, sm_count(dev))
+    # split K: the int32 partial sums (splits, M, N), then the partial
+    # row sums (splits, M), summed by the kernels' second pass
+    ws = torch.empty(splits * M * (N + 1), device=dev, dtype=torch.int32
+                     ) if splits > 1 else None
     launch("repro_qmatmul_a8_double" if double else "repro_qmatmul_a8",
-           dev, xq.data_ptr(), q.data_ptr(), int(w_packed), *code_stride,
-           s.data_ptr(), ss, z.data_ptr(), zs, float(x_scale), bp, rp,
-           y.data_ptr(), M, K, N, code)
+           dev, xq.data_ptr(), q.data_ptr(), int(w_packed), s.data_ptr(),
+           ss, z.data_ptr(), zs, float(x_scale), bp, rp, y.data_ptr(), M,
+           K, N, code, bm, bn, splits, None if ws is None else ws.data_ptr())
     (qmatmul_a8.launches_double if double else qmatmul_a8.launches).add()
     return y
 

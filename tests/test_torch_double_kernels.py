@@ -272,31 +272,6 @@ def test_cpu_tensors_launch_no_kernel(entry, pipeline):
     assert _counts() == before
 
 
-def test_pad_for_copies_is_exact():
-    """The double-buffered kernel's operands: K zero-padded to a
-    multiple of 4 (x columns, code rows; packed: byte rows) and the code
-    columns to a multiple of 4. The padded contraction equals the
-    unpadded one (a zero code adds 0)."""
-    rng = np.random.default_rng(19)
-    M, K, N = 5, 27, 6
-    xq = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8))
-    codes = torch.from_numpy(rng.integers(-8, 8, (K, N)).astype(np.int8))
-    packed = _t(jq.pack_int4(jnp.asarray(codes.numpy())))
-    for q, w_packed in ((codes, False), (packed, True)):
-        xp, qp, K4, ldq = tqmm._pad_for_copies(xq, q, w_packed, K, N)
-        assert (K4, ldq) == (28, 8)
-        assert tuple(xp.shape) == (M, 28)
-        assert tuple(qp.shape) == ((14 if w_packed else 28), 8)
-        assert xp.dtype == qp.dtype == torch.int8
-        full = tqmm._codes(qp, K4, w_packed).to(torch.int32)
-        got = xp.to(torch.int32) @ full[:, :N]
-        want = xq.to(torch.int32) @ codes.to(torch.int32)
-        np.testing.assert_array_equal(got.numpy(), want.numpy())
-    xp, qp, K4, ldq = tqmm._pad_for_copies(xq[:, :24], codes[:24, :4],
-                                           False, 24, 4)
-    assert (K4, ldq) == (24, 4)
-
-
 # --------------------------------------------------------------------------
 # on the card: #2 and #10 against #1 and #8
 # --------------------------------------------------------------------------
