@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--out FILE.json] [--stream]
+    python3 chip_smoke.py [--out FILE.json] [--only stream|a8|conv]
 
 Phases, each printed as it runs; any failure raises and the script exits
 non-zero:
@@ -16,7 +16,13 @@ non-zero:
    its time (CUDA events over back-to-back launches, after warm-up), the
    plain version's time, one PyTorch library call's time as a yardstick
    (never called by the port), and the bound: max(FLOPs / 67 TFLOP/s
-   fp32, bytes / 3.35 TB/s), H100 SXM data-sheet peaks.
+   fp32, bytes / 3.35 TB/s), H100 SXM data-sheet peaks. #1 (``conv2d``)
+   at CONV_CASES: the seven earlier cases (CONV_EARLIER) and two short-M
+   launches (M = 3200, K split); bound by its route, three TF32 passes at 495
+   TFLOP/s (``CONV_PASSES``), the fp32 bound printed beside; each case
+   prints its plan, launches twice, bit-equal, and is read both ways
+   (``conv_cases``, with #2's), and the sums over the seven earlier
+   cases print apart (``conv_sums``).
    #4 and #5 (``stream_cases``): main's two resizes at 640 (20×20×256
    and 40×40×128, each checked to be a resize launch of the compiled
    graph), the 7 activations on 8×80×80×64, and silu at fusion_off's
@@ -54,7 +60,8 @@ non-zero:
    more with ``pipeline="double"`` and must take the same kernel.
    The double-buffered kernels (``pipeline="double"``): #2
    (``conv2d_double``) at every conv case, against ``ref.conv2d``
-   (1e-4) and against #1 on the same inputs (DOUBLE_CONV_TOL, 1e-5);
+   (1e-4) and against #1 on the same inputs (DOUBLE_CONV_TOL, 1e-5,
+   bit-equality reported), with #1's plan, bound and both-way reading;
    #10 (``qmatmul_a8_double``) at every matmul shape in int8 and packed
    int4 (K = 27 odd at the stem), against ``ref.qmatmul_a8`` (1e-4) and
    #8, its int32 accumulator read through an identity epilogue bit-equal
@@ -115,7 +122,10 @@ non-zero:
    the weight dequantization's device time with the host's issue hidden
    behind a spin on the stream), for the float and the W8A16 path; for
    the latter also the im2col of its 3×3 convs and the on-the-fly W8
-   quantization an unannotated conv pays on the quant backend.
+   quantization an unannotated conv pays on the quant backend; the float
+   forward at 640 and fusion_off's at 160 by device time, each split by
+   ``torch.profiler`` into conv kernels, ``torch.cat`` and the rest
+   (``float_forward``).
 5. ``lm``: granite-3-8b at full width and depth (40 layers, d 4096,
    vocab 49155; float32 weights from ``lm.init_params`` with a seeded
    generator on the card, ~30 GiB) served by ``serve.engine.Engine``
@@ -155,11 +165,16 @@ non-zero:
    for rmsnorm, mha and decode_attention, ``ssm`` for ssd_scan;
    ``launches_by_path`` has every path), then the result line.
 
-``--stream`` runs only phase 1, #4 and #5's cases and fusion_off's
+``--only stream`` runs only phase 1, #4 and #5's cases and fusion_off's
 forward reading, and prints no result line: copied into a checkout of an
 earlier commit and run there, it reads that commit's #4 and #5 on the
-same card (before/after within one call). ``--a8`` does the same for #8
-and #10's cases and the W4A8 forward (``a8_forward``).
+same card (before/after within one call). ``--only a8`` does the same
+for #8 and #10's cases and the W4A8 forward (``a8_forward``), ``--only
+conv`` for #1 and #2's cases, the float forwards (``float_forward``),
+the forwards with #1's split of K·K·C capped by each rule of
+CONV_SPLIT_RULES (``conv_split_rules``), one split conv's host issue
+by parts (``conv_issue_split``) and how far #1 moves quant_per_group's
+calibrated activation scales from the plain path's (``calib_drift``).
 
 Needs one CUDA card; exits non-zero without one, and in a directory that
 does not hold the repository's ``src/repro_torch``.
@@ -202,6 +217,9 @@ A8_TOL = 16 * 2.0 ** -8
 # #7's TF32 passes over each product, by int16 codes: x split in two
 # TF32 terms, and int16 codes in two exact planes (csrc/qmatmul.cu)
 QMM_PASSES = {False: 2, True: 4}
+# #1's and #2's: both operands split, three TF32 products (csrc/conv2d.cu);
+# their bound is by that route, the fp32 one printed beside it
+CONV_PASSES = 3
 # Paths whose design quantizes activations to 8 bits are also read end
 # to end on three input batches (the first is the one served) and may
 # land up to this many times the plain path's own one-ulp spread from
@@ -211,7 +229,8 @@ QMM_PASSES = {False: 2, True: 4}
 A8_SPREAD = 2.0
 # Kernels whose cases also launch twice (bit-equal) and are read both
 # ways, device time and host issue per call, over this many calls (#3
-# too: its short cases are the next candidate for a redesign).
+# too: its short cases are the next candidate for a redesign; #1 and #2
+# through ``conv_cases``' own flag, as #7-#10 through ``qmm_cases``').
 BOTH_WAYS = ("pointwise", "resize_nearest", "maxpool2d")
 BOTH_WAYS_CALLS = 50
 # FLOPs per element of each activation (for the pointwise bound).
@@ -284,7 +303,10 @@ QMM_SHAPES = {
     "1x1_cls_80": (51200, 64, 80, "identity", False),
 }
 # (input H, C, K, F, stride, act, res) of the conv cases: all conv
-# launches of yolov8n at 640 after the default passes.
+# launches of yolov8n at 640 after the default passes. The first seven
+# are the earlier cases, kept comparable (their sums print apart:
+# ``conv_sums``); the last two are short-M launches (M = 3200), where K
+# is split.
 CONV_CASES = {
     "stem_3x3s2_640": (640, 3, 3, 16, 2, "hardswish", False),
     "3x3s2_160": (160, 32, 3, 64, 2, "hardswish", False),
@@ -293,7 +315,10 @@ CONV_CASES = {
     "3x3s1_head_80": (80, 64, 3, 64, 1, "hardswish", False),
     "1x1_c2f_80": (80, 192, 1, 64, 1, "hardswish", False),
     "1x1_cls_80": (80, 64, 1, 80, 1, "identity", False),
+    "3x3s1_20": (20, 256, 3, 64, 1, "hardswish", False),
+    "3x3s2_40_F256": (40, 128, 3, 256, 2, "hardswish", False),
 }
+CONV_EARLIER = tuple(CONV_CASES)[:7]
 # (B, Tq, Tk, Hq, Hkv, D, causal, window, softcap) of the attention
 # cases: granite-3-8b's prefill at 2048, a ragged length, a gemma2-like
 # local layer (D 256, window 256, softcap 50), and 128 queries at the end
@@ -439,8 +464,9 @@ def matmul_launch_shapes(codegen, graph) -> set:
 # phase 2: every kernel against its plain version, at yolov8n@640 shapes
 # --------------------------------------------------------------------------
 
-def kernel_cases(torch, F, K, dev, conv_shapes: set):
-    """(kernel, case, kernel_fn, plain_fn, library_fn, flops, bytes)."""
+def kernel_cases(torch, F, K, dev):
+    """(kernel, case, kernel_fn, plain_fn, library_fn, flops, bytes): #3's
+    cases (#1's and #2's are ``conv_cases``')."""
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rnd(*shape, scale=1.0):
@@ -448,29 +474,6 @@ def kernel_cases(torch, F, K, dev, conv_shapes: set):
 
     cases = []
     nb = 4   # bytes per float32
-    for name, (H, C, Kk, Fo, s, act, use_res) in CONV_CASES.items():
-        Ho = -(-H // s)
-        if (Ho, C, Kk, Fo, s, act, use_res) not in conv_shapes:
-            raise AssertionError(f"conv case {name} is not a conv launch "
-                                 f"of the compiled yolov8n")
-        x = rnd(BATCH, H, H, C)
-        w = rnd(Kk, Kk, C, Fo, scale=(Kk * Kk * C) ** -0.5)
-        b = rnd(Fo, scale=0.1)
-        res = rnd(BATCH, Ho, Ho, Fo) if use_res else None
-        xn = x.permute(0, 3, 1, 2)              # channels-last NCHW view
-        wn = w.permute(3, 2, 0, 1).contiguous()
-        flops = 2 * BATCH * Ho * Ho * Kk * Kk * C * Fo
-        nbytes = nb * (x.numel() + w.numel() + b.numel()
-                       + BATCH * Ho * Ho * Fo * (2 if use_res else 1))
-        cases.append((
-            "conv2d", name,
-            lambda x=x, w=w, b=b, s=s, a=act, r=res: K.conv2d.conv2d(
-                x, w, b, stride=s, act=a, res=r),
-            lambda x=x, w=w, b=b, s=s, a=act, r=res: K.ref.conv2d(
-                x, w, b, stride=s, act=a, res=r),
-            lambda xn=xn, wn=wn, b=b, s=s, k=Kk: F.conv2d(
-                xn, wn, b, stride=s, padding=k // 2),
-            flops, nbytes))
     for name, (H, C, k, s, act) in {
             "5x5s1_sppf_20": (20, 128, 5, 1, "identity"),
             "2x2s2_leaky_80": (80, 64, 2, 2, "leaky_relu"),
@@ -543,12 +546,15 @@ def qmm_extra(Q, M: int, Kf: int, N: int, kind: int, dev) -> dict:
             "plan": {"BM": bm, "BN": bn, "splits": splits}}
 
 
-def a8_plan(Q, M: int, Kf: int, N: int, dev):
-    """#8's and #10's plan (BM, BN, splits), or None in a checkout from
-    before their tensor-core kernels (``--a8`` run there)."""
-    if not hasattr(Q, "_plan_a8"):
+def tile_plan(mod, planner: str, dev, *shape):
+    """A tensor-core kernel's plan (BM, BN, splits) at ``shape`` on
+    ``dev``'s card, from ``mod``'s ``planner`` (#8's and #10's
+    ``qmatmul._plan_a8``, #1's and #2's ``conv2d._plan``), or None in a
+    checkout from before that planner (an ``--only`` run there)."""
+    fn = getattr(mod, planner, None)
+    if fn is None:
         return None
-    bm, bn, splits = Q._plan_a8(M, Kf, N, Q.sm_count(dev))
+    bm, bn, splits = fn(*shape, mod.sm_count(dev))
     return {"BM": bm, "BN": bn, "splits": splits}
 
 
@@ -661,7 +667,7 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set, kinds=None):
                                    + 3 * N),
             PEAK_INT8_OPS, tol, Q.qmatmul_a8.launches, None,
             {"again": True, "both_ways": True,
-             "plan": a8_plan(Q, M, Kf, N, dev)}))
+             "plan": tile_plan(Q, "_plan_a8", dev, M, Kf, N)}))
     # #9: per-group activation scales aligned to groups of 16; and runs
     # of 6, which share no K tile >= 8, so that qmatmul_a8 launches #7
     # on xq·s_k (a float32 contraction: counted, bounded and timed as a
@@ -738,7 +744,7 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set, kinds=None):
                                             x_scale=1.0, w_packed=pack,
                                             pipeline=pl)
                  for pl in ("double", "grid")),
-             "both_ways": True, "plan": a8_plan(Q, M, Kf, N, dev)})
+             "both_ways": True, "plan": tile_plan(Q, "_plan_a8", dev, M, Kf, N)})
 
     cases += [a8_double(name, bits, pack) for name in QMM_SHAPES
               for bits, pack in ((8, False), (4, True))]
@@ -746,12 +752,16 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set, kinds=None):
     return [c for c in cases if kinds is None or c[0] in kinds]
 
 
-def conv_double_cases(torch, F, K, dev, conv_shapes: set):
-    """#2 at every CONV_CASES shape (each a conv launch of the compiled
-    yolov8n at 640), in ``qmm_cases``' form: against ``ref.conv2d``
-    (KERNEL_TOL) and against #1 on the same inputs (DOUBLE_CONV_TOL);
-    bound and yardstick (cuDNN fp32, TF32 off) as #1's."""
-    gen = torch.Generator(device=dev).manual_seed(4)
+def conv_cases(torch, F, K, dev, conv_shapes: set):
+    """#1 and #2 at every CONV_CASES shape (each a conv launch of the
+    compiled yolov8n at 640), on the same inputs, in ``qmm_cases``' form:
+    each against ``ref.conv2d`` (KERNEL_TOL), launched twice bit-equal,
+    its plan printed, read both ways (device time and host issue per
+    call, the kernel's and cuDNN fp32's, TF32 off), and bound by its
+    route, three TF32 passes (CONV_PASSES at the TF32 peak), the fp32
+    bound beside it; #2 also against #1 (DOUBLE_CONV_TOL, bit-equality
+    reported)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
@@ -766,23 +776,31 @@ def conv_double_cases(torch, F, K, dev, conv_shapes: set):
         w = rnd(Kk, Kk, C, Fo, scale=(Kk * Kk * C) ** -0.5)
         b = rnd(Fo, scale=0.1)
         res = rnd(BATCH, Ho, Ho, Fo) if use_res else None
-        xn = x.permute(0, 3, 1, 2)
+        xn = x.permute(0, 3, 1, 2)              # channels-last NCHW view
         wn = w.permute(3, 2, 0, 1).contiguous()
         kw = dict(stride=s, act=act, res=res)
+        flops = 2 * BATCH * Ho * Ho * Kk * Kk * C * Fo
+        nbytes = 4 * (x.numel() + w.numel() + b.numel()
+                      + BATCH * Ho * Ho * Fo * (2 if use_res else 1))
+        grid = functools.partial(K.conv2d.conv2d, x, w, b, **kw)
+        plain = functools.partial(K.ref.conv2d, x, w, b, **kw)
+        cudnn = functools.partial(F.conv2d, xn, wn, b, stride=s,
+                                  padding=Kk // 2)
+        common = {"both_ways": True, "fp32_bound_ms": max(bound(flops,
+                                                                nbytes)),
+                  "plan": tile_plan(K.conv2d, "_plan", dev, BATCH * Ho * Ho,
+                                    Kk * Kk * C, Fo)}
         cases.append((
-            "conv2d_double", name,
-            lambda x=x, w=w, b=b, kw=kw: K.conv2d.conv2d(
-                x, w, b, pipeline="double", **kw),
-            lambda x=x, w=w, b=b, kw=kw: K.ref.conv2d(x, w, b, **kw),
-            lambda xn=xn, wn=wn, b=b, s=s, k=Kk: F.conv2d(
-                xn, wn, b, stride=s, padding=k // 2),
-            2 * BATCH * Ho * Ho * Kk * Kk * C * Fo,
-            4 * (x.numel() + w.numel() + b.numel()
-                 + BATCH * Ho * Ho * Fo * (2 if use_res else 1)),
-            PEAK_FP32_FLOPS, KERNEL_TOL["conv2d_double"],
-            K.conv2d.launches_double, K.conv2d.launches,
-            {"grid": lambda x=x, w=w, b=b, kw=kw: K.conv2d.conv2d(
-                x, w, b, **kw), "grid_tol": DOUBLE_CONV_TOL}))
+            "conv2d", name, grid, plain, cudnn, CONV_PASSES * flops, nbytes,
+            PEAK_TF32_FLOPS, KERNEL_TOL["conv2d"], K.conv2d.launches,
+            K.conv2d.launches_double, {**common, "again": True}))
+        cases.append((
+            "conv2d_double", name, functools.partial(
+                K.conv2d.conv2d, x, w, b, pipeline="double", **kw),
+            plain, cudnn, CONV_PASSES * flops, nbytes, PEAK_TF32_FLOPS,
+            KERNEL_TOL["conv2d_double"], K.conv2d.launches_double,
+            K.conv2d.launches,
+            {**common, "grid": grid, "grid_tol": DOUBLE_CONV_TOL}))
     return cases
 
 
@@ -984,10 +1002,10 @@ def check_kernels(torch, cases: list) -> dict:
                                      f"the same inputs differ")
             d_k, i_k = per_call_ms(torch, kfn, BOTH_WAYS_CALLS)
             d_l, i_l = per_call_ms(torch, lfn, BOTH_WAYS_CALLS)
-            extra = {"bit_equal_twice": True, "device_ms": d_k,
-                     "issue_ms": i_k, "library_device_ms": d_l,
-                     "library_issue_ms": i_l}
-            note = (f"; two launches bit-equal; device kernel={d_k:.4f}ms "
+            extra.update({"bit_equal_twice": True, "device_ms": d_k,
+                          "issue_ms": i_k, "library_device_ms": d_l,
+                          "library_issue_ms": i_l})
+            note += (f"; two launches bit-equal; device kernel={d_k:.4f}ms "
                     f"library={d_l:.4f}ms; issue per call kernel="
                     f"{i_k:.4f}ms library={i_l:.4f}ms")
         print(f"  {kname:15s} {case:18s} max_abs_err={err:.3e} "
@@ -1055,6 +1073,35 @@ def a8_sums(per_kernel: dict) -> dict:
               f"{f['issue_ms']}; library {f['library_ms']}, device "
               f"{f['library_device_ms']}, issue {f['library_issue_ms']}; "
               f"plain {f['plain_ms']}; bound {f['bound_ms']}", flush=True)
+    return out
+
+
+def conv_sums(per_kernel: dict) -> dict:
+    """#1's and #2's sums over the seven earlier cases (CONV_EARLIER),
+    each key summed, and the later cases one by one, each printed on a
+    line of its own."""
+    out = {}
+    keys = ("ms", "library_ms", "device_ms", "library_device_ms",
+            "issue_ms", "library_issue_ms", "bound_ms", "fp32_bound_ms",
+            "plain_ms")
+    for kname in ("conv2d", "conv2d_double"):
+        cases = [c for c in per_kernel[kname]["cases"]
+                 if c["case"] in CONV_EARLIER]
+        sums = {k: sum(c[k] for c in cases) for k in keys}
+        out[kname] = {"cases": len(cases), **sums}
+        f = {k: f"{v:.4f}" for k, v in sums.items()}
+        print(f"  {kname} sum over the {len(cases)} earlier cases: kernel "
+              f"{f['ms']} ms back to back, device {f['device_ms']}, issue "
+              f"{f['issue_ms']}; library {f['library_ms']}, device "
+              f"{f['library_device_ms']}, issue {f['library_issue_ms']}; "
+              f"plain {f['plain_ms']}; bound {f['bound_ms']} (3xTF32), "
+              f"{f['fp32_bound_ms']} (fp32)", flush=True)
+        for c in per_kernel[kname]["cases"]:
+            if c["case"] not in CONV_EARLIER:
+                print(f"  {kname} {c['case']}: device {c['device_ms']:.4f}"
+                      f" ms (library {c['library_device_ms']:.4f}), back to"
+                      f" back {c['ms']:.4f}; bound {c['bound_ms']:.4f}",
+                      flush=True)
     return out
 
 
@@ -1224,7 +1271,7 @@ def check_sibling(torch, kname: str, case: str, got, kfn, sib: dict) -> dict:
 
 def check_cases(torch, cases: list, per_kernel: dict):
     """Phase 2 for the cases of ``qmm_cases``, ``lm_cases``,
-    ``ssd_cases`` and ``conv_double_cases``: each launches its kernel
+    ``ssd_cases`` and ``conv_cases``: each launches its kernel
     once (its counter moves by one, ``stays`` does not), agrees with its
     plain version (every output, where it returns a tuple), and is
     timed. A case's 12th entry, a dict, adds checks: with ``grid`` it
@@ -1264,6 +1311,9 @@ def check_cases(torch, cases: list, per_kernel: dict):
             extra["plan"] = plan
             note = " plan " + (f"BM={plan['BM']} BN={plan['BN']} splits="
                                f"{plan['splits']}" if plan else "n/a")
+        if sib and "fp32_bound_ms" in sib[0]:
+            extra["fp32_bound_ms"] = sib[0]["fp32_bound_ms"]
+            note += f"; fp32 bound={extra['fp32_bound_ms']:.4f}ms"
         if sib and sib[0].get("again"):
             again = kfn()
             torch.cuda.synchronize()
@@ -1333,6 +1383,174 @@ def fusion_off_forward(torch, acc_off, xb) -> dict:
     print(f"[fusion_off] forward (batch {BATCH}): device {dev:.3f} ms, "
           f"host issue {issue:.3f} ms", flush=True)
     return {"device_ms": dev, "issue_ms": issue}
+
+
+def float_forward(torch, acc, xb, acc_off, xb_off) -> dict:
+    """The float design's forward at 640 (``main``'s) and fusion_off's
+    at 160, batch 8: device and host issue ms (``device_ms``, median of 5
+    and of 9), back to back (``cuda_ms``: the host's issue and the
+    device overlapped, as a serving replica runs it), and a
+    ``torch.profiler`` split of one forward (``profile_call``, whose
+    ``wall`` is one forward issued on an idle card to the end of its
+    synchronise): the conv kernels (#1 and its split pass: names holding
+    "conv2d"), ``torch.cat`` (the channel windows of ``kernels/ops.py``:
+    "CatArray"), and the rest."""
+    out = {}
+    for label, a, x, reps in (("main_640", acc, xb, 5),
+                              ("fusion_off_160", acc_off, xb_off, 9)):
+        dev, issue = device_ms(torch, lambda: a.forward(x), reps=reps)
+        b2b = cuda_ms(torch, lambda: a.forward(x), budget_ms=300)
+        prof = profile_call(torch, lambda: a.forward(x))
+        by = prof.pop("by_name", {})
+        conv = [v for k, v in by.items() if "conv2d" in k]
+        cat = [v for k, v in by.items() if "CatArray" in k]
+        busy = prof["busy"]
+        split = {"conv_ms": sum(v[0] for v in conv),
+                 "conv_kernels": sum(v[1] for v in conv),
+                 "cat_ms": sum(v[0] for v in cat),
+                 "cat_kernels": sum(v[1] for v in cat)}
+        split["rest_ms"] = None if busy is None \
+            else busy - split["conv_ms"] - split["cat_ms"]
+        out[label] = {"device_ms": dev, "issue_ms": issue,
+                      "back_to_back_ms": b2b, "profile": prof, **split}
+        print(f"[float_forward] {label}: device {dev:.3f} ms, host issue "
+              f"{issue:.3f} ms, back to back {b2b:.3f} ms, one on an idle "
+              f"card {prof['wall']:.3f} ms; profiler: "
+              + (f"kernels busy {busy:.3f} ms in {prof['kernels']} "
+                 f"launches: conv {split['conv_ms']:.3f} ms "
+                 f"({split['conv_kernels']}), torch.cat "
+                 f"{split['cat_ms']:.3f} ({split['cat_kernels']}), the rest "
+                 f"{split['rest_ms']:.3f}; top {prof['top']}"
+                 if busy is not None else "no kernel records"), flush=True)
+    return out
+
+
+# The rules the split-K ablation (``conv_split_rules``) compares, each a
+# cap on #1's and #2's chunks of K·K·C for (M, K·K·C, F), None for none.
+CONV_SPLIT_RULES = {
+    "as planned": lambda M, KKC, F: None,
+    "chunks of >= 4 slices": lambda M, KKC, F: max(1, KKC // 128),
+    "scratch <= windows/4 (#8's)": lambda M, KKC, F: max(1, KKC // (4 * F)),
+    "no split": lambda M, KKC, F: 1,
+}
+
+
+def conv_split_rules(torch, K, acc, xb, acc_off, xb_off) -> dict | None:
+    """The float forward at 640 and at 160 (device ms, median of 5, and
+    back to back) with #1's split of K·K·C capped by each rule of
+    CONV_SPLIT_RULES (``conv2d._plan``'s ``cap``, set for the length of
+    the reading), and its split convs and chunks a forward; None in a
+    checkout without that planner."""
+    orig = getattr(K.conv2d, "_plan", None)
+    if orig is None:
+        return None
+    out = {}
+    try:
+        for rule, cap in CONV_SPLIT_RULES.items():
+            K.conv2d._plan = (lambda M, KKC, F, sms, cap=cap:
+                              orig(M, KKC, F, sms, cap(M, KKC, F)))
+            row = {}
+            for label, a, x in (("main_640", acc, xb),
+                                ("fusion_off_160", acc_off, xb_off)):
+                dev, issue = device_ms(torch, lambda: a.forward(x), reps=5)
+                row[label] = {"device_ms": dev, "issue_ms": issue,
+                              "back_to_back_ms": cuda_ms(
+                                  torch, lambda: a.forward(x),
+                                  budget_ms=300)}
+            out[rule] = row
+            print(f"[split_rules] {rule}: " + "; ".join(
+                f"{lab} device {r['device_ms']:.3f} ms, issue "
+                f"{r['issue_ms']:.3f}, back to back "
+                f"{r['back_to_back_ms']:.3f}" for lab, r in row.items()),
+                flush=True)
+    finally:
+        K.conv2d._plan = orig
+    return out
+
+
+def conv_issue_split(torch, K, build, dev, n: int = 200) -> dict | None:
+    """Host issue per call, µs, of one #1 call at ``3x3s1_20`` (the split
+    case: 8×20×20×256 → 64, K·K·C 2304) and of its parts (``n`` calls a
+    reading, behind ``device_ms``'s spin), the C entry point with its
+    split pass and with one chunk; None in a checkout without the
+    planner."""
+    plan = tile_plan(K.conv2d, "_plan", dev, BATCH * 400, 2304, 64)
+    if plan is None:
+        return None
+    x = torch.randn(BATCH, 20, 20, 256, device=dev)
+    w = torch.randn(3, 3, 256, 64, device=dev) * 2304 ** -0.5
+    b = torch.zeros(64, device=dev)
+    y = torch.empty(BATCH, 20, 20, 64, device=dev)
+    M, splits = BATCH * 400, plan["splits"]
+    ws = torch.empty(splits * M * 64, device=dev)
+    fn, sm = "repro_conv2d_nhwc_f32", build.sm_count(dev)
+    head = (x.data_ptr(), w.data_ptr(), b.data_ptr(), None, y.data_ptr(),
+            BATCH, 20, 20, 256, 3, 64, 1, 20, 20, 1, 1,
+            build.act_code("hardswish"), plan["BM"], plan["BN"])
+    parts = {
+        "wrapper conv2d(x, w, b, act='hardswish')": lambda: K.conv2d.conv2d(
+            x, w, b, act="hardswish"),
+        "  check_operand x3": lambda: (
+            build.check_operand("x", x, dev),
+            build.check_operand("w", w, dev, (3, 3, 256, 64)),
+            build.check_operand("b", b, dev, (64,))),
+        "  same_pads x2": lambda: (K.ref.same_pads(20, 3, 1),
+                                   K.ref.same_pads(20, 3, 1)),
+        "  torch.empty y": lambda: torch.empty(
+            (BATCH, 20, 20, 64), device=dev, dtype=torch.float32),
+        "  _plan with sm_count": lambda: K.conv2d._plan(
+            M, 2304, 64, build.sm_count(dev)),
+        "  the stream's scratch slot": lambda: K.conv2d._scratch_slot(
+            dev, torch._C._cuda_getCurrentRawStream(dev.index)),
+        f"  torch.empty of the scratch ({splits} chunks; the slot's "
+        f"earlier form)": lambda: torch.empty(
+            splits * M * 64, device=dev, dtype=torch.float32),
+        "  launch: tile + split pass": lambda: build.launch(
+            fn, dev, *head, splits, ws.data_ptr()),
+        "  launch: tile, one chunk": lambda: build.launch(
+            fn, dev, *head, 1, None),
+        "  LaunchCounter.add": K.conv2d.launches.add,
+        "an empty call (the reading's own cost)": lambda: None,
+    }
+    out = {}
+    for name, part in parts.items():
+        out[name] = per_call_ms(torch, part, n)[1] * 1e3
+    torch.cuda.synchronize()
+    print(f"[conv_issue] host issue per call, us (n = {n} calls behind a "
+          f"spin, median of 3; sm {sm}): " + "; ".join(
+              f"{k.strip()} {v:.2f}" for k, v in out.items()), flush=True)
+    return out
+
+
+def calib_drift(torch, core, codegen, yolo, ImageStream, place, dev) -> dict:
+    """``quant_per_group``'s activation scales (yolov8n at 160, W8A8,
+    weights seed 1, per group of 16 on ``ImageStream(160, 8, seed=9)``)
+    calibrated through the kernels (``backend="auto"``, as that path
+    calibrates: its float forward runs #1) and through the plain
+    versions: the largest and the mean relative difference of a scale,
+    and the share of scales that differ."""
+    model = yolo.build("yolov8n", 160)
+    params = random_params(torch, codegen, model.graph, 1)
+    acc = core.compile(model, core.CompileConfig(
+        backend="quant", w_bits=8, a_bits=8, batch_size=BATCH),
+        params=params)
+    calib = torch.from_numpy(ImageStream(160, BATCH, seed=9).batch_at(0)
+                             ).to(dev)
+    got = {}
+    for backend in ("auto", "ref"):
+        got[backend] = codegen.calibrate_activation_scales(
+            acc.graph, place(params, dev), calib, backend=backend,
+            granularity="per_group", group_size=16)
+    rel = [abs(a / b - 1.0) for name in got["ref"]
+           for a, b in zip(got["auto"][name], got["ref"][name])]
+    out = {"scales": len(rel), "max_rel": max(rel),
+           "mean_rel": sum(rel) / len(rel),
+           "differ": sum(r > 0 for r in rel) / len(rel)}
+    print(f"[calib_drift] quant_per_group's {out['scales']} activation "
+          f"scales through the kernels vs the plain versions: max relative "
+          f"difference {out['max_rel']:.3e}, mean {out['mean_rel']:.3e}, "
+          f"{out['differ']:.3f} of them differ", flush=True)
+    return out
 
 
 def serve(Deployment, DetectRequest, ImageStream, acc, n_req, img, seed,
@@ -1796,7 +2014,8 @@ def profile_call(torch, fn, top: int = 6, match: str | None = None) -> dict:
     profiler's kernel records
     ``busy`` (the kernels' summed time), ``span`` (first kernel start to
     last kernel end), ``kernels`` (launches) and the ``top`` kernel
-    names by time; with ``match``, ``match_ms`` and ``match_kernels``,
+    names by time, and ``by_name`` (each kernel name's ms and count);
+    with ``match``, ``match_ms`` and ``match_kernels``,
     the time and count of the kernels whose name contains it; the device
     numbers are None where the profiler records no kernel."""
     from torch.autograd import DeviceType
@@ -1820,9 +2039,12 @@ def profile_call(torch, fn, top: int = 6, match: str | None = None) -> dict:
     ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if ks:
         by_name: dict = {}
+        counts: dict = {}
         for e in ks:
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us() / 1e3
+            counts[e.name] = counts.get(e.name, 0) + 1
+        out["by_name"] = {k: [v, counts[k]] for k, v in by_name.items()}
         out.update(
             busy=sum(by_name.values()), kernels=len(ks),
             span=(max(e.time_range.end for e in ks)
@@ -1988,16 +2210,15 @@ def _leaves(tree) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
-    ap.add_argument("--stream", action="store_true",
-                    help="only #4 and #5's cases and the fusion_off "
-                    "forward's device and issue time (a before/after "
-                    "reading: copied into an older checkout, it times "
-                    "that checkout's kernels); prints no result line")
-    ap.add_argument("--a8", action="store_true",
-                    help="only #8 and #10's cases and the W4A8 forward's "
-                    "device time and profiler split, grid and double (a "
-                    "before/after reading, as --stream); prints no result "
-                    "line")
+    ap.add_argument("--only", choices=("stream", "a8", "conv"),
+                    help="only one slice's reading, for a before/after "
+                    "(copied into an older checkout, it reads that "
+                    "checkout's kernels): stream, #4 and #5's cases and the "
+                    "fusion_off forward; a8, #8 and #10's cases and the "
+                    "W4A8 forward, grid and double; conv, #1 and #2's cases, "
+                    "the float forwards at 640 and 160, the split-K "
+                    "ablation and a split conv's host issue by parts. "
+                    "Prints no result line")
     args = ap.parse_args()
 
     T0 = time.perf_counter()
@@ -2074,7 +2295,16 @@ def main() -> int:
     # ---------------------------------------------------------------- 2
     model = yolo.build("yolov8n")
     dev0 = torch.device("cuda", 0)
-    if args.a8:
+
+    def write_out(per_kernel: dict, **extra) -> None:
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({
+                "card": card, "torch": torch.__version__,
+                "cases": {k: v["cases"] for k, v in per_kernel.items()},
+                **extra}, indent=1))
+
+    if args.only == "a8":
         acc_4 = core.compile(model, core.CompileConfig(
             backend="quant", w_bits=4, a_bits=8, batch_size=BATCH),
             params=random_params(torch, codegen, model.graph, 0))
@@ -2087,13 +2317,8 @@ def main() -> int:
         sums = a8_sums(per_kernel)
         xb4 = torch.from_numpy(ImageStream(IMG, BATCH, seed=5).batch_at(0)
                                ).to(dev0)
-        fwd = a8_forward(torch, K, acc_4, xb4, quant_kern, counters)
-        if args.out:
-            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-            Path(args.out).write_text(json.dumps({
-                "card": card, "torch": torch.__version__, "sums": sums,
-                "cases": {k: v["cases"] for k, v in per_kernel.items()},
-                "w4a8_forward": fwd}, indent=1))
+        write_out(per_kernel, sums=sums, w4a8_forward=a8_forward(
+            torch, K, acc_4, xb4, quant_kern, counters))
         print(f"[card] {smi()}")
         return 0
     t0 = time.perf_counter()
@@ -2108,23 +2333,37 @@ def main() -> int:
                            core.CompileConfig(batch_size=BATCH, passes=()),
                            params=random_params(torch, codegen,
                                                 model_off.graph, 1))
+    xb = torch.from_numpy(ImageStream(IMG, BATCH, seed=3).batch_at(0)
+                          ).to(dev0)
     xb_off = torch.from_numpy(ImageStream(160, BATCH, seed=4).batch_at(0)
                               ).to(dev0)
+    convs = conv_cases(torch, F, K, dev0,
+                       conv_launch_shapes(codegen, acc.graph))
+    if args.only == "conv":
+        print("[kernels] #1 and #2 vs their plain version on the card",
+              flush=True)
+        per_kernel = {}
+        check_cases(torch, convs, per_kernel)
+        sums = conv_sums(per_kernel)
+        fwd = float_forward(torch, acc, xb, acc_off, xb_off)
+        rules = conv_split_rules(torch, K, acc, xb, acc_off, xb_off)
+        write_out(per_kernel, sums=sums, float_forward=fwd,
+                  split_rules=rules,
+                  issue_split_us=conv_issue_split(torch, K, _build, dev0),
+                  calib_drift=calib_drift(torch, core, codegen, yolo,
+                                          ImageStream, place, dev0))
+        print(f"[card] {smi()}")
+        return 0
     streams = stream_cases(torch, F, K, dev0,
                            resize_launch_shapes(codegen, acc.graph),
                            act_launch_shapes(codegen, acc_off.graph))
-    if args.stream:
+    if args.only == "stream":
         print("[kernels] #4 and #5 vs their plain versions on the card",
               flush=True)
         per_kernel = check_kernels(torch, streams)
         sums = stream_sums(per_kernel)
-        off_fwd = fusion_off_forward(torch, acc_off, xb_off)
-        if args.out:
-            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-            Path(args.out).write_text(json.dumps({
-                "card": card, "torch": torch.__version__, "sums": sums,
-                "cases": {k: v["cases"] for k, v in per_kernel.items()},
-                "fusion_off_forward": off_fwd}, indent=1))
+        write_out(per_kernel, sums=sums, fusion_off_forward=fusion_off_forward(
+            torch, acc_off, xb_off))
         print(f"[card] {smi()}")
         return 0
     t0 = time.perf_counter()
@@ -2137,16 +2376,15 @@ def main() -> int:
           f"quant_mean_rel_delta="
           f"{acc_q.report['quant_mean_rel_delta']:.4e}", flush=True)
     print("[kernels] each kernel vs its plain version on the card", flush=True)
-    per_kernel = check_kernels(torch, kernel_cases(
-        torch, F, K, dev0, conv_launch_shapes(codegen, acc.graph)) + streams)
+    per_kernel = check_kernels(torch, kernel_cases(torch, F, K, dev0)
+                               + streams)
     sums = stream_sums(per_kernel)
     split = issue_split(torch, K, _build, dev0)
     check_cases(torch, qmm_cases(torch, K, quant, dev0, matmul_launch_shapes(
         codegen, acc_q.graph)) + lm_cases(torch, F, K, quant, dev0)
-        + ssd_cases(torch, F, K, dev0) + conv_double_cases(
-            torch, F, K, dev0, conv_launch_shapes(codegen, acc.graph)),
-        per_kernel)
+        + ssd_cases(torch, F, K, dev0) + convs, per_kernel)
     sums_a8 = a8_sums(per_kernel)
+    sums_conv = conv_sums(per_kernel)
     pointer = a8_pointer_check(torch, qmatmul, dev0)
 
     # ---------------------------------------------------------------- 3
@@ -2381,7 +2619,6 @@ def main() -> int:
                                 ImageStream, acc, 2 * N_REQ, IMG, seed=2)
     ms_batch = wall2 / stats2["batches"] * 1e3
     fps = stats2["frames"] / wall2
-    xb = torch.from_numpy(ImageStream(IMG, BATCH, seed=3).batch_at(0)).cuda()
     fwd_ms = cuda_ms(torch, lambda: acc.forward(xb), budget_ms=500)
     ref_ms = cuda_ms(torch, lambda: acc.forward(xb, backend="ref"),
                      budget_ms=500)
@@ -2398,6 +2635,7 @@ def main() -> int:
                           dequantize, acc, images)
     print(f"[timing] one replica step alone, median ms: "
           + ", ".join(f"{k} {v:.3f}" for k, v in spans.items()), flush=True)
+    fwd_split = float_forward(torch, acc, xb, acc_off, xb_off)
     fwd_q = cuda_ms(torch, lambda: acc_q.forward(xb), budget_ms=500)
     spans_q = replica_spans(torch, AcceleratorReplica, DetectRequest,
                             QTensor, dequantize, acc_q, images_q)
@@ -2461,6 +2699,7 @@ def main() -> int:
                        "a8_stem_pointer": pointer},
             "stream": {"sums": sums, "issue_split_us": split,
                        "fusion_off_forward": off_fwd},
+            "conv": {"sums": sums_conv, "float_forward": fwd_split},
             **lm_runs, "build_s": info["seconds"]}, indent=1))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T0:.0f}s")
     print(f"[card] {smi()}")

@@ -1,6 +1,7 @@
 // Shared pieces of the port's CUDA kernels: the activation epilogue, the
-// cp.async helpers of the double-buffered and tensor-core kernels, and the
-// launch-status convention of the C interface.
+// cp.async helpers of the double-buffered and tensor-core kernels, the TF32
+// tensor-core instructions of #1, #2 and #7, and the launch-status
+// convention of the C interface.
 //
 // Every entry point is `extern "C"`, launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError() right after the
@@ -77,4 +78,37 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// tf32(v): v rounded to TF32 (10 mantissa bits, round to nearest, ties
+// away from zero), as its f32 bit pattern.
+__device__ __forceinline__ unsigned to_tf32(float v) {
+    unsigned r;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+    return r;
+}
+
+// d += a·b on the tensor cores: m16n8k8, TF32 operands, f32 accumulator.
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a·b, from a zero accumulator.
+__device__ __forceinline__ void mma_tf32_first(float (&d)[4],
+                                               const unsigned (&a)[4],
+                                               unsigned b0, unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%10, %10, %10, %10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(0.0f));
 }

@@ -307,37 +307,6 @@ __device__ __forceinline__ void load_b(const int8_t* Rt, int k, int col,
     }
 }
 
-__device__ __forceinline__ unsigned to_tf32(float v) {
-    unsigned r;
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-    return r;
-}
-
-// d += a·b on the tensor cores: m16n8k8, TF32 operands, f32 accumulator.
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d = a·b, from a zero accumulator.
-__device__ __forceinline__ void mma_tf32_first(float (&d)[4],
-                                               const unsigned (&a)[4],
-                                               unsigned b0, unsigned b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%10, %10, %10, %10};\n"
-        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-          "f"(0.0f));
-}
-
 // A persistent block: it walks the work items (m tile, n tile, K chunk)
 // blockIdx.x, blockIdx.x + gridDim.x, ... and its stages, one K slice
 // of TC_BK features each, form one stream across items, so the copies

@@ -42,9 +42,9 @@ ACT_CODES = {"identity": 0, "none": 0, "hardswish": 1, "leaky_relu": 2,
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 _SIGNATURES = {
-    "repro_conv2d_nhwc_f32": [_P, _P, _P, _P, _P] + [_I] * 12 + [_P],
-    "repro_conv2d_nhwc_f32_double": [_P, _P, _P, _P, _P] + [_I] * 12
-    + [_P],
+    "repro_conv2d_nhwc_f32": [_P, _P, _P, _P, _P] + [_I] * 15 + [_P, _P],
+    "repro_conv2d_nhwc_f32_double": [_P, _P, _P, _P, _P] + [_I] * 15
+    + [_P, _P],
     "repro_maxpool2d_nhwc_f32": [_P, _P] + [_I] * 11 + [_P],
     "repro_resize_nearest_nhwc_f32": [_P, _P] + [_I] * 9 + [_P],
     "repro_pointwise_f32": [_P, _P, _LL, _LL, _LL, _I, _I, _P],
@@ -125,17 +125,24 @@ def generated_headers() -> dict[str, str]:
     """Headers the sources include that are written from Python at
     build time: ``qmm_tiles.h``, the K stage and compiled (BM, BN) tiles
     of kernel #7 and of kernels #8/#10, from ``kernels/qmatmul.py``
-    (``_BK``, ``TILES``; ``_A8_BK``, ``A8_TILES``), which plans their
-    launches from the same tables."""
-    # imported late: qmatmul imports us
+    (``_BK``, ``TILES``; ``_A8_BK``, ``A8_TILES``), and ``conv_tiles.h``,
+    the slice depth and tiles of kernels #1/#2, from ``kernels/conv2d.py``
+    (``_CONV_BK``, ``CONV_TILES``); each module plans its launches from
+    the same table."""
+    # imported late: both modules import us
+    from .conv2d import CONV_TILES, _CONV_BK
     from .qmatmul import A8_TILES, TILES, _A8_BK, _BK
     tiles = " ".join(f"REPRO_TILE({bm}, {bn})" for bm, bn in TILES)
     a8 = " ".join(f"REPRO_A8_TILE({bm}, {bn})" for bm, bn in A8_TILES)
+    conv = " ".join(f"REPRO_CONV_TILE({bm}, {bn})" for bm, bn in CONV_TILES)
     return {"qmm_tiles.h": "#pragma once\n"
             f"#define REPRO_QMM_BK {_BK}\n"
             f"#define REPRO_QMM_TILES {tiles}\n"
             f"#define REPRO_A8_BK {_A8_BK}\n"
-            f"#define REPRO_A8_TILES {a8}\n"}
+            f"#define REPRO_A8_TILES {a8}\n",
+            "conv_tiles.h": "#pragma once\n"
+            f"#define REPRO_CONV_BK {_CONV_BK}\n"
+            f"#define REPRO_CONV_TILES {conv}\n"}
 
 
 def _source_hash() -> str:
@@ -220,6 +227,57 @@ def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of ``device``'s card (132 on an H100
     SXM), read once per device."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# The tensor-core kernels' planners (#1/#2 in kernels/conv2d.py, #7 and
+# #8/#10 in kernels/qmatmul.py) share these rules. Every tile runs
+# RESIDENT blocks an SM (csrc CV_RESIDENT, TC_RESIDENT), so the
+# persistent grid, and the slots a split of K is sized to fill, are
+# RESIDENT x the card's SMs (H100_SMS on an H100 SXM).
+RESIDENT = 2
+H100_SMS = 132
+
+
+def pick_tile(tiles: tuple, n: int) -> tuple[int, int]:
+    """The (BM, BN) of ``tiles`` for ``n`` output columns: of those whose
+    columns exceed n by at most 25%, the one with the fewest column tiles
+    (each reads the rows' operand once more), then the fewest columns;
+    where none does (n < 16, or n = 20), the fewest columns, then the
+    widest."""
+    def cols(t):
+        return -(-n // t[1]) * t[1]
+    fits = [t for t in tiles if cols(t) <= 1.25 * n]
+    if fits:
+        return min(fits, key=lambda t: (-(-n // t[1]), cols(t)))
+    return min(tiles, key=lambda t: (cols(t), -t[1]))
+
+
+def split_k(tiles: int, k_tiles: int, slots: int, cap: int | None = None
+            ) -> int:
+    """Chunks of K for ``tiles`` output tiles of ``k_tiles`` slices each
+    on a card that holds ``slots`` blocks at once: 1 where the tiles fill
+    the slots; else at least enough chunks to fill them, at most twice
+    that, none empty, and of those the split whose busiest block is
+    shortest (its items times their slices plus two, for an item's
+    epilogue and pipeline fill). With ``cap``, at most that many chunks
+    (at least 1), rounded to the chunks that whole slices fill."""
+    if tiles >= slots or k_tiles <= 1:
+        return 1
+    want = min(-(-slots // tiles), k_tiles)
+    best = None
+    for s in range(want, min(2 * want, k_tiles) + 1):
+        per = -(-k_tiles // s)
+        s = -(-k_tiles // per)                # chunks that hold slices
+        if s < want:
+            continue
+        cost = -(-tiles * s // slots) * (per + 2)
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    splits = best[1]
+    if cap is not None and splits > cap:
+        per = -(-k_tiles // max(1, cap))
+        splits = -(-k_tiles // per)
+    return splits
 
 
 def check_no_grad(*tensors: torch.Tensor) -> None:

@@ -48,8 +48,10 @@ import numpy as np
 import torch
 
 from . import ref
+from ._build import H100_SMS as _H100_SMS
+from ._build import RESIDENT as _RESIDENT
 from ._build import (LaunchCounter, act_code, check_operand, check_pipeline,
-                     launch, sm_count)
+                     launch, pick_tile, sm_count, split_k)
 
 _CODE_KIND = {torch.int8: 0, torch.int16: 1}
 _PACKED = 2
@@ -58,15 +60,12 @@ _PACKED = 2
 # for M <= _SMALL_M (a decode step); TILES is what csrc/qmatmul.cu
 # compiles (kernels/_build.py writes it, with the K stage _BK, into the
 # header the source includes). Every tile runs _RESIDENT blocks an SM
-# (csrc TC_RESIDENT), so the persistent grid, and the slots the split of
-# K is sized to fill, are _RESIDENT x the card's SMs (132 on an H100 SXM).
+# (csrc TC_RESIDENT; the rule _build.split_k sizes a split of K to).
 _LARGE_M_TILES = ((128, 64), (128, 32), (256, 16))
 _SMALL_M_TILE = (16, 128)
 TILES = _LARGE_M_TILES + (_SMALL_M_TILE,)
 _SMALL_M = 64
 _BK = 32
-_RESIDENT = 2
-_H100_SMS = 132
 
 
 @functools.lru_cache(maxsize=1024)
@@ -93,31 +92,9 @@ def _plan(M: int, K: int, N: int, kind: int,
     else:
         bm, bn = next(((bm, bn) for bm, bn in _LARGE_M_TILES
                        if -(-N // bn) * bn <= 1.25 * N), _LARGE_M_TILES[-1])
-    splits = _splits(-(-M // bm) * -(-N // bn), -(-K // _BK),
+    splits = split_k(-(-M // bm) * -(-N // bn), -(-K // _BK),
                      _RESIDENT * sms)
     return bm, bn, _BK, splits
-
-
-def _splits(tiles: int, k_tiles: int, slots: int) -> int:
-    """Chunks of K for ``tiles`` output tiles of ``k_tiles`` stages each
-    on a card that holds ``slots`` blocks at once: 1 where the tiles fill
-    the slots; else at least enough chunks to fill them, at most twice
-    that, none empty, and of those the split whose busiest block is
-    shortest (its items times their stages plus two, for an item's
-    epilogue and pipeline fill)."""
-    if tiles >= slots or k_tiles <= 1:
-        return 1
-    want = min(-(-slots // tiles), k_tiles)
-    best = None
-    for s in range(want, min(2 * want, k_tiles) + 1):
-        per = -(-k_tiles // s)
-        s = -(-k_tiles // per)                # chunks that hold stages
-        if s < want:
-            continue
-        cost = -(-tiles * s // slots) * (per + 2)
-        if best is None or cost < best[0]:
-            best = (cost, s)
-    return best[1]
 
 
 # Kernels #8 and #10 (int8 x int8 on the tensor cores): the (BM, BN) tiles
@@ -135,29 +112,20 @@ def _plan_a8(M: int, K: int, N: int,
     """(BM, BN, splits) of kernels #8 and #10 for an (M, K) x (K, N)
     int8 product on a card of ``sms`` streaming multiprocessors.
 
-    Of the compiled tiles whose columns exceed N by at most 25%, the one
-    with the fewest column tiles (each reads x once more), then the
-    fewest columns; where none does (N < 16, or N = 20), the fewest
-    columns, then the widest. K is split into chunks of whole slices of
-    ``_A8_BK`` features (even, so a packed byte row never straddles two)
-    by :func:`_splits`, none empty, and at most K / 4N chunks: each
+    The tile is :func:`repro_torch.kernels._build.pick_tile`'s of the
+    compiled ones (within 25% of N, fewest column tiles, each reading x
+    once more). K is split into chunks of whole slices of ``_A8_BK``
+    features (even, so a packed byte row never straddles two) by
+    :func:`repro_torch.kernels._build.split_k`, none empty, and at most
+    K / 4N chunks: each
     chunk's int32 partial sums (4·M·N bytes) are written and read back
     once, and all of them stay below x's M·K bytes (on the H100, 9 splits
     of yolov8n's 3x3 at 20 ran in 14 µs, 18 in 18). The same inputs give
     the same plan, and an int32 sum is exact in any order, so any split
     gives the same bits."""
-    def cols(t):
-        return -(-N // t[1]) * t[1]
-    fits = [t for t in A8_TILES if cols(t) <= 1.25 * N]
-    if fits:
-        bm, bn = min(fits, key=lambda t: (-(-N // t[1]), cols(t)))
-    else:
-        bm, bn = min(A8_TILES, key=lambda t: (cols(t), -t[1]))
-    k_tiles = -(-K // _A8_BK)
-    splits = min(_splits(-(-M // bm) * -(-N // bn), k_tiles,
-                         _RESIDENT * sms), max(1, K // (4 * N)))
-    per = -(-k_tiles // splits)               # slices a chunk
-    return bm, bn, -(-k_tiles // per) if per else 1
+    bm, bn = pick_tile(A8_TILES, N)
+    return bm, bn, split_k(-(-M // bm) * -(-N // bn), -(-K // _A8_BK),
+                           _RESIDENT * sms, max(1, K // (4 * N)))
 
 
 def _check_shapes(x: torch.Tensor, q: torch.Tensor, w_packed: bool,
