@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--out FILE.json] [--only stream|a8|conv]
+    python3 chip_smoke.py [--out FILE.json] [--only stream|a8|conv|attn]
 
 Phases, each printed as it runs; any failure raises and the script exits
 non-zero:
@@ -114,8 +114,14 @@ non-zero:
    gemma2-like ones (D 256, window, softcap); their bound counts only
    the visible (query, key) pairs or the live cache rows; yardsticks
    ``F.rms_norm`` and ``F.scaled_dot_product_attention(enable_gqa=True)``
-   with a boolean mask ("n/a" with a softcap, which it lacks). #7 gains
-   a case at granite's decode shape (4, 4096, 12800).
+   with a boolean mask ("n/a" with a softcap, which it lacks; the SDPA
+   backend that ran each case is read from its kernel names,
+   ``library_backend``). #11 (``attention.cu``, TF32 tensor cores) is
+   bound by its route, three TF32 passes (``MHA_PASSES``), the fp32 bound
+   printed beside it; each case prints its tile, launches twice,
+   bit-equal, and is read both ways with SDPA beside it (``BOTH_WAYS``);
+   the sums print on lines of their own (``attn_sums``, with #12's SDPA
+   sum). #7 gains a case at granite's decode shape (4, 4096, 12800).
 4. Timing: a short serving window (a smoke reading, not a benchmark),
    the executor forward, and the spans of one replica step run alone
    (assemble, issue, wait, copy-out on the host clock; the forward's and
@@ -174,7 +180,11 @@ conv`` for #1 and #2's cases, the float forwards (``float_forward``),
 the forwards with #1's split of K·K·C capped by each rule of
 CONV_SPLIT_RULES (``conv_split_rules``), one split conv's host issue
 by parts (``conv_issue_split``) and how far #1 moves quant_per_group's
-calibrated activation scales from the plain path's (``calib_drift``).
+calibrated activation scales from the plain path's (``calib_drift``);
+``--only attn`` for #11's cases with SDPA's (``attn_sums``) and a
+``torch.profiler`` split of one granite-3-8b prefill at 2048, full width
+and depth: mha kernel time and launches, GEMM, the rest
+(``attn_prefill_split``).
 
 Needs one CUDA card; exits non-zero without one, and in a directory that
 does not hold the repository's ``src/repro_torch``.
@@ -218,8 +228,10 @@ A8_TOL = 16 * 2.0 ** -8
 # TF32 terms, and int16 codes in two exact planes (csrc/qmatmul.cu)
 QMM_PASSES = {False: 2, True: 4}
 # #1's and #2's: both operands split, three TF32 products (csrc/conv2d.cu);
-# their bound is by that route, the fp32 one printed beside it
+# their bound is by that route, the fp32 one printed beside it. #11's
+# likewise, for both of its products (csrc/attention.cu).
 CONV_PASSES = 3
+MHA_PASSES = 3
 # Paths whose design quantizes activations to 8 bits are also read end
 # to end on three input batches (the first is the one served) and may
 # land up to this many times the plain path's own one-ulp spread from
@@ -230,8 +242,9 @@ A8_SPREAD = 2.0
 # Kernels whose cases also launch twice (bit-equal) and are read both
 # ways, device time and host issue per call, over this many calls (#3
 # too: its short cases are the next candidate for a redesign; #1 and #2
-# through ``conv_cases``' own flag, as #7-#10 through ``qmm_cases``').
-BOTH_WAYS = ("pointwise", "resize_nearest", "maxpool2d")
+# through ``conv_cases``' own flag, as #7-#10 through ``qmm_cases``';
+# #11's cases, and SDPA beside them, through ``check_cases``).
+BOTH_WAYS = ("pointwise", "resize_nearest", "maxpool2d", "mha")
 BOTH_WAYS_CALLS = 50
 # FLOPs per element of each activation (for the pointwise bound).
 ACT_FLOPS = {"identity": 0, "none": 0, "relu": 1, "leaky_relu": 2,
@@ -410,6 +423,44 @@ def per_call_ms(torch, fn, n: int = 20) -> tuple[float, float]:
     issue is read on its own."""
     dev, host = device_ms(torch, lambda: [fn() for _ in range(n)])
     return dev / n, host / n
+
+
+def library_backend(torch, fn) -> dict:
+    """Which backend a library call ran, read from the kernel names of one
+    call under ``torch.profiler``: SDPA's memory-efficient (CUTLASS
+    ``fmha_cutlassF``), flash or cuDNN kernel, else its math path (the
+    matmuls and softmax of the plain formula); with the name of the
+    longest kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ks[e.name] = ks.get(e.name, 0.0) + e.time_range.elapsed_us()
+    names = " ".join(ks).lower()
+    backend = ("efficient" if "fmha_cutlass" in names or "efficient" in names
+               else "flash" if "flash" in names
+               else "cudnn" if "cudnn" in names else "math")
+    top = max(ks, key=ks.get) if ks else None
+    return {"backend": backend, "kernel": top[:80] if top else None,
+            "kernels": len(ks)}
+
+
+def attn_plan(mod, dev, D: int, B: int, Tq: int, Tk: int,
+              Hq: int) -> dict | None:
+    """#11's tile and split of the kv sweep at a case's shape on ``dev``'s
+    card (``attention._plan``), or None in a checkout from before that
+    planner (an ``--only`` run there)."""
+    fn = getattr(mod, "_plan", None)
+    if fn is None:
+        return None
+    bq, bk, stages, splits = fn(D, B, Tq, Tk, Hq, mod.sm_count(dev))
+    return {"BQ": bq, "BK": bk, "stages": stages, "splits": splits}
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, float]:
@@ -831,8 +882,11 @@ def lm_cases(torch, F, K, quant, dev):
     granite decode shape (the MLP up projection of a W8 step: M = 4
     rows, K = 4096, N = 12800). Library yardsticks: ``F.rms_norm``,
     ``F.scaled_dot_product_attention`` with ``enable_gqa=True`` and a
-    boolean mask (none where a softcap is set: it has no softcap),
-    ``torch.matmul`` on the dequantized weight."""
+    boolean mask (none where a softcap is set: it has no softcap; the
+    backend it ran, read by ``library_backend``), ``torch.matmul`` on the
+    dequantized weight. #11 is bound by its route, three TF32 products a
+    product (MHA_PASSES), the fp32 bound printed beside it; its plan is
+    printed."""
     gen = torch.Generator(device=dev).manual_seed(2)
 
     def rnd(*shape, scale=1.0):
@@ -861,13 +915,17 @@ def lm_cases(torch, F, K, quant, dev):
             lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=m, enable_gqa=True))
+        flops = 4 * B * Hq * D * visible_pairs(Tq, Tk, causal, win)
+        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
         cases.append((
             "mha", name,
             lambda q=q, k=k, v=v, kw=kw: K.attention.mha(q, k, v, **kw),
             lambda q=q, k=k, v=v, kw=kw: K.ref.mha(q, k, v, **kw), lib,
-            4 * B * Hq * D * visible_pairs(Tq, Tk, causal, win),
-            4 * (2 * q.numel() + k.numel() + v.numel()), PEAK_FP32_FLOPS,
-            KERNEL_TOL["mha"], K.attention.launches, None))
+            MHA_PASSES * flops, nbytes, PEAK_TF32_FLOPS, KERNEL_TOL["mha"],
+            K.attention.launches, None,
+            {"fp32_bound_ms": max(bound(flops, nbytes)),
+             "plan": attn_plan(K.attention, dev, D, B, Tq, Tk, Hq),
+             "library_backend": True}))
     for name, (B, S, Hq, Hkv, D, lens, win, cap) in DEC_CASES.items():
         q, kc, vc = rnd(B, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -1105,6 +1163,78 @@ def conv_sums(per_kernel: dict) -> dict:
     return out
 
 
+def attn_sums(per_kernel: dict) -> dict:
+    """#11's sums over its cases (MHA_CASES), each key summed, and over
+    the cases SDPA takes (no softcap): the kernel's and SDPA's, back to
+    back and by device time; #12's and SDPA's over DEC_CASES without a
+    softcap. Each printed on a line of its own."""
+    out = {}
+    keys = ("ms", "device_ms", "issue_ms", "bound_ms", "fp32_bound_ms",
+            "plain_ms")
+    cases = per_kernel["mha"]["cases"]
+    sums = {k: sum(c[k] for c in cases) for k in keys}
+    lib = [c for c in cases if c["library_ms"] is not None]
+    with_lib = {k: sum(c[k] for c in lib) for k in (
+        "ms", "device_ms", "library_ms", "library_device_ms")}
+    out["mha"] = {"cases": len(cases), **sums, "sdpa_cases": len(lib),
+                  **{f"sdpa_cases_{k}": v for k, v in with_lib.items()}}
+    f = {k: f"{v:.4f}" for k, v in sums.items()}
+    w = {k: f"{v:.4f}" for k, v in with_lib.items()}
+    print(f"  mha sum over its {len(cases)} cases: kernel {f['ms']} ms back "
+          f"to back, device {f['device_ms']}, issue {f['issue_ms']}; plain "
+          f"{f['plain_ms']}; bound {f['bound_ms']} (3xTF32), "
+          f"{f['fp32_bound_ms']} (fp32)", flush=True)
+    print(f"  mha over the {len(lib)} cases without softcap: kernel "
+          f"{w['ms']} ms back to back, device {w['device_ms']}; SDPA "
+          f"{w['library_ms']}, device {w['library_device_ms']}", flush=True)
+    if "decode_attention" in per_kernel:
+        dec = [c for c in per_kernel["decode_attention"]["cases"]
+               if c["library_ms"] is not None]
+        d = {k: sum(c[k] for c in dec) for k in ("ms", "library_ms")}
+        out["decode_attention"] = {"sdpa_cases": len(dec), **d}
+        print(f"  decode_attention over the {len(dec)} cases without "
+              f"softcap: kernel {d['ms']:.4f} ms back to back; SDPA "
+              f"{d['library_ms']:.4f}", flush=True)
+    return out
+
+
+def attn_prefill_split(torch, lm, registry, dev, T: int = 2048) -> dict:
+    """One granite-3-8b prefill of T tokens at full width and depth
+    (float32 weights from a seeded generator on the card), read by
+    ``profile_call``: the call's time on the host clock to a synchronise
+    (``wall``) and its kernels' time (``busy``), split into #11 (``mha``
+    kernels: time and launches), cuBLAS GEMMs (kernel names holding
+    ``gemm``) and the rest."""
+    cfg = registry.get("granite-3-8b")
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    toks = torch.randint(0, cfg.vocab, (1, T), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(5),
+                         dtype=torch.int32)
+    with torch.inference_mode():
+        sp = profile_call(torch, lambda: lm.prefill(
+            params, cfg, {"tokens": toks}, T + LM_NEW), match="mha")
+    del params
+    torch.cuda.empty_cache()
+    by = sp.get("by_name", {})
+    gemm = sum(v[0] for k, v in by.items() if "gemm" in k.lower())
+    out = {"T": T, "layers": cfg.n_layers, "wall_ms": sp["wall"],
+           "issue_ms": sp["issue"], "busy_ms": sp["busy"],
+           "mha_ms": sp.get("match_ms"), "mha_launches":
+           sp.get("match_kernels"), "gemm_ms": gemm}
+    if sp["busy"] is not None:
+        out["rest_ms"] = sp["busy"] - out["mha_ms"] - gemm
+        print(f"[attn] granite-3-8b prefill {T} ({cfg.n_layers} layers): "
+              f"{sp['wall']:.1f} ms to a synchronise (host issue "
+              f"{sp['issue']:.1f}); kernels {sp['busy']:.1f} ms: mha "
+              f"{out['mha_ms']:.2f} in {out['mha_launches']} launches, GEMM "
+              f"{gemm:.1f}, the rest {out['rest_ms']:.2f}", flush=True)
+    else:
+        print(f"[attn] granite-3-8b prefill {T}: {sp['wall']:.1f} ms; "
+              f"device not measured (no kernel records)", flush=True)
+    return out
+
+
 def a8_pointer_check(torch, Q, dev) -> dict:
     """#10 at the stem's shape (K = 27, packed int4) launches on the
     caller's own xq and codes: no padded copy of either is made."""
@@ -1309,12 +1439,13 @@ def check_cases(torch, cases: list, per_kernel: dict):
         if sib and "plan" in sib[0]:
             plan = sib[0]["plan"]
             extra["plan"] = plan
-            note = " plan " + (f"BM={plan['BM']} BN={plan['BN']} splits="
-                               f"{plan['splits']}" if plan else "n/a")
+            note = " plan " + (" ".join(f"{k}={v}" for k, v in plan.items())
+                               if plan else "n/a")
         if sib and "fp32_bound_ms" in sib[0]:
             extra["fp32_bound_ms"] = sib[0]["fp32_bound_ms"]
             note += f"; fp32 bound={extra['fp32_bound_ms']:.4f}ms"
-        if sib and sib[0].get("again"):
+        both = kname in BOTH_WAYS or bool(sib and sib[0].get("both_ways"))
+        if kname in BOTH_WAYS or (sib and sib[0].get("again")):
             again = kfn()
             torch.cuda.synchronize()
             if not torch.equal(again, got):
@@ -1324,7 +1455,7 @@ def check_cases(torch, cases: list, per_kernel: dict):
             note += ", two launches bit-equal"
         t_k, t_p = cuda_ms(torch, kfn), cuda_ms(torch, pfn)
         t_l = cuda_ms(torch, lfn) if lfn is not None else None
-        if sib and sib[0].get("both_ways"):
+        if both:
             d_k, i_k = per_call_ms(torch, kfn, BOTH_WAYS_CALLS)
             extra.update(device_ms=d_k, issue_ms=i_k)
             note += f"; device time kernel={d_k:.4f}ms"
@@ -1334,6 +1465,9 @@ def check_cases(torch, cases: list, per_kernel: dict):
                 note += f" library={d_l:.4f}ms"
             note += f"; issue per call kernel={i_k:.4f}ms" + (
                 f" library={i_l:.4f}ms" if lfn is not None else "")
+        if sib and sib[0].get("library_backend") and lfn is not None:
+            extra["library_backend"] = library_backend(torch, lfn)
+            note += f"; library backend {extra['library_backend']['backend']}"
         b_ops, b_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
         lib = f"{t_l:.4f}ms" if t_l is not None else "n/a"
         grid = (f" grid={extra['grid_ms']:.4f}ms (double/grid "
@@ -2210,15 +2344,17 @@ def _leaves(tree) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
-    ap.add_argument("--only", choices=("stream", "a8", "conv"),
+    ap.add_argument("--only", choices=("stream", "a8", "conv", "attn"),
                     help="only one slice's reading, for a before/after "
                     "(copied into an older checkout, it reads that "
                     "checkout's kernels): stream, #4 and #5's cases and the "
                     "fusion_off forward; a8, #8 and #10's cases and the "
                     "W4A8 forward, grid and double; conv, #1 and #2's cases, "
                     "the float forwards at 640 and 160, the split-K "
-                    "ablation and a split conv's host issue by parts. "
-                    "Prints no result line")
+                    "ablation and a split conv's host issue by parts; "
+                    "attn, #11's cases (and SDPA's) and a profiler split "
+                    "of one granite-3-8b prefill at 2048. Prints no result "
+                    "line")
     args = ap.parse_args()
 
     T0 = time.perf_counter()
@@ -2304,6 +2440,16 @@ def main() -> int:
                 "cases": {k: v["cases"] for k, v in per_kernel.items()},
                 **extra}, indent=1))
 
+    if args.only == "attn":
+        print("[kernels] #11 vs its plain version on the card", flush=True)
+        per_kernel = {}
+        check_cases(torch, [c for c in lm_cases(torch, F, K, quant, dev0)
+                            if c[0] == "mha"], per_kernel)
+        sums = attn_sums(per_kernel)
+        write_out(per_kernel, sums=sums, prefill=attn_prefill_split(
+            torch, lm, registry, dev0))
+        print(f"[card] {smi()}")
+        return 0
     if args.only == "a8":
         acc_4 = core.compile(model, core.CompileConfig(
             backend="quant", w_bits=4, a_bits=8, batch_size=BATCH),
@@ -2385,6 +2531,7 @@ def main() -> int:
         + ssd_cases(torch, F, K, dev0) + convs, per_kernel)
     sums_a8 = a8_sums(per_kernel)
     sums_conv = conv_sums(per_kernel)
+    sums_attn = attn_sums(per_kernel)
     pointer = a8_pointer_check(torch, qmatmul, dev0)
 
     # ---------------------------------------------------------------- 3
@@ -2700,6 +2847,7 @@ def main() -> int:
             "stream": {"sums": sums, "issue_split_us": split,
                        "fusion_off_forward": off_fwd},
             "conv": {"sums": sums_conv, "float_forward": fwd_split},
+            "attn": {"sums": sums_attn},
             **lm_runs, "build_s": info["seconds"]}, indent=1))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T0:.0f}s")
     print(f"[card] {smi()}")

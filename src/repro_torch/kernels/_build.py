@@ -57,7 +57,7 @@ _SIGNATURES = {
     "repro_qmatmul_a8_grouped": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P,
                                  _P, _P] + [_I] * 4 + [_P],
     "repro_rmsnorm_f32": [_P, _P, _P, _LL, _I, _F, _I, _P],
-    "repro_mha_f32": [_P] * 4 + [_I] * 8 + [_F, _F, _P],
+    "repro_mha_f32": [_P] * 4 + [_I] * 8 + [_F, _F] + [_I] * 4 + [_P, _P],
     "repro_decode_attention_f32": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
     "repro_ssd_scan_f32": [_P] * 8 + [_I] * 6 + [_P],
 }
@@ -127,14 +127,19 @@ def generated_headers() -> dict[str, str]:
     of kernel #7 and of kernels #8/#10, from ``kernels/qmatmul.py``
     (``_BK``, ``TILES``; ``_A8_BK``, ``A8_TILES``), and ``conv_tiles.h``,
     the slice depth and tiles of kernels #1/#2, from ``kernels/conv2d.py``
-    (``_CONV_BK``, ``CONV_TILES``); each module plans its launches from
-    the same table."""
-    # imported late: both modules import us
+    (``_CONV_BK``, ``CONV_TILES``), and ``attn_tiles.h``, the (BQ, BK,
+    stages) of kernel #11 at each head width, from
+    ``kernels/attention.py`` (``ATTN_TILES``); each module plans its
+    launches from the same table."""
+    # imported late: these modules import us
+    from .attention import ATTN_TILES
     from .conv2d import CONV_TILES, _CONV_BK
     from .qmatmul import A8_TILES, TILES, _A8_BK, _BK
     tiles = " ".join(f"REPRO_TILE({bm}, {bn})" for bm, bn in TILES)
     a8 = " ".join(f"REPRO_A8_TILE({bm}, {bn})" for bm, bn in A8_TILES)
     conv = " ".join(f"REPRO_CONV_TILE({bm}, {bn})" for bm, bn in CONV_TILES)
+    attn = " ".join(f"REPRO_ATTN_TILE({d}, {bq}, {bk}, {st})"
+                    for d, (bq, bk, st) in sorted(ATTN_TILES.items()))
     return {"qmm_tiles.h": "#pragma once\n"
             f"#define REPRO_QMM_BK {_BK}\n"
             f"#define REPRO_QMM_TILES {tiles}\n"
@@ -142,7 +147,9 @@ def generated_headers() -> dict[str, str]:
             f"#define REPRO_A8_TILES {a8}\n",
             "conv_tiles.h": "#pragma once\n"
             f"#define REPRO_CONV_BK {_CONV_BK}\n"
-            f"#define REPRO_CONV_TILES {conv}\n"}
+            f"#define REPRO_CONV_TILES {conv}\n",
+            "attn_tiles.h": "#pragma once\n"
+            f"#define REPRO_ATTN_TILES {attn}\n"}
 
 
 def _source_hash() -> str:
