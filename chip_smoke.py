@@ -57,7 +57,15 @@ non-zero:
    ``torch.matmul`` on the dequantized weight (TF32 off). The unaligned
    per-group case launches the float kernel and is reported, bounded
    and timed as one of its cases; both per-group cases are launched once
-   more with ``pipeline="double"`` and must take the same kernel.
+   more with ``pipeline="double"`` and must take the same kernel. #9
+   also runs at the shortest-M and the widest-N matmul launches of the
+   compiled quant_per_group design (A8G_SHAPES, blocks of 16, checked
+   against that graph's launches) and at one of its launches in blocks
+   of 9 (A8G_TK9); every #9 case prints its plan (``_plan_a8g``),
+   launches twice, bit-equal, and is read both ways beside
+   ``torch._int_mm``; its sums print with #8's (``a8_sums``), and its
+   exact case (integer partial sums below 2^24) must equal the int64
+   contraction bit for bit, unsplit and split (``a8g_exact_check``).
    The double-buffered kernels (``pipeline="double"``): #2
    (``conv2d_double``) at every conv case, against ``ref.conv2d``
    (1e-4) and against #1 on the same inputs (DOUBLE_CONV_TOL, 1e-5,
@@ -82,7 +90,9 @@ non-zero:
    ``CompileConfig(backend="quant")`` serving 32 requests;
    ``quant_w4a8``: the same at ``w_bits=4, a_bits=8``, one batch;
    ``quant_per_group``: yolov8n at 160 at W8A8 recalibrated with
-   per-group activation scales, one batch; ``mixed``: yolov8n at 160
+   per-group activation scales, one batch, its forward then read as
+   device and host issue ms with a profiler split
+   (``per_group_forward``); ``mixed``: yolov8n at 160
    with ``CompileConfig(bits="mixed")``, one batch; ``double``: the
    designs of ``main`` and ``quant_w4a8`` (no recompile), one batch
    each through ``AcceleratorReplica(acc, backend=DoubleBuffered(...))``,
@@ -175,7 +185,8 @@ non-zero:
 forward reading, and prints no result line: copied into a checkout of an
 earlier commit and run there, it reads that commit's #4 and #5 on the
 same card (before/after within one call). ``--only a8`` does the same
-for #8 and #10's cases and the W4A8 forward (``a8_forward``), ``--only
+for #8, #9 and #10's cases, #9's exact case, the W4A8 forward
+(``a8_forward``) and the per-group forward (``per_group_forward``), ``--only
 conv`` for #1 and #2's cases, the float forwards (``float_forward``),
 the forwards with #1's split of K·K·C capped by each rule of
 CONV_SPLIT_RULES (``conv_split_rules``), one split conv's host issue
@@ -315,6 +326,17 @@ QMM_SHAPES = {
     "3x3_20": (3200, 2304, 64, "hardswish", False),
     "1x1_cls_80": (51200, 64, 80, "identity", False),
 }
+# (M, K, N, act, res) of #9's later cases: the shortest-M and the
+# widest-N matmul launches of the compiled quant_per_group design
+# (yolov8n at 160, W8A8, batch 8; each checked to be a launch of that
+# graph and to be its shortest M, its widest N), both in blocks of 16
+# features as that path runs them; and a launch of it (the 3x3 at 20)
+# in blocks of 9 (``A8G_TK9``).
+A8G_SHAPES = {
+    "short_M200_K2304_N64": (200, 2304, 64, "hardswish", False),
+    "widest_N256_M200_K1152": (200, 1152, 256, "hardswish", False),
+}
+A8G_TK9 = (3200, 576, 64, "hardswish", False)
 # (input H, C, K, F, stride, act, res) of the conv cases: all conv
 # launches of yolov8n at 640 after the default passes. The first seven
 # are the earlier cases, kept comparable (their sums print apart:
@@ -614,12 +636,26 @@ def qmm_ops(M: int, Kf: int, N: int, int16: bool) -> int:
     return QMM_PASSES[int16] * 2 * M * Kf * N
 
 
-def qmm_cases(torch, K, quant, dev, mm_shapes: set, kinds=None):
+def a8g_plan(Q, dev, M: int, Kf: int, N: int, tk: int) -> dict | None:
+    """#9's plan (BM, BN, splits, slices a chunk; ``qmatmul._plan_a8g``)
+    at a case's shape and block width on ``dev``'s card, or None in a
+    checkout from before that planner (an ``--only`` run there)."""
+    fn = getattr(Q, "_plan_a8g", None)
+    if fn is None:
+        return None
+    bm, bn, splits, per = fn(M, Kf, N, tk, Q.sm_count(dev))
+    return {"BM": bm, "BN": bn, "splits": splits, "per": per, "tk": tk}
+
+
+def qmm_cases(torch, K, quant, dev, mm_shapes: set, kinds=None,
+              g_shapes: set | None = None):
     """The quantized matmul cases: (kernel, case, kernel_fn, plain_fn,
     library_fn or None, ops, bytes, peak, tol, counter that must move,
     counter that must not[, extras]); only the kernels in ``kinds``
     where given. #8 and #10 also run at the widest N among the graph's
-    matmul launches (``widest_N...``, packed int4 as on quant_w4a8)."""
+    matmul launches (``widest_N...``, packed int4 as on quant_w4a8); #9
+    at A8G_SHAPES and A8G_TK9, each checked against ``g_shapes``, the
+    matmul launches of the compiled quant_per_group design."""
     gen = torch.Generator(device=dev).manual_seed(1)
     Q, ref = K.qmatmul, K.ref
     cases = []
@@ -627,6 +663,16 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set, kinds=None):
         if (M, Kf, N, act, use_res) not in mm_shapes:
             raise AssertionError(f"matmul case {name} is not a conv "
                                  f"launch of the compiled yolov8n")
+    if g_shapes is not None:
+        for name, shape in (*A8G_SHAPES.items(), ("groups_of_9", A8G_TK9)):
+            if shape not in g_shapes:
+                raise AssertionError(f"#9 case {name} {shape} is not a "
+                                     f"matmul launch of quant_per_group")
+        short, wide_g = A8G_SHAPES.values()
+        if short[0] != min(s[0] for s in g_shapes) or wide_g[2] != max(
+                s[2] for s in g_shapes):
+            raise AssertionError("A8G_SHAPES are not quant_per_group's "
+                                 "shortest M and widest N")
     wide = max(mm_shapes, key=lambda s: (s[2], s[1], s[0]))
     shapes = {**QMM_SHAPES, f"widest_N{wide[2]}": wide}
     rows = {}
@@ -722,7 +768,9 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set, kinds=None):
     # #9: per-group activation scales aligned to groups of 16; and runs
     # of 6, which share no K tile >= 8, so that qmatmul_a8 launches #7
     # on xq·s_k (a float32 contraction: counted, bounded and timed as a
-    # qmatmul case, its yardstick torch.matmul on xq·s_k)
+    # qmatmul case, its yardstick torch.matmul on xq·s_k). #9's cases
+    # print their plan, launch twice (bit-equal) and are read both ways,
+    # beside torch._int_mm on the same codes (no scales)
     M, Kf, N, act, _ = QMM_SHAPES["3x3_head_80"]
     x, w, b, _ = data(M, Kf, N, False)
     qt, codes, sc, zr = wq(w, 8, False)
@@ -749,8 +797,9 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set, kinds=None):
                 xq, codes, sc, zr, svt, b, act=act),
             lib, qmm_ops(M, Kf, N, False) if float7 else 2 * M * Kf * N,
             nbytes, peak, KERNEL_TOL[kname], moves, stays,
-            *([qmm_extra(Q, M, Kf, N, Q._CODE_KIND[qt.q.dtype], dev)]
-              if float7 else [])))
+            qmm_extra(Q, M, Kf, N, Q._CODE_KIND[qt.q.dtype], dev)
+            if float7 else {"again": True, "both_ways": True,
+                            "plan": a8g_plan(Q, dev, M, Kf, N, run)}))
         # the per-K scales with pipeline="double" take the same route
         # (never #10), as in the JAX package: launch-checked, not timed
         n10, n_moves = Q.qmatmul_a8.launches_double.value, moves.value
@@ -761,6 +810,38 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set, kinds=None):
             raise AssertionError(f"per-K scales (runs of {run}) with "
                                  f"pipeline='double' did not launch "
                                  f"{kname}")
+
+    def a8_grouped(name, shape, run):
+        """#9 at a quant_per_group launch shape, int8 codes, scales in
+        runs of ``run`` features; the caller's K tile is K, so that
+        ``_group_tile`` aligns blocks of exactly ``run``."""
+        M, Kf, N, act, use_res = shape
+        x, w, b, r = data(M, Kf, N, use_res)
+        qt, codes, sc, zr = wq(w, 8, False)
+        amax = x.abs().amax(dim=0).reshape(-1, run).amax(dim=1)
+        sv = tuple(float(v) / 127 for v in amax.repeat_interleave(run))
+        svt = torch.tensor(sv, device=dev)
+        xq = ref.quantize_activation(x, svt)
+        tk, _ = Q._group_tile(sv, Kf, Kf, False)
+        return (
+            "qmatmul_a8_grouped", f"{name}_a8_groups_of_{run}",
+            lambda: Q.qmatmul_a8(xq, qt.q, qt.scale, qt.zero, b,
+                                 x_scale=sv, act=act, res=r, tk=Kf),
+            lambda: ref.qmatmul_a8(xq, codes, sc, zr, svt, b, act=act,
+                                   res=r),
+            int_mm(xq, codes), 2 * M * Kf * N,
+            M * Kf + qt.q.numel() + 4 * (
+                M * N * (2 if use_res else 1) + 3 * N + Kf),
+            PEAK_INT8_OPS, KERNEL_TOL["qmatmul_a8_grouped"],
+            Q.qmatmul_a8_grouped.launches, Q.qmatmul.launches,
+            {"again": True, "both_ways": True,
+             "plan": a8g_plan(Q, dev, M, Kf, N, tk)})
+
+    if g_shapes is not None:
+        cases += [a8_grouped(name, shape, 16)
+                  for name, shape in A8G_SHAPES.items()]
+        cases.append(a8_grouped("M{}_K{}_N{}".format(*A8G_TK9[:3]),
+                                A8G_TK9, 9))
     # #10: #8's cases with the K sweep double-buffered, int8 and packed
     # int4 at every shape; beside each, #8 on the same inputs (the grid
     # sibling) and the int32 accumulators of both read through an
@@ -1115,18 +1196,27 @@ def stream_sums(per_kernel: dict) -> dict:
 
 def a8_sums(per_kernel: dict) -> dict:
     """#8's 6 and #10's 10 cases of the kernel table's earlier rows (all
-    but ``widest_N...``), each key summed and printed on a line of its
-    own."""
+    but ``widest_N...``), and #9's earlier case (3x3_head_80) and all of
+    its cases, each key summed and printed on a line of its own."""
     out = {}
-    for kname in ("qmatmul_a8", "qmatmul_a8_double"):
-        cases = [c for c in per_kernel[kname]["cases"]
-                 if not c["case"].startswith("widest")]
+    for key, kname, label, pick in (
+            ("qmatmul_a8", "qmatmul_a8", "earlier ",
+             lambda c: not c.startswith("widest")),
+            ("qmatmul_a8_double", "qmatmul_a8_double", "earlier ",
+             lambda c: not c.startswith("widest")),
+            ("qmatmul_a8_grouped", "qmatmul_a8_grouped", "earlier ",
+             lambda c: c.startswith("3x3_head_80")),
+            ("qmatmul_a8_grouped_all", "qmatmul_a8_grouped", "",
+             lambda c: True)):
+        if kname not in per_kernel:
+            continue
+        cases = [c for c in per_kernel[kname]["cases"] if pick(c["case"])]
         sums = {k: sum(c[k] for c in cases) for k in (
             "ms", "library_ms", "device_ms", "library_device_ms",
             "issue_ms", "library_issue_ms", "bound_ms", "plain_ms")}
-        out[kname] = {"cases": len(cases), **sums}
+        out[key] = {"cases": len(cases), **sums}
         f = {k: f"{v:.4f}" for k, v in sums.items()}
-        print(f"  {kname} sum over its {len(cases)} earlier cases: kernel "
+        print(f"  {kname} sum over its {len(cases)} {label}cases: kernel "
               f"{f['ms']} ms back to back, device {f['device_ms']}, issue "
               f"{f['issue_ms']}; library {f['library_ms']}, device "
               f"{f['library_device_ms']}, issue {f['library_issue_ms']}; "
@@ -1259,6 +1349,75 @@ def a8_pointer_check(torch, Q, dev) -> dict:
     print(f"  qmatmul_a8_double  stem: one launch, on the caller's own "
           f"{M} x {Kf} codes (K = {Kf}, no padded copy)", flush=True)
     return {"launches": len(seen), "on_callers_xq": True}
+
+
+def a8g_exact_check(torch, Q, dev) -> dict:
+    """#9's exact case at the named shape (3x3_head_80, unsplit) and at
+    short_M200_K2304_N64 (split by its plan): activation and weight
+    codes in [-8, 7], block scales alternating 1 and 2 over blocks of 16,
+    unit weight scale, zero 0. Every partial sum is then an integer
+    below 2^24, so the result must equal the int64 contraction
+    (computed in float64, exact here) bit for bit, in any order of the
+    sums and across any split."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for name, (M, Kf, N) in (
+            ("3x3_head_80", QMM_SHAPES["3x3_head_80"][:3]),
+            ("short_M200_K2304_N64",
+             A8G_SHAPES["short_M200_K2304_N64"][:3])):
+        xq = torch.randint(-8, 8, (M, Kf), generator=gen, device=dev,
+                           dtype=torch.int8)
+        q = torch.randint(-8, 8, (Kf, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+        sv = tuple(float(1 + (k // 16) % 2) for k in range(Kf))
+        sk = torch.tensor(sv, dtype=torch.float64, device=dev)
+        want = ((xq.to(torch.float64) * sk) @ q.to(torch.float64)).to(
+            torch.float32)
+        one, nil = torch.ones(1, device=dev), torch.zeros(1, device=dev)
+        n9 = Q.qmatmul_a8_grouped.launches.value
+        got = Q.qmatmul_a8(xq, q, one, nil, x_scale=sv)
+        torch.cuda.synchronize()
+        plan = a8g_plan(Q, dev, M, Kf, N, 16)
+        out[name] = {"bit_equal": bool(torch.equal(got, want)),
+                     "plan": plan}
+        if Q.qmatmul_a8_grouped.launches.value != n9 + 1 \
+                or not out[name]["bit_equal"]:
+            raise AssertionError(f"#9 exact case {name}: not bit-equal to "
+                                 f"the int64 contraction (max |diff| "
+                                 f"{float((got - want).abs().max())})")
+        print(f"  qmatmul_a8_grouped exact case {name} ({M}x{Kf}x{N}, "
+              f"plan {plan}): bit-equal to the int64 contraction",
+              flush=True)
+    return out
+
+
+def per_group_forward(torch, acc_g, xb, table, counters) -> dict:
+    """quant_per_group's forward (yolov8n at 160, W8A8, per-group scales)
+    on batch ``xb`` through ``table``: its launches (every conv #9, or
+    #7 where a conv's groups share no K tile), device and host issue ms
+    (``device_ms``, median of 5) and a ``torch.profiler`` split (the A8
+    kernels' summed time and count: #9 and its split reduce)."""
+    for c in counters.values():
+        c.reset()
+    acc_g.forward(xb, backend=table)
+    torch.cuda.synchronize()
+    launches = {k: c.value for k, c in counters.items() if c.value}
+    if launches.get("qmatmul_a8_grouped", 0) \
+            + launches.get("qmatmul", 0) != 63:
+        raise AssertionError(f"quant_per_group forward launched "
+                             f"{launches}")
+    dev, issue = device_ms(torch, lambda: acc_g.forward(xb, backend=table),
+                           reps=5)
+    prof = profile_call(torch, lambda: acc_g.forward(xb, backend=table),
+                        top=8, match="qmatmul_a8")
+    split = (f"kernels busy {prof['busy']:.3f} ms over {prof['kernels']} "
+             f"launches, of it {prof['match_ms']:.3f} ms in "
+             f"{prof['match_kernels']} A8 matmul kernels; top {prof['top']}"
+             if prof["busy"] is not None else "no kernel records")
+    print(f"[per_group_forward] launches {launches}; device {dev:.3f} ms, "
+          f"host issue {issue:.3f} ms; profiler: {split}", flush=True)
+    return {"launches": launches, "device_ms": dev, "issue_ms": issue,
+            "profile": prof}
 
 
 def a8_forward(torch, K, acc, xb, grid, counters) -> dict:
@@ -2348,8 +2507,9 @@ def main() -> int:
                     help="only one slice's reading, for a before/after "
                     "(copied into an older checkout, it reads that "
                     "checkout's kernels): stream, #4 and #5's cases and the "
-                    "fusion_off forward; a8, #8 and #10's cases and the "
-                    "W4A8 forward, grid and double; conv, #1 and #2's cases, "
+                    "fusion_off forward; a8, #8, #9 and #10's cases, the "
+                    "W4A8 forward, grid and double, and the per-group "
+                    "forward; conv, #1 and #2's cases, "
                     "the float forwards at 640 and 160, the split-K "
                     "ablation and a split conv's host issue by parts; "
                     "attn, #11's cases (and SDPA's) and a profiler split "
@@ -2425,7 +2585,11 @@ def main() -> int:
           f"(nvcc {' '.join(_build.NVCC_FLAGS[:2])}) in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     for line in info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        entry = line.partition("Compiling entry function '")[2]
+        if entry:       # the kernel (mangled, template arguments and all)
+            kernel = entry.split("'")[0]
+            print(f"[build] {kernel}")
+        elif "registers" in line or "spill" in line or line.startswith("=="):
             print(f"[build] {line.strip()}")
 
     # ---------------------------------------------------------------- 2
@@ -2450,21 +2614,80 @@ def main() -> int:
             torch, lm, registry, dev0))
         print(f"[card] {smi()}")
         return 0
+    # quant_per_group's design (yolov8n at 160, W8A8; its activation
+    # scales are calibrated per group in phase 3): its matmul launch
+    # shapes hold #9's later cases
+    model160 = yolo.build("yolov8n", 160)
+    fp160 = random_params(torch, codegen, model160.graph, 1)
+    acc_g = core.compile(model160, core.CompileConfig(
+        backend="quant", w_bits=8, a_bits=8, batch_size=BATCH),
+        params=fp160)
+    g_shapes = matmul_launch_shapes(codegen, acc_g.graph)
+
+    def drive(acc_, n_req, img, seed, backend=None):
+        for c in counters.values():
+            c.reset()
+        run = serve(Deployment, DetectRequest, ImageStream, acc_, n_req,
+                    img, seed, backend)
+        return run, {k: c.value for k, c in counters.items()}
+
+    def zero(**nonzero):
+        return {k: nonzero.get(k, 0) for k in counters}
+
+    def per_group_path():
+        """Path quant_per_group: the design recalibrated with per-group
+        scales on a batch of the image stream (another seed than the
+        one served), one batch served, ``a8_path_check``, and its
+        forward read (``per_group_forward``)."""
+        calib_g = torch.from_numpy(ImageStream(160, BATCH, seed=9).batch_at(
+            0)).to(acc_g.torch_device)
+        written = codegen.calibrate_activation_scales(
+            acc_g.graph, place(fp160, acc_g.torch_device), calib_g,
+            granularity="per_group", group_size=16)
+        (images_g, done_g, _, _), cg = drive(acc_g, BATCH, 160, 6,
+                                             backend="quant")
+        n_g, n_f = cg["qmatmul_a8_grouped"], cg["qmatmul"]
+        if n_g + n_f != 63 or n_g <= 0 or cg["conv2d"] or cg["qmatmul_a8"]:
+            raise AssertionError(f"quant_per_group launches {cg}")
+        # The grouped kernel sums int32 per K block and scales in float32,
+        # the plain version scales every feature first: the two differ in
+        # the last bits, which is what a8_path_check is built for.
+        a8_g = a8_path_check(torch, np, ImageStream, acc_g, quant_kern,
+                             quant_ref, done_g, images_g,
+                             [(20, 20, 144), (10, 10, 144), (5, 5, 144)],
+                             160, (6, 10, 11), "quant_per_group")
+        print(f"[quant_per_group] yolov8n@160 W8A8, {len(written)} convs "
+              f"recalibrated per group of 16 channels; launches {cg}; every "
+              f"conv within {KERNEL_TOL['qmatmul_a8_grouped']} of its plain "
+              f"version on the same input (max_abs_err "
+              f"{a8_g['layer_max_abs_err']:.3e}); end to end max_abs_err "
+              f"{a8_g['max_abs_err']:.3e}", flush=True)
+        fwd_g = per_group_forward(torch, acc_g, torch.from_numpy(
+            np.stack(images_g)).to(acc_g.torch_device), quant_kern,
+            counters)
+        return cg, a8_g, fwd_g
+
     if args.only == "a8":
         acc_4 = core.compile(model, core.CompileConfig(
             backend="quant", w_bits=4, a_bits=8, batch_size=BATCH),
             params=random_params(torch, codegen, model.graph, 0))
-        print("[kernels] #8 and #10 vs their plain versions on the card",
+        print("[kernels] #8, #9 and #10 vs their plain versions on the card",
               flush=True)
         per_kernel: dict = {}
         check_cases(torch, qmm_cases(
             torch, K, quant, dev0, matmul_launch_shapes(codegen, acc_4.graph),
-            kinds=("qmatmul_a8", "qmatmul_a8_double")), per_kernel)
+            kinds=("qmatmul_a8", "qmatmul_a8_double", "qmatmul_a8_grouped"),
+            g_shapes=g_shapes), per_kernel)
         sums = a8_sums(per_kernel)
+        exact = a8g_exact_check(torch, qmatmul, dev0)
         xb4 = torch.from_numpy(ImageStream(IMG, BATCH, seed=5).batch_at(0)
                                ).to(dev0)
-        write_out(per_kernel, sums=sums, w4a8_forward=a8_forward(
-            torch, K, acc_4, xb4, quant_kern, counters))
+        w4a8 = a8_forward(torch, K, acc_4, xb4, quant_kern, counters)
+        cg, a8_g, fwd_g = per_group_path()
+        write_out(per_kernel, sums=sums, w4a8_forward=w4a8,
+                  a8g_exact=exact, per_group={
+                      "launches": cg, "a8_path_check": a8_g,
+                      "forward": fwd_g})
         print(f"[card] {smi()}")
         return 0
     t0 = time.perf_counter()
@@ -2527,24 +2750,16 @@ def main() -> int:
     sums = stream_sums(per_kernel)
     split = issue_split(torch, K, _build, dev0)
     check_cases(torch, qmm_cases(torch, K, quant, dev0, matmul_launch_shapes(
-        codegen, acc_q.graph)) + lm_cases(torch, F, K, quant, dev0)
+        codegen, acc_q.graph), g_shapes=g_shapes)
+        + lm_cases(torch, F, K, quant, dev0)
         + ssd_cases(torch, F, K, dev0) + convs, per_kernel)
     sums_a8 = a8_sums(per_kernel)
+    exact_a8g = a8g_exact_check(torch, qmatmul, dev0)
     sums_conv = conv_sums(per_kernel)
     sums_attn = attn_sums(per_kernel)
     pointer = a8_pointer_check(torch, qmatmul, dev0)
 
     # ---------------------------------------------------------------- 3
-    def drive(acc_, n_req, img, seed, backend=None):
-        for c in counters.values():
-            c.reset()
-        run = serve(Deployment, DetectRequest, ImageStream, acc_, n_req,
-                    img, seed, backend)
-        return run, {k: c.value for k, c in counters.items()}
-
-    def zero(**nonzero):
-        return {k: nonzero.get(k, 0) for k in counters}
-
     (images, done, stats, wall), main_counts = drive(acc, N_REQ, IMG, 0)
     batches = stats["batches"]
     print(f"[main] served {stats['frames']} requests in {batches} batches "
@@ -2621,35 +2836,7 @@ def main() -> int:
           f"end max_abs_err {a8_4['max_abs_err']:.3e}; probe "
           f"{probes['quant_w4a8']}", flush=True)
 
-    # quant_per_group: W8A8 at 160, recalibrated with per-group scales
-    # on a batch of the image stream (another seed than the one served)
-    model160 = yolo.build("yolov8n", 160)
-    fp160 = random_params(torch, codegen, model160.graph, 1)
-    acc_g = core.compile(model160, core.CompileConfig(
-        backend="quant", w_bits=8, a_bits=8, batch_size=BATCH),
-        params=fp160)
-    calib_g = torch.from_numpy(ImageStream(160, BATCH, seed=9).batch_at(0)
-                               ).to(acc_g.torch_device)
-    written = codegen.calibrate_activation_scales(
-        acc_g.graph, place(fp160, acc_g.torch_device), calib_g,
-        granularity="per_group", group_size=16)
-    (images_g, done_g, _, _), cg = drive(acc_g, BATCH, 160, 6,
-                                         backend="quant")
-    n_g, n_f = cg["qmatmul_a8_grouped"], cg["qmatmul"]
-    if n_g + n_f != 63 or n_g <= 0 or cg["conv2d"] or cg["qmatmul_a8"]:
-        raise AssertionError(f"quant_per_group launches {cg}")
-    # The grouped kernel sums int32 per K block and scales in float32,
-    # the plain version scales every feature first: the two differ in
-    # the last bits, which is what a8_path_check is built for.
-    a8_g = a8_path_check(torch, np, ImageStream, acc_g, quant_kern,
-                         quant_ref, done_g, images_g, shapes160, 160,
-                         (6, 10, 11), "quant_per_group")
-    print(f"[quant_per_group] yolov8n@160 W8A8, {len(written)} convs "
-          f"recalibrated per group of 16 channels; launches {cg}; every "
-          f"conv within {KERNEL_TOL['qmatmul_a8_grouped']} of its plain "
-          f"version on the same input (max_abs_err "
-          f"{a8_g['layer_max_abs_err']:.3e}); end to end max_abs_err "
-          f"{a8_g['max_abs_err']:.3e}", flush=True)
+    cg, a8_g, fwd_g = per_group_path()
 
     # mixed: the per-layer wordlength search at 160, one batch
     t0 = time.perf_counter()
@@ -2840,6 +3027,8 @@ def main() -> int:
             "quant": {"w8a16_max_abs_err": err_q, "w8a16_max_abs_out":
                       scale_q, "w4a8": a8_4, "per_group": a8_g,
                       "mixed_max_abs_err": err_m, "probes": probes,
+                      "per_group_forward": fwd_g,
+                      "a8g_exact": exact_a8g,
                       "w8a16_forward_ms": fwd_q,
                       "w8a16_replica_step_spans_ms": spans_q},
             "double": {**double, "a8_sums": sums_a8,

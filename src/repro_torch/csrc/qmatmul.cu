@@ -16,9 +16,11 @@
 //     copied into shared-memory stages by cp.async, the TPU kernel's DMA
 //     double buffer;
 //   * repro_qmatmul_a8_grouped  <- `qmatmul_a8` with a per-K-run activation
-//     scale (_qmm_a8_grouped_kernel): the int32 sum of each K block of
-//     `tk` features is scaled by that block's f32 scale into f32
-//     accumulators; epilogue acc*wscale + xsum*(wzero*wscale).
+//     scale (_qmm_a8_grouped_kernel): the exact int32 sum of each K block
+//     of `tk` features, and of its row sums, scaled by that block's f32
+//     scale into f32 accumulators in block order; epilogue
+//     acc*wscale + xsum*(wzero*wscale); on #8's int8 tensor-core tile
+//     (see "#9" in that section).
 //
 // The TPU kernels walk a padded (M, K, N) grid with the K block as the
 // sequential grid axis and an accumulator in VMEM scratch. Here a block
@@ -31,11 +33,10 @@
 // nibble is padding when K is odd). Scale and zero are per tensor
 // (stride 0) or per column (stride 1).
 //
-// #8 and #10 run on the int8 tensor cores (mma.sync m16n8k32, int32
-// sums) with tiles sized to N and a split of K, one tile and epilogue for
-// both (their section). #9 (per-K-block scales): one 256-thread block
-// owns a 64 x 64 tile, every thread a 4 x 4 register tile of int32
-// accumulators on the CUDA cores, scaled into f32 at each block's end.
+// #8, #9 and #10 run on the int8 tensor cores (mma.sync m16n8k32, int32
+// sums) with tiles sized to N and a split of K, one tile template and
+// epilogue for the three (their section); #9 adds f32 accumulators that
+// take each K block's int32 sums times the block's scale.
 //
 // #7 on the tensor cores. TF32 keeps 11 significant bits, and every int8
 // or int4 code (|code| <= 128) is exact in it. Each x value is split into
@@ -98,26 +99,7 @@
 
 namespace {
 
-constexpr int BM = 64;         // rows (output pixels) per block
-constexpr int BN = 64;         // columns (filters) per block
-constexpr int THREADS = 256;
-
 enum CodeKind : int { CODES_INT8 = 0, CODES_INT16 = 1, CODES_PACKED4 = 2 };
-
-// Weight code of logical feature k (< K) and column n.
-template <int KIND>
-__device__ __forceinline__ int load_code(const void* __restrict__ q, int k,
-                                         int n, int N) {
-    if (KIND == CODES_INT16)
-        return static_cast<const int16_t*>(q)[k * N + n];
-    const int8_t* q8 = static_cast<const int8_t*>(q);
-    if (KIND == CODES_INT8) return q8[k * N + n];
-    const int8_t byte = q8[(k >> 1) * N + n];
-    // low nibble: shift left then arithmetic shift right; high: shift right
-    return (k & 1) ? (byte >> 4)
-                   : (static_cast<int8_t>(static_cast<uint8_t>(byte) << 4)
-                      >> 4);
-}
 
 // ---------------------------------------------------------------- #7
 // The tensor-core tile of the float x integer-codes product (the note at
@@ -675,8 +657,9 @@ cudaError_t launch_tc(const QmmArgs& a, int bm, int bn, bool x16,
     return cudaErrorInvalidValue;
 }
 
-// ---------------------------------------------------------------- #8, #10
-// The int8 x int8 product on the tensor cores, one tile for both kernels.
+// ---------------------------------------------------------------- #8, #10, #9
+// The int8 x int8 product on the tensor cores, one tile for the three
+// kernels.
 // A 256-thread block owns a BM x BN output tile (kernels/qmatmul.py
 // A8_TILES, _plan_a8: BN a multiple of 16 sized to N, split K where the
 // tiles are too few to fill the card) and loops over its K chunk in
@@ -751,6 +734,32 @@ cudaError_t launch_tc(const QmmArgs& a, int bm, int bn, bool x16,
 // division; the activation is a constant in the epilogue, a runtime
 // switch an output cost the stem a third of its time), a K-heavy one by
 // the two barriers a slice.
+//
+// #9 (per-K-block activation scales, SCALES != A8_TENSOR) is this tile
+// with a second set of accumulators: the TPU kernel's acc += s_b·dot_b
+// over blocks of tk features (any tk >= 8 that divides K; 16 on the
+// per-group path, 27 at its stem, 9 for runs of 9). Each k32 step is cut
+// at the block boundaries inside it into segments; a segment's MMAs read
+// A with the bytes outside it masked to zero (lane t's registers hold
+// features 4t..4t+3 and 16+4t..), so one MMA set a segment: one at
+// tk % 32 == 0, up to five at tk = 9. tk = 16 has its own instantiation
+// (A8_BLOCKS16): a step is two whole blocks, the A registers' halves,
+// contracted and folded in turn, straight-line code. A block's first
+// segment starts its MMAs from C = 0x4B400000, the bits of 1.5·2^23, so
+// that the int32 result d is a float 1.5·2^23 + sum exactly while
+// |sum| < 2^22 (tk < 256 int8 codes, < 4096 packed int4): at the block's
+// end d as a float less 1.5·2^23 is the exact sum, one FADD where a
+// conversion (I2F, a quarter of the FP32 rate) would be, and one FMA by
+// s_b adds it to the f32 accumulator, in block order. Larger tk start
+// from 0 and convert. The row sums take the same MMA against ones and
+// the same fold. The f32 sums beside the int32 ones take registers: #9's
+// tiles (kernels/qmatmul.py A8G_TILES) are half #8's, 16 + 16
+// accumulators a thread, and its K slices come in by cp.async as #10's
+// (#8's staging registers spilled). A split chunk starts at a block
+// boundary where the plan can (_plan_a8g: whole lcm(64, tk) feature
+// runs) and writes its f32 sums to a scratch that a second kernel adds
+// in split order; a chunk that ends inside a block folds it at its end.
+// The epilogue is #8's with x_scale 1: acc·wscale + xsum·(wzero·wscale).
 constexpr int A8_THREADS = 256;
 constexpr int A8_BK = REPRO_A8_BK;     // features a slice
 static_assert(A8_BK == 64, "a slice is two k32 steps; row strides below");
@@ -771,7 +780,10 @@ constexpr int A8_LDXSPAN = 112;
 template <int TBM, int TBN, bool PACKED, bool X16>
 struct A8Tile {
     static constexpr int GROUPS = TBN / 16;           // 16-column groups
-    static constexpr int WN = GROUPS % 2 == 0 && GROUPS >= 4 ? 2 : 1;
+    // warps along N: two where the groups pair up (four where BM < 64,
+    // so that a warp keeps 16 rows)
+    static constexpr int WN =
+        GROUPS % 2 == 0 && GROUPS >= 4 ? (TBM < 64 ? 4 : 2) : 1;
     static constexpr int WM = 8 / WN;                 // warps along M
     static constexpr int WTM = TBM / WM;              // a warp's rows
     static constexpr int G = GROUPS / WN;             // a warp's groups
@@ -813,13 +825,22 @@ struct A8Args {
     int M, K, N, act;
     int qvec;         // codes copied 16 bytes at a time
     int ovec;         // y, res and part written and read 16 bytes at a time
+    int per;          // slices a K chunk
+    // #9: one f32 activation scale a block of tk features; its int32
+    // sums folded through 1.5·2^23 (magic) or converted; the split's f32
+    // partial sums (splits, M, N) + (splits, M)
+    const float* sblk;
+    int tk;
+    int magic;
+    float* fpart;
 };
 
 // acc·sc + xsum·zs + bias -> act, its roundings pinned (the product
 // xsum·zs, then one fma) so that the tile's epilogue and the split reduce
 // give the same bits. The caller loads the column's scale, zero and bias
-// (has_b: b is given), once a column.
-__device__ __forceinline__ float a8_fold(int acc, int xsum, float sc,
+// (has_b: b is given), once a column. Acc: int (#8, #10) or float (#9).
+template <class Acc>
+__device__ __forceinline__ float a8_fold(Acc acc, Acc xsum, float sc,
                                          float zs, bool has_b, float bias,
                                          int act) {
     float v = __fmaf_rn(static_cast<float>(acc), sc,
@@ -829,9 +850,11 @@ __device__ __forceinline__ float a8_fold(int acc, int xsum, float sc,
 }
 
 // One output of #8 and #10: the fold of qmatmul.py:382-383 in its order
-// (scale = wscale * x_scale, then zero * scale), bias, act, residual.
-__device__ __forceinline__ float a8_output(const A8Args& a, int acc,
-                                           int xsum, int m, int n) {
+// (scale = wscale * x_scale, then zero * scale), bias, act, residual; #9's
+// with x_scale 1 (scale = wscale).
+template <class Acc>
+__device__ __forceinline__ float a8_output(const A8Args& a, Acc acc,
+                                           Acc xsum, int m, int n) {
     const float sc = a.wscale[n * a.scale_stride] * a.x_scale;
     const float zs = a.wzero[n * a.zero_stride] * sc;
     const float v = a8_fold(acc, xsum, sc, zs, a.b != nullptr,
@@ -1008,6 +1031,59 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d = a·b + c, every element of C the value c (#9: a block's first
+// segment, from 0 or from 1.5·2^23's bits).
+__device__ __forceinline__ void mma_s8_from(int (&d)[4],
+                                            const unsigned (&a)[4],
+                                            unsigned b0, unsigned b1, int c) {
+    asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+        : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "r"(c));
+}
+
+// The bytes j of a 4-byte A register at byte p of a k32 step with
+// lo <= p + j < hi: a segment's share of it (#9).
+__device__ __forceinline__ unsigned a8_seg_mask(int p, int lo, int hi) {
+    auto below = [](int n) {
+        return n >= 4 ? 0xFFFFFFFFu : n <= 0 ? 0u : (1u << (8 * n)) - 1u;
+    };
+    return below(hi - p) & ~below(lo - p);
+}
+
+// 1.5·2^23 as bits and as a float: an int32 d = A8G_MAGIC + v with
+// |v| < 2^22 is the float 1.5·2^23 + v, exactly.
+constexpr int A8G_MAGIC = 0x4B400000;
+constexpr float A8G_MAGIC_F = 12582912.0f;
+
+// #9: fold a block's int32 sums d and row sums x (rows g, g + 8: x[i][0],
+// x[i][2]) into the f32 sums by the block's scale s. MAGIC: d holds
+// 1.5·2^23's bits plus the sum (the MMAs began from them), so the float
+// less 1.5·2^23 is the sum, exactly; else d is the sum, converted.
+template <bool MAGIC, int FM, int FN>
+__device__ __forceinline__ void a8g_fold(float (&facc)[FM][FN][4],
+                                         float (&fxs)[FM][2],
+                                         const int (&d)[FM][FN][4],
+                                         const int (&x)[FM][4], float s) {
+    auto value = [](int v) {
+        return MAGIC ? __fsub_rn(__int_as_float(v), A8G_MAGIC_F)
+                     : __int2float_rn(v);
+    };
+#pragma unroll
+    for (int i = 0; i < FM; ++i) {
+#pragma unroll
+        for (int f = 0; f < FN; ++f)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                facc[i][f][e] = __fmaf_rn(value(d[i][f][e]), s,
+                                          facc[i][f][e]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+            fxs[i][h] = __fmaf_rn(value(x[i][2 * h]), s, fxs[i][h]);
+    }
+}
+
 // cp.async.wait_group with a count known only at run time (#10's
 // stages less two)
 __device__ __forceinline__ void cp_async_wait_n(int n) {
@@ -1022,10 +1098,18 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
     }
 }
 
-template <int TBM, int TBN, bool PACKED, bool X16, bool DOUBLE>
+// The activation scale of an instantiation: one (#8, #10), or one a K
+// block of any tk (#9), or of tk = 16 (#9 on the per-group path: a k32
+// step is two whole blocks, its A registers' halves).
+enum A8Scales : int { A8_TENSOR = 0, A8_BLOCKS = 1, A8_BLOCKS16 = 2 };
+
+template <int TBM, int TBN, bool PACKED, bool X16, bool DOUBLE,
+          int SCALES>
 __global__ void __launch_bounds__(A8_THREADS, A8_RESIDENT)
 qmatmul_a8_tc_kernel(const A8Args a, int splits, int xstage, int stages) {
     using T = A8Tile<TBM, TBN, PACKED, X16>;
+    constexpr bool GROUPED = SCALES != A8_TENSOR;
+    static_assert(!GROUPED || DOUBLE, "#9 stages its slices by cp.async");
     constexpr int FM = T::FM, FN = T::FN, G = T::G;
     extern __shared__ __align__(128) int8_t a8_smem[];
     int8_t* Xs = a8_smem;                          // [stages][xstage]
@@ -1041,7 +1125,7 @@ qmatmul_a8_tc_kernel(const A8Args a, int splits, int xstage, int stages) {
     const int n_tiles = (a.N + TBN - 1) / TBN;
     const int items = m_tiles * n_tiles * splits;
     const int k_tiles = (a.K + A8_BK - 1) / A8_BK;
-    const int per = (k_tiles + splits - 1) / splits;
+    const int per = a.per;
     const int qrows = PACKED ? (a.K + 1) / 2 : a.K;
     const bool flat = !X16 && a.K <= A8_BK;
     // one slice of K and one column tile: every item contracts the same
@@ -1159,6 +1243,13 @@ qmatmul_a8_tc_kernel(const A8Args a, int splits, int xstage, int stages) {
 
     int acc[FM][FN][4];
     int xs[FM][4];                    // row sums: [0] row g, [2] row g + 8
+    // #9: the f32 sums over folded blocks, and of the row sums (rows g,
+    // g + 8); g_fresh: acc holds no segment since the last fold; the
+    // current block and the feature where it ends
+    float facc[FM][FN][4];
+    float fxs[FM][2];
+    bool g_fresh = true;
+    int g_blk = 0, g_end = 0;
     int rb[FM][2];                    // this lane's rows' first byte
     // this lane's column 2g of the warp's first group, in Bt
     const int8_t* Bw = Bt + (wn * 16 * G + 2 * g) * A8_LDBT + 4 * t;
@@ -1198,6 +1289,136 @@ qmatmul_a8_tc_kernel(const A8Args a, int splits, int xstage, int stages) {
         }
     };
 
+    auto fold = [&](float s) {
+        if (a.magic)
+            a8g_fold<true>(facc, fxs, acc, xs, s);
+        else
+            a8g_fold<false>(facc, fxs, acc, xs, s);
+    };
+    // #9's steps: each k32 step cut into segments at the block boundaries
+    // inside it, A masked to the segment, one MMA set a segment; a
+    // block's first segment from C = 1.5·2^23's bits (or 0), a block's
+    // end folded by its scale
+    auto contract_g = [&](int slot, int kt) {
+        const int8_t* X = Xs + slot * xstage;
+        const int k0 = kt * A8_BK;
+        const int c0 = a.magic ? A8G_MAGIC : 0;
+#pragma unroll
+        for (int ks = 0; ks < A8_BK / 32; ++ks) {
+            const int kb = k0 + 32 * ks;
+            if (kb >= a.K) break;                   // a step past K
+            const int kend = min(kb + 32, a.K);
+            // B and the ones unmasked: A is masked to each segment, which
+            // ends at K
+            unsigned bf[FN][2];
+#pragma unroll
+            for (int f = 0; f < FN; ++f) {
+                const int8_t* p = Bw + (16 * (f / 2) + f % 2) * A8_LDBT
+                    + 32 * ks;
+                bf[f][0] = *reinterpret_cast<const unsigned*>(p);
+                bf[f][1] = *reinterpret_cast<const unsigned*>(p + 16);
+            }
+            unsigned av[FM][4];
+#pragma unroll
+            for (int i = 0; i < FM; ++i) {
+                const int c = 32 * ks + 4 * t;
+                av[i][0] = a8_lds_a<X16>(X, rb[i][0] + c);
+                av[i][1] = a8_lds_a<X16>(X, rb[i][1] + c);
+                av[i][2] = a8_lds_a<X16>(X, rb[i][0] + c + 16);
+                av[i][3] = a8_lds_a<X16>(X, rb[i][1] + c + 16);
+            }
+            for (int lo = kb; lo < kend;) {
+                const int hi = min(g_end, kend);
+                const float s = __ldg(a.sblk + g_blk);
+                const unsigned m0 = a8_seg_mask(4 * t, lo - kb, hi - kb);
+                const unsigned m1 = a8_seg_mask(16 + 4 * t, lo - kb,
+                                                hi - kb);
+                auto mmas = [&](auto fresh_c) {
+#pragma unroll
+                    for (int i = 0; i < FM; ++i) {
+                        const unsigned am[4] = {av[i][0] & m0, av[i][1] & m0,
+                                                av[i][2] & m1, av[i][3] & m1};
+#pragma unroll
+                        for (int f = 0; f < FN; ++f) {
+                            if constexpr (decltype(fresh_c)::value)
+                                mma_s8_from(acc[i][f], am, bf[f][0],
+                                            bf[f][1], c0);
+                            else
+                                mma_s8(acc[i][f], am, bf[f][0], bf[f][1]);
+                        }
+                        if constexpr (decltype(fresh_c)::value)
+                            mma_s8_from(xs[i], am, 0x01010101u, 0x01010101u,
+                                        c0);
+                        else
+                            mma_s8(xs[i], am, 0x01010101u, 0x01010101u);
+                    }
+                };
+                if (g_fresh)
+                    mmas(std::integral_constant<bool, true>());
+                else
+                    mmas(std::integral_constant<bool, false>());
+                g_fresh = hi == g_end;
+                if (g_fresh) {                      // the block ends
+                    fold(s);
+                    ++g_blk;
+                    g_end += a.tk;
+                }
+                lo = hi;
+            }
+        }
+    };
+    // #9 at tk = 16: a step's two blocks are its halves, lane t's A
+    // registers 0, 1 (features 4t..) and 2, 3 (16 + 4t..); each half's
+    // MMAs start from 1.5·2^23's bits, straight-line code, and the halves
+    // fold in order (a half past K, where K % 32 == 16, is not folded)
+    auto contract_g16 = [&](int slot, int kt) {
+        const int8_t* X = Xs + slot * xstage;
+        const int k0 = kt * A8_BK;
+#pragma unroll
+        for (int ks = 0; ks < A8_BK / 32; ++ks) {
+            const int kb = k0 + 32 * ks;
+            if (kb >= a.K) break;                   // a step past K
+            const float s0 = __ldg(a.sblk + kb / 16);
+            const bool two = kb + 16 < a.K;
+            const float s1 = two ? __ldg(a.sblk + kb / 16 + 1) : 0.0f;
+            unsigned bf[FN][2];
+#pragma unroll
+            for (int f = 0; f < FN; ++f) {
+                const int8_t* p = Bw + (16 * (f / 2) + f % 2) * A8_LDBT
+                    + 32 * ks;
+                bf[f][0] = *reinterpret_cast<const unsigned*>(p);
+                bf[f][1] = *reinterpret_cast<const unsigned*>(p + 16);
+            }
+            unsigned av[FM][4];
+#pragma unroll
+            for (int i = 0; i < FM; ++i) {
+                const int c = 32 * ks + 4 * t;
+                av[i][0] = a8_lds_a<X16>(X, rb[i][0] + c);
+                av[i][1] = a8_lds_a<X16>(X, rb[i][1] + c);
+                av[i][2] = a8_lds_a<X16>(X, rb[i][0] + c + 16);
+                av[i][3] = a8_lds_a<X16>(X, rb[i][1] + c + 16);
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                if (h == 1 && !two) break;
+                int d[FM][FN][4], x[FM][4];
+#pragma unroll
+                for (int i = 0; i < FM; ++i) {
+                    const unsigned am[4] = {
+                        h ? 0u : av[i][0], h ? 0u : av[i][1],
+                        h ? av[i][2] : 0u, h ? av[i][3] : 0u};
+#pragma unroll
+                    for (int f = 0; f < FN; ++f)
+                        mma_s8_from(d[i][f], am, bf[f][0], bf[f][1],
+                                    A8G_MAGIC);
+                    mma_s8_from(x[i], am, 0x01010101u, 0x01010101u,
+                                A8G_MAGIC);
+                }
+                a8g_fold<true>(facc, fxs, d, x, h ? s1 : s0);
+            }
+        }
+    };
+
     // epilogue from registers: lane t holds columns 4t..4t+3 of each group
     // for rows g and g + 8 of each m16 tile (column 4t + c is tile c % 2,
     // element c / 2 of the row's pair); the activation a constant, so
@@ -1229,26 +1450,43 @@ qmatmul_a8_tc_kernel(const A8Args a, int splits, int xstage, int stages) {
                 for (int h = 0; h < 2; ++h) {
                     const int m = m0 + wm * T::WTM + 16 * i + 8 * h + g;
                     if (m >= a.M) continue;
-                    const int v[4] = {acc[i][2 * gi][2 * h],
-                                      acc[i][2 * gi + 1][2 * h],
-                                      acc[i][2 * gi][2 * h + 1],
-                                      acc[i][2 * gi + 1][2 * h + 1]};
-                    const int xsum = xs[i][2 * h];
+                    using Acc = std::conditional_t<GROUPED, float, int>;
+                    Acc v[4], xsum;
+                    if constexpr (GROUPED) {
+                        v[0] = facc[i][2 * gi][2 * h];
+                        v[1] = facc[i][2 * gi + 1][2 * h];
+                        v[2] = facc[i][2 * gi][2 * h + 1];
+                        v[3] = facc[i][2 * gi + 1][2 * h + 1];
+                        xsum = fxs[i][h];
+                    } else {
+                        v[0] = acc[i][2 * gi][2 * h];
+                        v[1] = acc[i][2 * gi + 1][2 * h];
+                        v[2] = acc[i][2 * gi][2 * h + 1];
+                        v[3] = acc[i][2 * gi + 1][2 * h + 1];
+                        xsum = xs[i][2 * h];
+                    }
                     const size_t row = static_cast<size_t>(m) * a.N;
                     if (splits > 1) {
-                        int* dst = a.part + static_cast<size_t>(split) * a.M
+                        Acc* part = reinterpret_cast<Acc*>(
+                            GROUPED ? static_cast<void*>(a.fpart)
+                                    : static_cast<void*>(a.part));
+                        Acc* dst = part + static_cast<size_t>(split) * a.M
                             * a.N + row + n;
                         if (vec) {
-                            *reinterpret_cast<int4*>(dst) =
-                                make_int4(v[0], v[1], v[2], v[3]);
+                            if constexpr (GROUPED)
+                                *reinterpret_cast<float4*>(dst) =
+                                    make_float4(v[0], v[1], v[2], v[3]);
+                            else
+                                *reinterpret_cast<int4*>(dst) =
+                                    make_int4(v[0], v[1], v[2], v[3]);
                         } else {
 #pragma unroll
                             for (int c = 0; c < 4; ++c)
                                 if (n + c < a.N) dst[c] = v[c];
                         }
                         if (gi == 0 && t == 0 && wn == 0 && n0 == 0)
-                            a.part[static_cast<size_t>(splits) * a.M * a.N
-                                   + static_cast<size_t>(split) * a.M + m] =
+                            part[static_cast<size_t>(splits) * a.M * a.N
+                                 + static_cast<size_t>(split) * a.M + m] =
                                 xsum;
                         continue;
                     }
@@ -1345,6 +1583,19 @@ qmatmul_a8_tc_kernel(const A8Args a, int splits, int xstage, int stages) {
 #pragma unroll
                 for (int f = 0; f < FN; ++f) acc[i][f][e] = 0;
             }
+        if constexpr (GROUPED) {
+#pragma unroll
+            for (int i = 0; i < FM; ++i) {
+                fxs[i][0] = fxs[i][1] = 0.0f;
+#pragma unroll
+                for (int f = 0; f < FN; ++f)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) facc[i][f][e] = 0.0f;
+            }
+            g_fresh = true;
+            g_blk = kt0 * A8_BK / a.tk;
+            g_end = (g_blk + 1) * a.tk;
+        }
         for (int s = 0; s < n_t; ++s) {
             if constexpr (DOUBLE) {
                 cp_async_wait_n(stages - 2);  // slice landed (this thread)
@@ -1356,7 +1607,12 @@ qmatmul_a8_tc_kernel(const A8Args a, int splits, int xstage, int stages) {
                     __syncthreads();
                     transpose = !codes_fixed;
                 }
-                contract(slot, kt0 + s);
+                if constexpr (SCALES == A8_BLOCKS16)
+                    contract_g16(slot, kt0 + s);
+                else if constexpr (GROUPED)
+                    contract_g(slot, kt0 + s);
+                else
+                    contract(slot, kt0 + s);
                 slot = slot + 1 == stages ? 0 : slot + 1;
             } else {
                 if (transpose) {
@@ -1373,25 +1629,32 @@ qmatmul_a8_tc_kernel(const A8Args a, int splits, int xstage, int stages) {
                 slot ^= 1;
             }
         }
+        // #9: a chunk that ends inside a block folds it
+        if constexpr (GROUPED)
+            if (!g_fresh) fold(__ldg(a.sblk + g_blk));
         epilogue(it, m0, n0);
     }
     if constexpr (DOUBLE) cp_async_wait<0>();
 }
 
-// The split-K pass of #8 and #10: each output sums its int32 partials
-// and its row's partial row sums (exact in any order), then the epilogue.
+// The split-K pass of #8, #9 and #10: each output sums its partials and
+// its row's partial row sums in split order (int32 for #8 and #10, exact
+// in any order; f32 for #9, the same order every launch), then the
+// epilogue.
+template <class Acc>
 __global__ void __launch_bounds__(A8_THREADS)
-qmatmul_a8_split_reduce_kernel(const A8Args a, int splits) {
+qmatmul_a8_split_reduce_kernel(const A8Args a, const Acc* part,
+                               int splits) {
     const size_t mn = static_cast<size_t>(a.M) * a.N;
     const size_t i = static_cast<size_t>(blockIdx.x) * A8_THREADS
         + threadIdx.x;
     if (i >= mn) return;
     const int m = static_cast<int>(i / a.N);
     const int n = static_cast<int>(i % a.N);
-    const int* xs = a.part + splits * mn;
-    int acc = 0, xsum = 0;
+    const Acc* xs = part + splits * mn;
+    Acc acc = 0, xsum = 0;
     for (int s = 0; s < splits; ++s) {
-        acc += a.part[s * mn + i];
+        acc += part[s * mn + i];
         xsum += xs[static_cast<size_t>(s) * a.M + m];
     }
     a.y[i] = a8_output(a, acc, xsum, m, n);
@@ -1404,14 +1667,15 @@ qmatmul_a8_split_reduce_kernel(const A8Args a, int splits) {
 // device. A stage's x holds BM rows of 80 or 112 bytes, or the one range
 // of BM·K bytes where K <= A8_BK and x is copied by its blocks (and the
 // 68 bytes that the last row's reads may reach past it, rounded up).
-template <int TBM, int TBN, bool PACKED, bool X16, bool DOUBLE>
+template <int TBM, int TBN, bool PACKED, bool X16, bool DOUBLE,
+          int SCALES>
 cudaError_t launch_a8_tile(const A8Args& a, int splits,
                            cudaStream_t stream) {
     using T = A8Tile<TBM, TBN, PACKED, X16>;
     constexpr int SHARE = A8_SM_SMEM / A8_RESIDENT - A8_BLOCK_RESERVE;
     constexpr int MAX_DEVICES = 16;
     static int sms[MAX_DEVICES] = {};
-    auto kern = qmatmul_a8_tc_kernel<TBM, TBN, PACKED, X16, DOUBLE>;
+    auto kern = qmatmul_a8_tc_kernel<TBM, TBN, PACKED, X16, DOUBLE, SCALES>;
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return e;
@@ -1444,168 +1708,89 @@ cudaError_t launch_a8_tile(const A8Args& a, int splits,
     return cudaGetLastError();
 }
 
-// The compiled (BM, BN) table, REPRO_A8_TILES; kernels/qmatmul.py
-// _plan_a8 picks from it.
-template <bool PACKED, bool X16, bool DOUBLE>
+// The compiled (BM, BN) tables: REPRO_A8_TILES (#8, #10; kernels/
+// qmatmul.py _plan_a8 picks from it) and REPRO_A8G_TILES (#9, _plan_a8g).
+template <bool PACKED, bool X16, bool DOUBLE, int SCALES>
 cudaError_t launch_a8_table(const A8Args& a, int bm, int bn, int splits,
                             cudaStream_t s) {
 #define REPRO_A8_TILE(BM_, BN_)                                           \
     if (bm == BM_ && bn == BN_)                                           \
-        return launch_a8_tile<BM_, BN_, PACKED, X16, DOUBLE>(a, splits, s);
-    REPRO_A8_TILES
+        return launch_a8_tile<BM_, BN_, PACKED, X16, DOUBLE, SCALES>(     \
+            a, splits, s);
+    if constexpr (SCALES != A8_TENSOR) {
+        REPRO_A8G_TILES
+    } else {
+        REPRO_A8_TILES
+    }
 #undef REPRO_A8_TILE
     return cudaErrorInvalidValue;
 }
 
-// #8 (DOUBLE false) or #10: the tile, then the split reduce.
-template <bool DOUBLE>
-int launch_a8(const int8_t* xq, const int8_t* q, int packed,
-              const float* wscale, int scale_stride, const float* wzero,
-              int zero_stride, float x_scale, const float* b,
-              const float* res, float* y, int M, int K, int N, int act,
-              int bm, int bn, int splits, int* ws, cudaStream_t stream) {
-    if (splits < 1 || (splits > 1 && ws == nullptr))
+// #8, #9 or #10 (DOUBLE: cp.async stages; SCALES: #9's per-block
+// scales): the tile, then the split reduce. a.per is the chunk's slices.
+template <bool DOUBLE, int SCALES>
+int launch_a8(A8Args a, bool packed, int bm, int bn, int splits, void* ws,
+              cudaStream_t stream) {
+    constexpr bool GROUPED = SCALES != A8_TENSOR;
+    const int k_tiles = (a.K + A8_BK - 1) / A8_BK;
+    if (splits < 1 || a.per < 1 || (splits - 1) * a.per >= k_tiles
+        || splits * a.per < k_tiles || (splits > 1 && ws == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     auto aligned = [](const void* p) {
         return reinterpret_cast<uintptr_t>(p) % 16 == 0;
     };
-    const A8Args a{xq, q, wscale, scale_stride, wzero, zero_stride, x_scale,
-                   b, res, y, splits > 1 ? ws : nullptr, M, K, N, act,
-                   N % 16 == 0 && aligned(q),
-                   N % 4 == 0 && aligned(y)
-                       && (res == nullptr || aligned(res))
-                       && (splits == 1 || aligned(ws))};
-    const bool x16 = K % 16 == 0 && aligned(xq);
+    a.part = !GROUPED && splits > 1 ? static_cast<int*>(ws) : nullptr;
+    a.fpart = GROUPED && splits > 1 ? static_cast<float*>(ws) : nullptr;
+    a.qvec = a.N % 16 == 0 && aligned(a.q);
+    a.ovec = a.N % 4 == 0 && aligned(a.y)
+        && (a.res == nullptr || aligned(a.res))
+        && (splits == 1 || aligned(ws));
+    const bool x16 = a.K % 16 == 0 && aligned(a.x);
     cudaError_t e;
     if (packed)
-        e = x16 ? launch_a8_table<true, true, DOUBLE>(a, bm, bn, splits,
-                                                      stream)
-                : launch_a8_table<true, false, DOUBLE>(a, bm, bn, splits,
-                                                       stream);
+        e = x16 ? launch_a8_table<true, true, DOUBLE, SCALES>(
+                      a, bm, bn, splits, stream)
+                : launch_a8_table<true, false, DOUBLE, SCALES>(
+                      a, bm, bn, splits, stream);
     else
-        e = x16 ? launch_a8_table<false, true, DOUBLE>(a, bm, bn, splits,
-                                                       stream)
-                : launch_a8_table<false, false, DOUBLE>(a, bm, bn, splits,
-                                                        stream);
+        e = x16 ? launch_a8_table<false, true, DOUBLE, SCALES>(
+                      a, bm, bn, splits, stream)
+                : launch_a8_table<false, false, DOUBLE, SCALES>(
+                      a, bm, bn, splits, stream);
     if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-    const long long mn = static_cast<long long>(M) * N;
-    qmatmul_a8_split_reduce_kernel<<<
-        static_cast<unsigned>((mn + A8_THREADS - 1) / A8_THREADS),
-        A8_THREADS, 0, stream>>>(a, splits);
+    const long long mn = static_cast<long long>(a.M) * a.N;
+    const unsigned grid =
+        static_cast<unsigned>((mn + A8_THREADS - 1) / A8_THREADS);
+    if constexpr (GROUPED)
+        qmatmul_a8_split_reduce_kernel<float><<<grid, A8_THREADS, 0,
+                                                stream>>>(a, a.fpart, splits);
+    else
+        qmatmul_a8_split_reduce_kernel<int><<<grid, A8_THREADS, 0,
+                                              stream>>>(a, a.part, splits);
     return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------- #9
-constexpr int BK_G = 32;
-
-template <bool PACKED>
-__global__ void __launch_bounds__(THREADS)
-qmatmul_a8_grouped_kernel(const int8_t* __restrict__ xq,
-                          const int8_t* __restrict__ q,
-                          const float* __restrict__ sblk, int tk,
-                          const float* __restrict__ wscale, int scale_stride,
-                          const float* __restrict__ wzero, int zero_stride,
-                          const float* __restrict__ b,
-                          const float* __restrict__ res,
-                          float* __restrict__ y, int M, int K, int N,
-                          int act) {
-    __shared__ int As[BK_G][BM + 1];
-    __shared__ int Bs[BK_G][BN];
-
-    const int tid = threadIdx.x;
-    const int tx = tid % 16;
-    const int ty = tid / 16;
-    const int m0 = blockIdx.x * BM;
-    const int n0 = blockIdx.y * BN;
-    const int ak = tid % BK_G;
-    const int bn = n0 + tid % BN;
-
-    int acc[4][4];                    // int32 sum within the current block
-    int xs[4];
-    float facc[4][4];                 // sum over blocks of s_b * block sum
-    float fxs[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        xs[i] = 0;
-        fxs[i] = 0.0f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            acc[i][j] = 0;
-            facc[i][j] = 0.0f;
-        }
-    }
-
-    int blk = 0;                      // current K block (of tk features)
-    int left = tk;                    // features left in it
-    for (int k0 = 0; k0 < K; k0 += BK_G) {
-        const int k = k0 + ak;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-            const int r = tid / BK_G + 8 * i;
-            const int m = m0 + r;
-            As[ak][r] = (m < M && k < K) ? xq[m * K + k] : 0;
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-            const int kr = tid / BN + 4 * i;
-            const int kb = k0 + kr;
-            Bs[kr][tid % BN] = (kb < K && bn < N)
-                ? load_code<PACKED ? CODES_PACKED4 : CODES_INT8>(q, kb, bn, N)
-                : 0;
-        }
-        __syncthreads();
-        const int kmax = min(BK_G, K - k0);
-        for (int kk = 0; kk < kmax; ++kk) {
-            int a[4], bv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                xs[i] += a[i];
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * bv[j];
-            }
-            if (--left == 0) {        // block boundary: same k for all
-                const float s = sblk[blk++];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    fxs[i] += s * static_cast<float>(xs[i]);
-                    xs[i] = 0;
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) {
-                        facc[i][j] += s * static_cast<float>(acc[i][j]);
-                        acc[i][j] = 0;
-                    }
-                }
-                left = tk;
-            }
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int m = m0 + ty + 16 * i;
-        if (m >= M) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int n = n0 + tx + 16 * j;
-            if (n >= N) continue;
-            const float sc = wscale[n * scale_stride];
-            const float zs = wzero[n * zero_stride] * sc;
-            float v = facc[i][j] * sc + fxs[i] * zs;
-            if (b != nullptr) v += b[n];
-            v = apply_act(v, act);
-            if (res != nullptr) v += res[m * N + n];
-            y[m * N + n] = v;
-        }
-    }
-}
-
-inline dim3 grid_for(int M, int N) {
-    return dim3((M + BM - 1) / BM, (N + BN - 1) / BN);
+// The arguments #8, #9 and #10 share.
+A8Args a8_args(const int8_t* xq, const int8_t* q, const float* wscale,
+               int scale_stride, const float* wzero, int zero_stride,
+               float x_scale, const float* b, const float* res, float* y,
+               int M, int K, int N, int act) {
+    A8Args a{};
+    a.x = xq;
+    a.q = q;
+    a.wscale = wscale;
+    a.scale_stride = scale_stride;
+    a.wzero = wzero;
+    a.zero_stride = zero_stride;
+    a.x_scale = x_scale;
+    a.b = b;
+    a.res = res;
+    a.y = y;
+    a.M = M;
+    a.K = K;
+    a.N = N;
+    a.act = act;
+    return a;
 }
 
 }  // namespace
@@ -1657,9 +1842,11 @@ extern "C" int repro_qmatmul_a8(
         float x_scale, const float* b, const float* res, float* y, int M,
         int K, int N, int act, int bm, int bn, int splits, int* ws,
         cudaStream_t stream) {
-    return launch_a8<false>(xq, q, packed, wscale, scale_stride, wzero,
-                            zero_stride, x_scale, b, res, y, M, K, N, act,
-                            bm, bn, splits, ws, stream);
+    A8Args a = a8_args(xq, q, wscale, scale_stride, wzero, zero_stride,
+                       x_scale, b, res, y, M, K, N, act);
+    a.per = splits < 1 ? 0 : ((K + A8_BK - 1) / A8_BK + splits - 1) / splits;
+    return launch_a8<false, A8_TENSOR>(a, packed != 0, bm, bn, splits, ws,
+                                       stream);
 }
 
 extern "C" int repro_qmatmul_a8_double(
@@ -1668,25 +1855,37 @@ extern "C" int repro_qmatmul_a8_double(
         float x_scale, const float* b, const float* res, float* y, int M,
         int K, int N, int act, int bm, int bn, int splits, int* ws,
         cudaStream_t stream) {
-    return launch_a8<true>(xq, q, packed, wscale, scale_stride, wzero,
-                           zero_stride, x_scale, b, res, y, M, K, N, act,
-                           bm, bn, splits, ws, stream);
+    A8Args a = a8_args(xq, q, wscale, scale_stride, wzero, zero_stride,
+                       x_scale, b, res, y, M, K, N, act);
+    a.per = splits < 1 ? 0 : ((K + A8_BK - 1) / A8_BK + splits - 1) / splits;
+    return launch_a8<true, A8_TENSOR>(a, packed != 0, bm, bn, splits, ws,
+                                      stream);
 }
 
+// #9: sblk holds one scale a block of tk features (K % tk == 0); the plan
+// (kernels/qmatmul.py _plan_a8g) gives the tile, the splits and the
+// slices a chunk; ws the f32 scratch of a split, splits·M·(N + 1). K
+// slices come in by cp.async, as #10's (through registers, as #8's, the
+// f32 sums beside the int32 ones spilled and read slower).
 extern "C" int repro_qmatmul_a8_grouped(
         const int8_t* xq, const int8_t* q, int packed, const float* sblk,
         int tk, const float* wscale, int scale_stride, const float* wzero,
         int zero_stride, const float* b, const float* res, float* y, int M,
-        int K, int N, int act, cudaStream_t stream) {
-    if (tk <= 0 || K % tk != 0) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid = grid_for(M, N);
-    if (packed)
-        qmatmul_a8_grouped_kernel<true><<<grid, THREADS, 0, stream>>>(
-            xq, q, sblk, tk, wscale, scale_stride, wzero, zero_stride, b,
-            res, y, M, K, N, act);
-    else
-        qmatmul_a8_grouped_kernel<false><<<grid, THREADS, 0, stream>>>(
-            xq, q, sblk, tk, wscale, scale_stride, wzero, zero_stride, b,
-            res, y, M, K, N, act);
-    return static_cast<int>(cudaGetLastError());
+        int K, int N, int act, int bm, int bn, int splits, int per,
+        float* ws, cudaStream_t stream) {
+    if (tk <= 0 || K % tk != 0 || sblk == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+    A8Args a = a8_args(xq, q, wscale, scale_stride, wzero, zero_stride,
+                       1.0f, b, res, y, M, K, N, act);
+    a.per = per;
+    a.sblk = sblk;
+    a.tk = tk;
+    // |a block's sum| < 2^22: 2^14 a product of int8 codes, 2^10 of int4
+    a.magic = static_cast<long long>(tk) * (packed ? 1024 : 16384)
+        < (1LL << 22);
+    return tk == 16
+        ? launch_a8<true, A8_BLOCKS16>(a, packed != 0, bm, bn, splits, ws,
+                                       stream)
+        : launch_a8<true, A8_BLOCKS>(a, packed != 0, bm, bn, splits, ws,
+                                     stream);
 }

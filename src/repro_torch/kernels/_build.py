@@ -55,7 +55,7 @@ _SIGNATURES = {
     "repro_qmatmul_a8_double": [_P, _P, _I, _P, _I, _P, _I, _F, _P, _P,
                                 _P] + [_I] * 7 + [_P, _P],
     "repro_qmatmul_a8_grouped": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P,
-                                 _P, _P] + [_I] * 4 + [_P],
+                                 _P, _P] + [_I] * 8 + [_P, _P],
     "repro_rmsnorm_f32": [_P, _P, _P, _LL, _I, _F, _I, _P],
     "repro_mha_f32": [_P] * 4 + [_I] * 8 + [_F, _F] + [_I] * 4 + [_P, _P],
     "repro_decode_attention_f32": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
@@ -124,8 +124,9 @@ def _nvcc() -> str:
 def generated_headers() -> dict[str, str]:
     """Headers the sources include that are written from Python at
     build time: ``qmm_tiles.h``, the K stage and compiled (BM, BN) tiles
-    of kernel #7 and of kernels #8/#10, from ``kernels/qmatmul.py``
-    (``_BK``, ``TILES``; ``_A8_BK``, ``A8_TILES``), and ``conv_tiles.h``,
+    of kernel #7, of kernels #8/#10 and of kernel #9, from
+    ``kernels/qmatmul.py`` (``_BK``, ``TILES``; ``_A8_BK``, ``A8_TILES``;
+    ``A8G_TILES``), and ``conv_tiles.h``,
     the slice depth and tiles of kernels #1/#2, from ``kernels/conv2d.py``
     (``_CONV_BK``, ``CONV_TILES``), and ``attn_tiles.h``, the (BQ, BK,
     stages) of kernel #11 at each head width, from
@@ -134,9 +135,10 @@ def generated_headers() -> dict[str, str]:
     # imported late: these modules import us
     from .attention import ATTN_TILES
     from .conv2d import CONV_TILES, _CONV_BK
-    from .qmatmul import A8_TILES, TILES, _A8_BK, _BK
+    from .qmatmul import A8_TILES, A8G_TILES, TILES, _A8_BK, _BK
     tiles = " ".join(f"REPRO_TILE({bm}, {bn})" for bm, bn in TILES)
     a8 = " ".join(f"REPRO_A8_TILE({bm}, {bn})" for bm, bn in A8_TILES)
+    a8g = " ".join(f"REPRO_A8_TILE({bm}, {bn})" for bm, bn in A8G_TILES)
     conv = " ".join(f"REPRO_CONV_TILE({bm}, {bn})" for bm, bn in CONV_TILES)
     attn = " ".join(f"REPRO_ATTN_TILE({d}, {bq}, {bk}, {st})"
                     for d, (bq, bk, st) in sorted(ATTN_TILES.items()))
@@ -144,7 +146,8 @@ def generated_headers() -> dict[str, str]:
             f"#define REPRO_QMM_BK {_BK}\n"
             f"#define REPRO_QMM_TILES {tiles}\n"
             f"#define REPRO_A8_BK {_A8_BK}\n"
-            f"#define REPRO_A8_TILES {a8}\n",
+            f"#define REPRO_A8_TILES {a8}\n"
+            f"#define REPRO_A8G_TILES {a8g}\n",
             "conv_tiles.h": "#pragma once\n"
             f"#define REPRO_CONV_BK {_CONV_BK}\n"
             f"#define REPRO_CONV_TILES {conv}\n",

@@ -27,7 +27,9 @@ more), its tile and split of K planned by :func:`_plan`. #8 and #10 run
 on the int8 tensor cores with int32 sums, their tile and split of K
 planned by :func:`_plan_a8`; they take x and the codes as the caller
 gives them, any K and any byte offset (no padded copy), and differ only
-in how a K slice reaches shared memory.
+in how a K slice reaches shared memory. #9 runs on their tile with f32
+accumulators beside the int32 ones, its tile and split of K (at block
+boundaries) planned by :func:`_plan_a8g`.
 
 On a CUDA tensor each wrapper launches its kernel of ``csrc/qmatmul.cu``
 and counts the launch on its own ``launches`` attribute; on a CPU tensor
@@ -126,6 +128,40 @@ def _plan_a8(M: int, K: int, N: int,
     bm, bn = pick_tile(A8_TILES, N)
     return bm, bn, split_k(-(-M // bm) * -(-N // bn), -(-K // _A8_BK),
                            _RESIDENT * sms, max(1, K // (4 * N)))
+
+
+# Kernel #9 (per-K-block activation scales) on #8's tile: the (BM, BN)
+# csrc/qmatmul.cu compiles for it (written into the same header as
+# REPRO_A8G_TILES). Each is 4096 outputs, a warp's 512 (16 int32 and 16
+# f32 accumulators a thread): #8's tiles of twice that spill under
+# the 128 registers of two blocks an SM once the f32 sums sit beside
+# the int32 ones.
+A8G_TILES = ((256, 16), (128, 32), (64, 64), (32, 128))
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_a8g(M: int, K: int, N: int, tk: int,
+              sms: int = _H100_SMS) -> tuple[int, int, int, int]:
+    """(BM, BN, splits, per) of kernel #9 for an (M, K) x (K, N) int8
+    product whose activation scale is one a block of ``tk`` features
+    (``tk`` divides K), on a card of ``sms`` streaming multiprocessors;
+    ``per`` is the slices of ``_A8_BK`` features a K chunk.
+
+    The tile is :func:`_plan_a8`'s rule over ``A8G_TILES``. K is split
+    as #8's (:func:`repro_torch.kernels._build.split_k`, at most K / 4N
+    chunks: the f32 partial sums, 4·M·N bytes a chunk, stay below x's
+    M·K), but in units of lcm(``_A8_BK``, ``tk``) features, so that every
+    chunk starts and ends at a block boundary and folds whole blocks;
+    where K holds one such unit, K is not split. The same inputs give
+    the same plan, so the same bits."""
+    bm, bn = pick_tile(A8G_TILES, N)
+    k_tiles = -(-K // _A8_BK)
+    unit = math.lcm(_A8_BK, tk) // _A8_BK               # slices a unit
+    units = -(-k_tiles // unit)
+    s = split_k(-(-M // bm) * -(-N // bn), units, _RESIDENT * sms,
+                max(1, K // (4 * N)))
+    per = min(-(-units // s) * unit, k_tiles)
+    return bm, bn, -(-k_tiles // per), per
 
 
 def _check_shapes(x: torch.Tensor, q: torch.Tensor, w_packed: bool,
@@ -282,7 +318,12 @@ def qmatmul_a8_grouped(xq: torch.Tensor, q: torch.Tensor, scale, zero,
     """Per-group activation scales: ``x_scale`` is a per-K-feature tuple
     whose runs align to a K tile of at least 8 (``_group_tile``);
     raises ``ValueError`` when they do not (``qmatmul_a8`` then takes
-    the float kernel). Returns (M, N) f32."""
+    the float kernel). Returns (M, N) f32.
+
+    On a CUDA tensor: kernel #9 on the int8 tensor cores, exact int32
+    sums a block of the aligned tile, each scaled into f32 in block
+    order, with the tile, split and chunks of :func:`_plan_a8g`; ``xq``
+    is read where it lies (any K, any byte offset)."""
     M, K, N = _check_shapes(xq, q, w_packed)
     xs = _scale_tuple(x_scale, K)
     if not xq.is_cuda:
@@ -304,9 +345,15 @@ def qmatmul_a8_grouped(xq: torch.Tensor, q: torch.Tensor, scale, zero,
     rp = _optional("res", res, dev, (M, N))
     y = torch.empty((M, N), device=dev, dtype=torch.float32)
     check_operand("y", y, dev)
+    bm, bn, splits, per = _plan_a8g(M, K, N, tkg, sm_count(dev))
+    # split K: the f32 partial sums (splits, M, N), then the partial row
+    # sums (splits, M), summed in split order by the second pass
+    ws = torch.empty(splits * M * (N + 1), device=dev, dtype=torch.float32
+                     ) if splits > 1 else None
     launch("repro_qmatmul_a8_grouped", dev, xq.data_ptr(), q.data_ptr(),
            int(w_packed), sb.data_ptr(), tkg, s.data_ptr(), ss,
-           z.data_ptr(), zs, bp, rp, y.data_ptr(), M, K, N, code)
+           z.data_ptr(), zs, bp, rp, y.data_ptr(), M, K, N, code, bm, bn,
+           splits, per, None if ws is None else ws.data_ptr())
     qmatmul_a8_grouped.launches.add()
     return y
 
