@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--out FILE.json] [--only stream|a8|conv|attn]
+    python3 chip_smoke.py [--out FILE.json] [--only stream|a8|conv|attn|ssd]
 
 Phases, each printed as it runs; any failure raises and the script exits
 non-zero:
@@ -167,12 +167,21 @@ non-zero:
    prefill: mamba2 49 rmsnorm + 24 ssd_scan, zamba2 91 rmsnorm + 7 mha +
    38 ssd_scan; per decode step mamba2 49 rmsnorm, zamba2 91 rmsnorm + 7
    decode_attention (the one-token recurrence is plain tensor code, as
-   in the JAX package). The SSD kernel (``csrc/ssd_scan.cu``) is held
-   against ``ref.ssd_chunked`` in phase 2 at mamba2's and zamba2's
-   prefill at 2048, a batch of 4 at a ragged 509 and with an initial
-   state (SSD_CASES; no PyTorch call computes an SSD scan, so its
-   library time is "n/a"), and the attention kernels at zamba2's head
-   width 64 (MHA_CASES, DEC_CASES).
+   in the JAX package). The SSD kernel (``csrc/ssd_scan.cu``, the
+   chunk-parallel SSD on the TF32 tensor cores: two or three passes a
+   call, counted as one launch) is held against ``ref.ssd_chunked`` in
+   phase 2 at mamba2's and zamba2's prefill at 2048, a batch of 4 at a
+   ragged 509, with an initial state, and at two groups (SSD_CASES; no
+   PyTorch call computes an SSD scan, so its library time is "n/a");
+   each case prints its plan (chunk, heads a block), launches twice,
+   bit-equal, is read both ways (``BOTH_WAYS``) and is bound by the
+   function's own need (three TF32 products for each FLOP of the
+   chunked algorithm at its least-work chunk; x, dt, A, B, C, h0, y and
+   the final state once: ``ssd_least_work``), the fp32 least-work bound
+   and the route's chunk-state bytes (``ssd_state_bytes``) printed
+   beside it; the sums print on a line of their own (``ssd_sums``).
+   The attention kernels are also held at zamba2's head width 64
+   (MHA_CASES, DEC_CASES).
 7. A JSON line listing all 13 kernels (``launches`` is the count on
    the path that runs it: ``main`` for conv, maxpool and resize,
    ``fusion_off`` for pointwise, ``quant_w8a16`` for qmatmul,
@@ -195,7 +204,12 @@ calibrated activation scales from the plain path's (``calib_drift``);
 ``--only attn`` for #11's cases with SDPA's (``attn_sums``) and a
 ``torch.profiler`` split of one granite-3-8b prefill at 2048, full width
 and depth: mha kernel time and launches, GEMM, the rest
-(``attn_prefill_split``).
+(``attn_prefill_split``); ``--only ssd`` for #13's cases (``ssd_sums``)
+and mamba2-130m prefills at SSD_PREFILLS' lengths and zamba2-1.2b's at
+2048, full width and depth: wall and host issue per prefill over
+PREFILL_CALLS calls, and a ``torch.profiler`` split, ssd_scan kernel
+time and launches (its passes counted apart), GEMM, the rest
+(``ssd_prefill_split``).
 
 Needs one CUDA card; exits non-zero without one, and in a directory that
 does not hold the repository's ``src/repro_torch``.
@@ -205,6 +219,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -240,9 +255,11 @@ A8_TOL = 16 * 2.0 ** -8
 QMM_PASSES = {False: 2, True: 4}
 # #1's and #2's: both operands split, three TF32 products (csrc/conv2d.cu);
 # their bound is by that route, the fp32 one printed beside it. #11's
-# likewise, for both of its products (csrc/attention.cu).
+# likewise, for both of its products (csrc/attention.cu), and #13's for
+# its four (csrc/ssd_scan.cu).
 CONV_PASSES = 3
 MHA_PASSES = 3
+SSD_PASSES = 3
 # Paths whose design quantizes activations to 8 bits are also read end
 # to end on three input batches (the first is the one served) and may
 # land up to this many times the plain path's own one-ulp spread from
@@ -254,8 +271,9 @@ A8_SPREAD = 2.0
 # ways, device time and host issue per call, over this many calls (#3
 # too: its short cases are the next candidate for a redesign; #1 and #2
 # through ``conv_cases``' own flag, as #7-#10 through ``qmm_cases``';
-# #11's cases, and SDPA beside them, through ``check_cases``).
-BOTH_WAYS = ("pointwise", "resize_nearest", "maxpool2d", "mha")
+# #11's and #13's cases, SDPA beside #11's, through ``check_cases``).
+BOTH_WAYS = ("pointwise", "resize_nearest", "maxpool2d", "mha",
+             "ssd_scan")
 BOTH_WAYS_CALLS = 50
 # FLOPs per element of each activation (for the pointwise bound).
 ACT_FLOPS = {"identity": 0, "none": 0, "relu": 1, "leaky_relu": 2,
@@ -377,14 +395,21 @@ DEC_CASES = {
                             None),
 }
 # (Bt, T, H, P, G, N, initial state) of the SSD cases: mamba2-130m's and
-# zamba2-1.2b's prefill at 2048, a batch of 4 at a ragged 509, and a
-# state handed over (h0) at mamba2's width.
+# zamba2-1.2b's prefill at 2048, a batch of 4 at a ragged 509, a state
+# handed over (h0) at mamba2's width, and mamba2's widths over two groups
+# of 12 heads (head h reading group h // 12).
 SSD_CASES = {
     "mamba2_T2048": (1, 2048, 24, 64, 1, 128, False),
     "zamba2_T2048": (1, 2048, 64, 64, 1, 64, False),
     "mamba2_B4_T509_ragged": (4, 509, 24, 64, 1, 128, False),
     "mamba2_B2_T768_h0": (2, 768, 24, 64, 1, 128, True),
+    "mamba2_G2_T1024": (1, 1024, 24, 64, 2, 128, False),
 }
+# The LM prefills read by ``--only ssd`` (``ssd_prefill_split``): each
+# arch's prompt lengths (mamba2's up to 1,024 tokens are host-bound), and
+# the calls of each read on the host clock.
+SSD_PREFILLS = {"mamba2-130m": (512, 1024, 2048), "zamba2-1.2b": (2048,)}
+PREFILL_CALLS = 21
 
 
 def smi() -> str:
@@ -1076,39 +1101,155 @@ def ssd_least_work(Bt: int, T: int, H: int, P: int, G: int, N: int,
     return (best, *ssd_work(Bt, T, H, P, G, N, h0, best))
 
 
-def ssd_cases(torch, F, K, dev):
-    """The SSD kernel's cases (SSD_CASES) in ``qmm_cases``' form, against
-    ``ref.ssd_chunked``: x, B, C unit normals, dt = softplus of one, A =
-    -linspace(1, 16, H) (the models' ``-exp(A_log)``). The bound counts
-    the least work of the chunked algorithm (``ssd_least_work``); the
-    work at the kernel's own chunk (64) and the configs' (256) is printed
-    beside it. No PyTorch call computes an SSD scan: no library
-    yardstick."""
-    gen = torch.Generator(device=dev).manual_seed(3)
+def ssd_state_bytes(Bt: int, T: int, H: int, N: int, P: int,
+                    chunk: int) -> int:
+    """Bytes of csrc/ssd_scan.cu's chunk states at ``chunk``: their four
+    passes through device memory where there is more than one chunk
+    (pass 1 writes nc of them, pass 2 reads nc and writes nc - 1, pass 3
+    reads nc - 1). The route moves them; the function does not need
+    them, so they are printed beside the bound, not counted in it."""
+    nc = -(-T // chunk)
+    return 4 * (4 * nc - 2) * Bt * H * N * P if nc > 1 else 0
 
+
+def ssd_plan(mod, dev, Bt: int, T: int, H: int, P: int, G: int,
+             N: int) -> dict | None:
+    """#13's chunk (``ssd_scan.SSD_CHUNK``) and heads a block
+    (``ssd_scan._plan``) at a case's shape on ``dev``'s card, or None in
+    a checkout from before that planner (an ``--only`` run there)."""
+    fn = getattr(mod, "_plan", None)
+    if fn is None:
+        return None
+    return {"chunk": mod.SSD_CHUNK,
+            "heads": fn(Bt, T, H, P, G, N, mod.sm_count(dev))}
+
+
+def ssd_inputs(torch, F, dev, Bt, T, H, P, G, N, with_h0, gen):
+    """x, B, C unit normals, dt = softplus of one, A = -linspace(1, 16,
+    H) (the models' ``-exp(A_log)``), h0 a unit normal or None."""
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
+    x, dt = rnd(Bt, T, H, P), F.softplus(rnd(Bt, T, H))
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    B, C = rnd(Bt, T, G, N), rnd(Bt, T, G, N)
+    return x, dt, A, B, C, rnd(Bt, H, N, P) if with_h0 else None
+
+
+def ssd_cases(torch, F, K, dev):
+    """The SSD kernel's cases (SSD_CASES) in ``qmm_cases``' form, against
+    ``ref.ssd_chunked`` (inputs from ``ssd_inputs``). The bound is the
+    function's own: the chunked algorithm's least work
+    (``ssd_least_work``), three TF32 products (SSD_PASSES) a FLOP over
+    the TF32 peak, and its bytes. The fp32 bound of that work, the
+    route's chunk-state bytes at the plan's chunk (``ssd_state_bytes``;
+    64, the old kernel's chunk, where the checkout has no planner) and
+    the work at the configs' chunk (256) are printed beside it. No
+    PyTorch call computes an SSD scan: no library yardstick."""
+    gen = torch.Generator(device=dev).manual_seed(3)
     cases = []
     for name, (Bt, T, H, P, G, N, with_h0) in SSD_CASES.items():
-        x, dt = rnd(Bt, T, H, P), F.softplus(rnd(Bt, T, H))
-        A = -torch.linspace(1.0, 16.0, H, device=dev)
-        B, C = rnd(Bt, T, G, N), rnd(Bt, T, G, N)
-        h0 = rnd(Bt, H, N, P) if with_h0 else None
+        x, dt, A, B, C, h0 = ssd_inputs(torch, F, dev, Bt, T, H, P, G, N,
+                                        with_h0, gen)
+        plan = ssd_plan(K.ssd_scan, dev, Bt, T, H, P, G, N)
+        chunk = plan["chunk"] if plan else 64
         best, flops, nbytes = ssd_least_work(Bt, T, H, P, G, N, with_h0)
-        at = {c: ssd_work(Bt, T, H, P, G, N, with_h0, c)[0]
-              for c in (64, 256)}
-        print(f"ssd_scan {name}: bound counted at chunk {best}, "
-              f"{flops / 1e9:.4f} GFLOP (the least); "
-              f"{at[64] / 1e9:.4f} at the kernel's chunk 64, "
-              f"{at[256] / 1e9:.4f} at the configs' 256", flush=True)
+        states = ssd_state_bytes(Bt, T, H, N, P, chunk)
+        at256 = ssd_work(Bt, T, H, P, G, N, with_h0, 256)[0]
+        print(f"ssd_scan {name}: plan {plan}; least work at chunk {best}: "
+              f"{flops / 1e9:.4f} GFLOP ({SSD_PASSES} TF32 products a "
+              f"FLOP), {nbytes / 1e6:.3f} MB; the route's chunk states at "
+              f"chunk {chunk}: {states / 1e6:.3f} MB more (not in the "
+              f"bound); {at256 / 1e9:.4f} GFLOP at the configs' 256",
+              flush=True)
         cases.append((
             "ssd_scan", name,
             lambda a=(x, dt, A, B, C), h0=h0: K.ssd_scan.ssd_scan(*a, h0=h0),
             lambda a=(x, dt, A, B, C), h0=h0: K.ref.ssd_chunked(*a, h0=h0),
-            None, flops, nbytes, PEAK_FP32_FLOPS, KERNEL_TOL["ssd_scan"],
-            K.ssd_scan.launches, None))
+            None, SSD_PASSES * flops, nbytes, PEAK_TF32_FLOPS,
+            KERNEL_TOL["ssd_scan"], K.ssd_scan.launches, None,
+            {"fp32_bound_ms": max(bound(flops, nbytes)), "plan": plan,
+             "state_mb": states / 1e6}))
     return cases
+
+
+def ssd_sums(per_kernel: dict) -> dict:
+    """#13's sums over its cases (SSD_CASES), each key summed, printed on
+    a line of its own."""
+    keys = ("ms", "device_ms", "issue_ms", "bound_ms", "fp32_bound_ms",
+            "plain_ms")
+    cases = per_kernel["ssd_scan"]["cases"]
+    sums = {k: sum(c[k] for c in cases) for k in keys}
+    f = {k: f"{v:.4f}" for k, v in sums.items()}
+    print(f"  ssd_scan sum over its {len(cases)} cases: kernel {f['ms']} ms "
+          f"back to back, device {f['device_ms']}, issue {f['issue_ms']}; "
+          f"plain {f['plain_ms']}; bound {f['bound_ms']} (3xTF32), "
+          f"{f['fp32_bound_ms']} (fp32)", flush=True)
+    return {"cases": len(cases), **sums}
+
+
+def ssd_prefill_split(torch, lm, registry, dev, arch: str,
+                      lengths: tuple = (2048,)) -> dict:
+    """Prefills of ``arch`` at full width and depth (float32 weights from
+    a seeded generator on the card), one prompt of each length T in
+    ``lengths``: its wall time to a synchronise and its host issue over
+    PREFILL_CALLS calls on the host clock (median and least; the queue
+    empty at each start), then ``profile_call``'s split of its kernels'
+    time (``busy``) into #13 (kernels whose name holds ``ssd``: time,
+    launches, and each kernel name's), cuBLAS GEMMs (names holding
+    ``gemm``) and the rest. Keyed by T."""
+    cfg = registry.get(arch)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    out = {}
+    for T in lengths:
+        toks = torch.randint(
+            0, cfg.vocab, (1, T), device=dev, dtype=torch.int32,
+            generator=torch.Generator(device=dev).manual_seed(5))
+
+        def call():
+            return lm.prefill(params, cfg, {"tokens": toks}, T + LM_NEW)
+
+        with torch.inference_mode():
+            sp = profile_call(torch, call, match="ssd")
+            issue, wall = [], []
+            for _ in range(PREFILL_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                issue.append((t1 - t0) * 1e3)
+                wall.append((time.perf_counter() - t0) * 1e3)
+        by = sp.get("by_name", {})
+        gemm = sum(v[0] for k, v in by.items() if "gemm" in k.lower())
+        passes = {k[:60]: v for k, v in by.items() if "ssd" in k}
+        r = {"arch": arch, "T": T, "layers": cfg.n_layers,
+             "calls": PREFILL_CALLS,
+             "wall_ms": statistics.median(wall), "wall_min_ms": min(wall),
+             "issue_ms": statistics.median(issue),
+             "issue_min_ms": min(issue), "busy_ms": sp["busy"],
+             "ssd_ms": sp.get("match_ms"),
+             "ssd_kernels": sp.get("match_kernels"),
+             "ssd_by_kernel": passes, "gemm_ms": gemm}
+        head = (f"[ssd] {arch} prefill {T} ({cfg.n_layers} layers): "
+                f"{r['wall_ms']:.3f} ms to a synchronise (least "
+                f"{r['wall_min_ms']:.3f}), host issue {r['issue_ms']:.3f} "
+                f"(least {r['issue_min_ms']:.3f}), medians of "
+                f"{PREFILL_CALLS}")
+        if sp["busy"] is not None:
+            r["rest_ms"] = sp["busy"] - r["ssd_ms"] - gemm
+            print(f"{head}; kernels {sp['busy']:.1f} ms: ssd_scan "
+                  f"{r['ssd_ms']:.2f} in {r['ssd_kernels']} kernel launches "
+                  f"({passes}), GEMM {gemm:.1f}, the rest "
+                  f"{r['rest_ms']:.2f}", flush=True)
+        else:
+            print(f"{head}; device not measured (no kernel records)",
+                  flush=True)
+        out[T] = r
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_kernels(torch, cases: list) -> dict:
@@ -1607,7 +1748,9 @@ def check_cases(torch, cases: list, per_kernel: dict):
         if kname in BOTH_WAYS or (sib and sib[0].get("again")):
             again = kfn()
             torch.cuda.synchronize()
-            if not torch.equal(again, got):
+            pairs = zip(again, got) if isinstance(got, tuple) \
+                else [(again, got)]
+            if not all(torch.equal(a, g) for a, g in pairs):
                 raise AssertionError(f"{kname}[{case}]: two launches on "
                                      f"the same inputs differ")
             extra["bit_equal_twice"] = True
@@ -1793,7 +1936,7 @@ def conv_issue_split(torch, K, build, dev, n: int = 200) -> dict | None:
             (BATCH, 20, 20, 64), device=dev, dtype=torch.float32),
         "  _plan with sm_count": lambda: K.conv2d._plan(
             M, 2304, 64, build.sm_count(dev)),
-        "  the stream's scratch slot": lambda: K.conv2d._scratch_slot(
+        "  the stream's scratch slot": lambda: build.scratch_slot(
             dev, torch._C._cuda_getCurrentRawStream(dev.index)),
         f"  torch.empty of the scratch ({splits} chunks; the slot's "
         f"earlier form)": lambda: torch.empty(
@@ -2503,7 +2646,8 @@ def _leaves(tree) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
-    ap.add_argument("--only", choices=("stream", "a8", "conv", "attn"),
+    ap.add_argument("--only", choices=("stream", "a8", "conv", "attn",
+                                       "ssd"),
                     help="only one slice's reading, for a before/after "
                     "(copied into an older checkout, it reads that "
                     "checkout's kernels): stream, #4 and #5's cases and the "
@@ -2513,8 +2657,10 @@ def main() -> int:
                     "the float forwards at 640 and 160, the split-K "
                     "ablation and a split conv's host issue by parts; "
                     "attn, #11's cases (and SDPA's) and a profiler split "
-                    "of one granite-3-8b prefill at 2048. Prints no result "
-                    "line")
+                    "of one granite-3-8b prefill at 2048; ssd, #13's cases, "
+                    "each at every compiled chunk, and a profiler split of "
+                    "one mamba2-130m and one zamba2-1.2b prefill at 2048. "
+                    "Prints no result line")
     args = ap.parse_args()
 
     T0 = time.perf_counter()
@@ -2612,6 +2758,16 @@ def main() -> int:
         sums = attn_sums(per_kernel)
         write_out(per_kernel, sums=sums, prefill=attn_prefill_split(
             torch, lm, registry, dev0))
+        print(f"[card] {smi()}")
+        return 0
+    if args.only == "ssd":
+        print("[kernels] #13 vs its plain version on the card", flush=True)
+        per_kernel = {}
+        check_cases(torch, ssd_cases(torch, F, K, dev0), per_kernel)
+        sums = ssd_sums(per_kernel)
+        write_out(per_kernel, sums=sums, prefill={
+            a: ssd_prefill_split(torch, lm, registry, dev0, a, lengths)
+            for a, lengths in SSD_PREFILLS.items()})
         print(f"[card] {smi()}")
         return 0
     # quant_per_group's design (yolov8n at 160, W8A8; its activation
@@ -2757,6 +2913,7 @@ def main() -> int:
     exact_a8g = a8g_exact_check(torch, qmatmul, dev0)
     sums_conv = conv_sums(per_kernel)
     sums_attn = attn_sums(per_kernel)
+    sums_ssd = ssd_sums(per_kernel)
     pointer = a8_pointer_check(torch, qmatmul, dev0)
 
     # ---------------------------------------------------------------- 3
@@ -3036,7 +3193,7 @@ def main() -> int:
             "stream": {"sums": sums, "issue_split_us": split,
                        "fusion_off_forward": off_fwd},
             "conv": {"sums": sums_conv, "float_forward": fwd_split},
-            "attn": {"sums": sums_attn},
+            "attn": {"sums": sums_attn}, "ssd": {"sums": sums_ssd},
             **lm_runs, "build_s": info["seconds"]}, indent=1))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T0:.0f}s")
     print(f"[card] {smi()}")

@@ -6,6 +6,9 @@ the parity tests make parameters once (with numpy, or with the JAX
 package's ``init_params``), hand them over as numpy arrays, and convert
 them here. A quantized weight is read by duck typing on
 ``q/scale/zero/bits/shape/packed``; the JAX class is never imported.
+Like the port's other entry points, both functions put the tensors on
+the card unless ``device`` names another (``device="cpu"`` on a machine
+without one), and raise without CUDA (``device.resolve_device``).
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 
 from .core.quant import QTensor
+from .device import resolve_device
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -33,19 +37,26 @@ def _leaf(v, device):
     return _tensor(v, device)
 
 
-def lm_params_from_numpy(params: dict, device="cpu") -> dict:
-    """A JAX LM parameter tree (nested dicts of arrays and QTensor-likes,
-    layers stacked on axis 0) → the same tree of tensors and
-    :class:`~repro_torch.core.quant.QTensor`\\ s on ``device``."""
+def _lm_tree(params, device: torch.device):
     if isinstance(params, dict):
-        return {k: lm_params_from_numpy(v, device) for k, v in params.items()}
+        return {k: _lm_tree(v, device) for k, v in params.items()}
     return _leaf(params, device)
 
 
-def params_from_numpy(params: dict, device="cpu") -> dict:
+def lm_params_from_numpy(params: dict, device=None) -> dict:
+    """A JAX LM parameter tree (nested dicts of arrays and QTensor-likes,
+    layers stacked on axis 0) → the same tree of tensors and
+    :class:`~repro_torch.core.quant.QTensor`\\ s on ``device`` (``None``:
+    ``cuda:0``, raising without CUDA)."""
+    return _lm_tree(params, resolve_device(device))
+
+
+def params_from_numpy(params: dict, device=None) -> dict:
     """``{node: {"w": ndarray | QTensor-like, "b": ndarray}}`` → the
-    port's params on ``device``: arrays become tensors of the same dtype
-    and QTensor-likes become :class:`~repro_torch.core.quant.QTensor`\\ s
-    with the same codes, scales and layout."""
+    port's params on ``device`` (``None``: ``cuda:0``, raising without
+    CUDA): arrays become tensors of the same dtype and QTensor-likes
+    become :class:`~repro_torch.core.quant.QTensor`\\ s with the same
+    codes, scales and layout."""
+    device = resolve_device(device)
     return {name: {k: _leaf(v, device) for k, v in p.items()}
             for name, p in params.items()}

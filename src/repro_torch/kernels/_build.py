@@ -59,7 +59,8 @@ _SIGNATURES = {
     "repro_rmsnorm_f32": [_P, _P, _P, _LL, _I, _F, _I, _P],
     "repro_mha_f32": [_P] * 4 + [_I] * 8 + [_F, _F] + [_I] * 4 + [_P, _P],
     "repro_decode_attention_f32": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
-    "repro_ssd_scan_f32": [_P] * 8 + [_I] * 6 + [_P],
+    "repro_ssd_scan_f32": [_P] * 9 + [_I] * 7 + [_P],
+    "repro_ssd_smem_bytes": [_I, _I],
 }
 
 _lock = threading.Lock()
@@ -128,14 +129,18 @@ def generated_headers() -> dict[str, str]:
     ``kernels/qmatmul.py`` (``_BK``, ``TILES``; ``_A8_BK``, ``A8_TILES``;
     ``A8G_TILES``), and ``conv_tiles.h``,
     the slice depth and tiles of kernels #1/#2, from ``kernels/conv2d.py``
-    (``_CONV_BK``, ``CONV_TILES``), and ``attn_tiles.h``, the (BQ, BK,
+    (``_CONV_BK``, ``CONV_TILES``), ``attn_tiles.h``, the (BQ, BK,
     stages) of kernel #11 at each head width, from
-    ``kernels/attention.py`` (``ATTN_TILES``); each module plans its
-    launches from the same table."""
+    ``kernels/attention.py`` (``ATTN_TILES``), and ``ssd_tiles.h``, the
+    chunk of kernel #13, the most heads a block walks and the columns
+    of P it owns, from ``kernels/ssd_scan.py`` (``SSD_CHUNK``,
+    ``SSD_HEADS``, ``SSD_PT``); each module plans its launches from the
+    same table."""
     # imported late: these modules import us
     from .attention import ATTN_TILES
     from .conv2d import CONV_TILES, _CONV_BK
     from .qmatmul import A8_TILES, A8G_TILES, TILES, _A8_BK, _BK
+    from .ssd_scan import SSD_CHUNK, SSD_HEADS, SSD_PT
     tiles = " ".join(f"REPRO_TILE({bm}, {bn})" for bm, bn in TILES)
     a8 = " ".join(f"REPRO_A8_TILE({bm}, {bn})" for bm, bn in A8_TILES)
     a8g = " ".join(f"REPRO_A8_TILE({bm}, {bn})" for bm, bn in A8G_TILES)
@@ -152,7 +157,11 @@ def generated_headers() -> dict[str, str]:
             f"#define REPRO_CONV_BK {_CONV_BK}\n"
             f"#define REPRO_CONV_TILES {conv}\n",
             "attn_tiles.h": "#pragma once\n"
-            f"#define REPRO_ATTN_TILES {attn}\n"}
+            f"#define REPRO_ATTN_TILES {attn}\n",
+            "ssd_tiles.h": "#pragma once\n"
+            f"#define REPRO_SSD_CHUNK {SSD_CHUNK}\n"
+            f"#define REPRO_SSD_HEADS {SSD_HEADS}\n"
+            f"#define REPRO_SSD_PT {SSD_PT}\n"}
 
 
 def _source_hash() -> str:
@@ -288,6 +297,37 @@ def split_k(tiles: int, k_tiles: int, slots: int, cap: int | None = None
         per = -(-k_tiles // max(1, cap))
         splits = -(-k_tiles // per)
     return splits
+
+
+# A float32 scratch buffer a (device, stream), shared by the kernels that
+# need one (#1's split K, #13's chunk states): grown to the largest need
+# and then reused (a fresh torch.empty took 8 µs of a split conv's 38 µs
+# of host issue on the H100's host). A call's kernels write and read it
+# in stream order; the slot's lock, held from the resize to the call's
+# last launch, keeps another thread on the same stream from launching
+# between them.
+_scratch: dict = {}             # (device index, raw stream) -> [lock, buffer]
+_scratch_lock = threading.Lock()
+
+
+def scratch_slot(dev: torch.device, stream: int) -> list:
+    """The [lock, buffer or None] of ``dev``'s stream ``stream``."""
+    slot = _scratch.get((dev.index, stream))
+    if slot is None:
+        with _scratch_lock:
+            slot = _scratch.setdefault((dev.index, stream),
+                                       [threading.Lock(), None])
+    return slot
+
+
+def grown_scratch(slot: list, floats: int,
+                  dev: torch.device) -> torch.Tensor:
+    """``slot``'s buffer, made anew where it holds fewer than ``floats``
+    (at least one); call it with the slot's lock held."""
+    if slot[1] is None or slot[1].numel() < floats:
+        slot[1] = torch.empty(max(floats, 1), device=dev,
+                              dtype=torch.float32)
+    return slot[1]
 
 
 def check_no_grad(*tensors: torch.Tensor) -> None:

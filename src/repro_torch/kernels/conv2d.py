@@ -21,7 +21,6 @@ on the H100: see the source's note.
 from __future__ import annotations
 
 import functools
-import threading
 
 import torch
 
@@ -29,7 +28,8 @@ from . import ref
 from ._build import H100_SMS as _H100_SMS
 from ._build import RESIDENT as _RESIDENT
 from ._build import (LaunchCounter, act_code, check_operand, check_pipeline,
-                     launch, pick_tile, sm_count, split_k)
+                     grown_scratch, launch, pick_tile, scratch_slot,
+                     sm_count, split_k)
 
 launches = LaunchCounter()
 launches_double = LaunchCounter()
@@ -64,26 +64,6 @@ def _plan(M: int, KKC: int, F: int, sms: int = _H100_SMS,
     bm, bn = pick_tile(CONV_TILES, F)
     return bm, bn, split_k(-(-M // bm) * -(-F // bn), -(-KKC // _CONV_BK),
                            _RESIDENT * sms, cap)
-
-
-# Split K's partial sums (splits, M, F): one float32 buffer a (device,
-# stream), grown to the largest split launched there and then reused (a
-# fresh torch.empty took 8 µs of a split conv's 38 µs of host issue on the
-# H100's host). A call's two kernels write and read it in stream order;
-# the slot's lock keeps another thread on the same stream from launching
-# between them.
-_scratch: dict = {}             # (device index, raw stream) -> [lock, buffer]
-_scratch_lock = threading.Lock()
-
-
-def _scratch_slot(dev: torch.device, stream: int) -> list:
-    """The [lock, buffer or None] of ``dev``'s stream ``stream``."""
-    slot = _scratch.get((dev.index, stream))
-    if slot is None:
-        with _scratch_lock:
-            slot = _scratch.setdefault((dev.index, stream),
-                                       [threading.Lock(), None])
-    return slot
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
@@ -128,14 +108,11 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     if splits == 1:
         launch(*args, None)
     else:
-        # split K: the partial sums, added in split order by the second
-        # pass, in this stream's scratch
-        slot = _scratch_slot(dev, torch._C._cuda_getCurrentRawStream(
+        # split K: the partial sums (splits, M, F), added in split order
+        # by the second pass, in this stream's scratch
+        slot = scratch_slot(dev, torch._C._cuda_getCurrentRawStream(
             dev.index))
         with slot[0]:
-            if slot[1] is None or slot[1].numel() < splits * M * F:
-                slot[1] = torch.empty(splits * M * F, device=dev,
-                                      dtype=torch.float32)
-            launch(*args, slot[1].data_ptr())
+            launch(*args, grown_scratch(slot, splits * M * F, dev).data_ptr())
     (launches_double if double else launches).add()
     return y

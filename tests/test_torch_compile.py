@@ -78,7 +78,7 @@ def pair(request):
     jp = jax.tree_util.tree_map(jnp.asarray, np_params)
     jacc = jcore.compile(jm, jcore.CompileConfig(batch_size=2), params=jp)
     tacc = tcore.compile(tm, tcore.CompileConfig(batch_size=2),
-                         params=params_from_numpy(np_params),
+                         params=params_from_numpy(np_params, device="cpu"),
                          torch_device="cpu")
     x = np.random.default_rng(0).normal(
         0.5, 0.25, size=(2, IMG, IMG, 3)).astype(np.float32)
@@ -140,7 +140,7 @@ def test_unfused_executor_matches_jax_ref(pair):
     want = jcg.generate(pair["jm"].graph, backend="ref")(
         jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(x))
     with torch.inference_mode():
-        got = tcg.generate(pair["tm"].graph)(params_from_numpy(p),
-                                             torch.from_numpy(x))
+        got = tcg.generate(pair["tm"].graph)(
+            params_from_numpy(p, device="cpu"), torch.from_numpy(x))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)

@@ -175,16 +175,16 @@ def test_split_scratch_is_one_slot_a_stream(monkeypatch):
     """Split K's partial sums go to one [lock, buffer] a (device, stream):
     the same slot for every call there, another for another stream or
     device, and one slot when many threads ask for it at once."""
-    monkeypatch.setattr(tconv, "_scratch", {})
+    monkeypatch.setattr(_build, "_scratch", {})
     dev0, dev1 = torch.device("cuda", 0), torch.device("cuda", 1)
-    slot = tconv._scratch_slot(dev0, 11)
-    assert tconv._scratch_slot(dev0, 11) is slot and slot[1] is None
-    assert tconv._scratch_slot(dev0, 12) is not slot
-    assert tconv._scratch_slot(dev1, 11) is not slot
+    slot = _build.scratch_slot(dev0, 11)
+    assert _build.scratch_slot(dev0, 11) is slot and slot[1] is None
+    assert _build.scratch_slot(dev0, 12) is not slot
+    assert _build.scratch_slot(dev1, 11) is not slot
     with ThreadPoolExecutor(8) as pool:
-        got = list(pool.map(lambda _: tconv._scratch_slot(dev1, 5),
+        got = list(pool.map(lambda _: _build.scratch_slot(dev1, 5),
                             range(64)))
-    assert all(g is got[0] for g in got) and len(tconv._scratch) == 4
+    assert all(g is got[0] for g in got) and len(_build._scratch) == 4
 
 
 # --------------------------------------------------------------------------
@@ -362,7 +362,7 @@ def test_split_scratch_grows_and_is_reused_on_the_card(cuda_device,
     within 1e-4 of the plain version, the stream's scratch grown once to
     the larger split's (splits, M, F) and then reused."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    monkeypatch.setattr(tconv, "_scratch", {})
+    monkeypatch.setattr(_build, "_scratch", {})
     small = _operands(cuda_device, 2, 9, 9, 64, 3, 64, 1, False, 5)[:3]
     large = _operands(cuda_device, 8, 20, 20, 256, 3, 64, 1, False, 6)[:3]
     stream = torch._C._cuda_getCurrentRawStream(cuda_device.index)
@@ -373,7 +373,7 @@ def test_split_scratch_grows_and_is_reused_on_the_card(cuda_device,
         assert splits > 1
         torch.testing.assert_close(tconv.conv2d(x, w, b, act="silu"),
                                    tref.conv2d(x, w, b, act="silu"), **TOL)
-        buf = tconv._scratch[(cuda_device.index, stream)][1]
+        buf = _build._scratch[(cuda_device.index, stream)][1]
         assert buf.numel() >= splits * M * 64
         sizes.append(buf)
     assert sizes[1] is sizes[2] and sizes[0] is not sizes[1]

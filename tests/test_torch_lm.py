@@ -44,7 +44,7 @@ def model(request):
     """(JAX cfg, port cfg, JAX params, port params) of a reduced arch."""
     jc, tc = jreg.reduced(request.param), treg.reduced(request.param)
     jp = jlm.init_params(jc, jax.random.PRNGKey(3))
-    tp = lm_params_from_numpy(jp)
+    tp = lm_params_from_numpy(jp, device="cpu")
     return jc, tc, jp, tp
 
 
@@ -125,7 +125,7 @@ def test_w8_weights_forward_matches_jax(model):
     jc, tc, jp, _ = model
     qp = jquant.quantize_tree(jp, jquant.QuantConfig(bits=8),
                               predicate=_w8_pred)
-    tq = lm_params_from_numpy(qp)
+    tq = lm_params_from_numpy(qp, device="cpu")
     assert type(tq["layers"]["attn"]["wq"]["w"]).__name__ == "QTensor"
     toks = _tokens(jc, (2, 11), seed=3)
     want, _ = jlm.forward(qp, jc, {"tokens": jnp.asarray(toks)})
@@ -185,7 +185,7 @@ def test_engine_matches_jax_engine(arch):
     tokens as the JAX package's Engine."""
     jc, tc = jreg.reduced(arch), treg.reduced(arch)
     jp = jlm.init_params(jc, jax.random.PRNGKey(2))
-    tp = lm_params_from_numpy(jp)
+    tp = lm_params_from_numpy(jp, device="cpu")
     prompts = _serving_prompts(jc.vocab)
     jeng = JEngine(jc, jp, max_batch=2, cache_size=64)
     teng = TEngine(tc, tp, max_batch=2, cache_size=64, device="cpu")

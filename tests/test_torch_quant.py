@@ -89,11 +89,11 @@ def test_quantize_tree_and_params_from_numpy():
     jtree = jq.quantize_tree({k: {kk: jnp.asarray(v) for kk, v in p.items()}
                               for k, p in params.items()},
                              jq.QuantConfig(**cfg))
-    ttree = tq.quantize_tree(params_from_numpy(params),
+    ttree = tq.quantize_tree(params_from_numpy(params, device="cpu"),
                              tq.QuantConfig(**cfg))
     conv = params_from_numpy(
         {k: {kk: (v if isinstance(v, jq.QTensor) else np.asarray(v))
-             for kk, v in p.items()} for k, p in jtree.items()})
+             for kk, v in p.items()} for k, p in jtree.items()}, device="cpu")
     for name in params:
         _assert_same(jtree[name]["w"], ttree[name]["w"])
         _assert_same(jtree[name]["w"], conv[name]["w"])

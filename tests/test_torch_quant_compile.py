@@ -134,7 +134,7 @@ def pair(request):
     jacc = jcore.compile(jm, jcore.CompileConfig(device=JDEV, **cfg),
                          params=_jparams(np_params))
     tacc = tcore.compile(tm, tcore.CompileConfig(device=TDEV, **cfg),
-                         params=params_from_numpy(np_params),
+                         params=params_from_numpy(np_params, device="cpu"),
                          torch_device="cpu")
     x = np.random.default_rng(7).normal(
         0.0, 1.0, size=(1, IMG, IMG, 3)).astype(np.float32)
@@ -220,9 +220,9 @@ def test_calibrated_scales_match_on_one_batch(calib_graphs, granularity):
     per_ch = granularity == "per_group"
     jr = jcg.calibrate_activation_ranges(jg, _jparams(p), jnp.asarray(x),
                                          per_channel=per_ch)
-    tr = tcg.calibrate_activation_ranges(tg, params_from_numpy(p),
-                                         torch.from_numpy(x),
-                                         per_channel=per_ch)
+    tr = tcg.calibrate_activation_ranges(
+        tg, params_from_numpy(p, device="cpu"), torch.from_numpy(x),
+        per_channel=per_ch)
     assert tr.keys() == jr.keys() and len(jr) == 63
     for k, v in jr.items():
         assert type(tr[k]) is type(v) or per_ch
@@ -287,7 +287,7 @@ def chains():
 def test_mixed_search_walks_to_the_same_front(chains):
     jg, tg, p, x = chains
     want = jdse.mixed_precision_search(jg, _jparams(p), jnp.asarray(x))
-    got = tdse.mixed_precision_search(tg, params_from_numpy(p),
+    got = tdse.mixed_precision_search(tg, params_from_numpy(p, device="cpu"),
                                       torch.from_numpy(x))
     assert got.evals == want.evals
     assert [t.label for t in got.trajectory] == \
@@ -313,7 +313,8 @@ def test_compile_bits_map_picks_the_same_lowerings(chains):
     jacc = jcore.compile(jg, jcore.CompileConfig(bits=bmap, device=JDEV),
                          params=_jparams(p))
     tacc = tcore.compile(tg, tcore.CompileConfig(bits=bmap, device=TDEV),
-                         params=params_from_numpy(p), torch_device="cpu")
+                         params=params_from_numpy(p, device="cpu"),
+                         torch_device="cpu")
     assert tcore.CompileConfig(bits=bmap).execution_backend() == "quant"
     jb, tb = JCounting(), TCounting()
     jcg.generate(jacc.graph, backend=jb)(jacc.params, jnp.asarray(x))
@@ -354,10 +355,11 @@ def test_compile_mixed_float_design_runs_the_kernels(chains):
     acc = tcore.compile(tg, tcore.CompileConfig(bits="mixed",
                                                 accuracy_budget=0.0,
                                                 device=TDEV),
-                        params=params_from_numpy(p), torch_device="cpu")
+                        params=params_from_numpy(p, device="cpu"),
+                        torch_device="cpu")
     assert acc.report["mixed_assignment"] == {}
     assert acc.executor_backend == "auto"
-    want = tcg.generate(tg, backend="ref")(params_from_numpy(p),
+    want = tcg.generate(tg, backend="ref")(params_from_numpy(p, device="cpu"),
                                            torch.from_numpy(x))
     for a, b in zip(acc.forward(torch.from_numpy(x)), want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
@@ -377,7 +379,7 @@ def served():
                          params=_jparams(np_params))
     tacc = tcore.compile(tyolo.build("yolov3-tiny", IMG),
                          tcore.CompileConfig(device=TDEV, **cfg),
-                         params=params_from_numpy(np_params),
+                         params=params_from_numpy(np_params, device="cpu"),
                          torch_device="cpu")
     return jacc, tacc
 

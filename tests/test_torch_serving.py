@@ -33,7 +33,8 @@ def accs():
     tacc = tcore.compile(tyolo.build("yolov3-tiny", IMG),
                          tcore.CompileConfig(**cfg),
                          params=params_from_numpy(
-                             jax.tree_util.tree_map(np.asarray, jp)),
+                             jax.tree_util.tree_map(np.asarray, jp),
+                             device="cpu"),
                          torch_device="cpu")
     return jacc, tacc
 

@@ -59,7 +59,7 @@ def model(request):
     """(JAX cfg, port cfg, JAX params, port params) of a reduced arch."""
     jc, tc = _cfgs(request.param)
     jp = jlm.init_params(jc, jax.random.PRNGKey(3))
-    return jc, tc, jp, lm_params_from_numpy(jp)
+    return jc, tc, jp, lm_params_from_numpy(jp, device="cpu")
 
 
 def _tokens(cfg, shape, seed=0):
@@ -85,7 +85,7 @@ def test_mixer_forward_and_decode_match_jax(groups):
                                n_groups=groups)
     tcfg = tssm.SsmCfg(**dataclasses.asdict(jcfg))
     jp = jssm.init(jax.random.PRNGKey(1), jcfg)
-    tp = lm_params_from_numpy(jp)
+    tp = lm_params_from_numpy(jp, device="cpu")
     rng = np.random.default_rng(0)
     x = rng.normal(size=(2, 32, jcfg.d_model)).astype(np.float32)
     jy, jst = jssm.forward(jp, jcfg, jnp.asarray(x[:, :16]))
@@ -282,7 +282,7 @@ def test_engine_matches_jax_engine(arch):
     state and the shared block's K/V rows are installed per slot)."""
     jc, tc = _cfgs(arch)
     jp = jlm.init_params(jc, jax.random.PRNGKey(2))
-    tp = lm_params_from_numpy(jp)
+    tp = lm_params_from_numpy(jp, device="cpu")
     prompts = _serving_prompts(jc.vocab)
     jeng = JEngine(jc, jp, max_batch=2, cache_size=32)
     teng = TEngine(tc, tp, max_batch=2, cache_size=32, device="cpu")
@@ -306,3 +306,17 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
                  lambda: tlm.init_cache(tc, 1, 8)):
         with pytest.raises(RuntimeError, match="CPU"):
             make()
+
+
+def test_converters_default_to_the_card(monkeypatch):
+    """``convert``'s two functions resolve ``device=None`` to the card, as
+    the other entry points do: without CUDA they raise, naming the CPU
+    escape, and ``device="cpu"`` converts."""
+    from repro_torch.convert import params_from_numpy
+    tree = {"layer": {"w": np.ones((2, 3), np.float32)}}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for convert in (lm_params_from_numpy, params_from_numpy):
+        with pytest.raises(RuntimeError, match="CPU device explicitly"):
+            convert(tree)
+        got = convert(tree, device="cpu")
+        assert got["layer"]["w"].device == torch.device("cpu")
