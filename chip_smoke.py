@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--out FILE.json] [--only stream|a8|conv|attn|ssd]
+    python3 chip_smoke.py [--out FILE.json]
+                          [--only stream|a8|conv|attn|ssd|dec]
 
 Phases, each printed as it runs; any failure raises and the script exits
 non-zero:
@@ -130,8 +131,13 @@ non-zero:
    bound by its route, three TF32 passes (``MHA_PASSES``), the fp32 bound
    printed beside it; each case prints its tile, launches twice,
    bit-equal, and is read both ways with SDPA beside it (``BOTH_WAYS``);
-   the sums print on lines of their own (``attn_sums``, with #12's SDPA
-   sum). #7 gains a case at granite's decode shape (4, 4096, 12800).
+   the sums print on lines of their own (``attn_sums``). #12
+   (``decode_attention.cu``, fixed-size shares of the live cache) prints
+   its plan (positions a share, shares a row, grid and busy blocks:
+   ``dec_plan``), launches twice, bit-equal, and is read both ways with
+   SDPA beside it; its sums print on lines of their own (``dec_sums``).
+   #6 is read both ways too. #7 gains a case at granite's decode shape
+   (4, 4096, 12800).
 4. Timing: a short serving window (a smoke reading, not a benchmark),
    the executor forward, and the spans of one replica step run alone
    (assemble, issue, wait, copy-out on the host clock; the forward's and
@@ -209,7 +215,13 @@ and mamba2-130m prefills at SSD_PREFILLS' lengths and zamba2-1.2b's at
 2048, full width and depth: wall and host issue per prefill over
 PREFILL_CALLS calls, and a ``torch.profiler`` split, ssd_scan kernel
 time and launches (its passes counted apart), GEMM, the rest
-(``ssd_prefill_split``).
+(``ssd_prefill_split``); ``--only dec`` for #12's cases with SDPA's and
+#6's (``dec_sums``), #12 at half and twice its planned share length
+(``dec_share_sweep``), and one granite-3-8b and one zamba2-1.2b decode
+step, full width and depth, 4 rows at lengths 128/700/2048/4000 of a
+4096 cache: host issue, time to a synchronise, and a ``torch.profiler``
+split, decode_attention kernel time and launches, GEMM, the rest
+(``dec_step_split``).
 
 Needs one CUDA card; exits non-zero without one, and in a directory that
 does not hold the repository's ``src/repro_torch``.
@@ -271,9 +283,10 @@ A8_SPREAD = 2.0
 # ways, device time and host issue per call, over this many calls (#3
 # too: its short cases are the next candidate for a redesign; #1 and #2
 # through ``conv_cases``' own flag, as #7-#10 through ``qmm_cases``';
-# #11's and #13's cases, SDPA beside #11's, through ``check_cases``).
-BOTH_WAYS = ("pointwise", "resize_nearest", "maxpool2d", "mha",
-             "ssd_scan")
+# #6's, #11's, #12's and #13's cases, SDPA beside #11's and #12's, through
+# ``check_cases``).
+BOTH_WAYS = ("pointwise", "resize_nearest", "maxpool2d", "rmsnorm", "mha",
+             "decode_attention", "ssd_scan")
 BOTH_WAYS_CALLS = 50
 # FLOPs per element of each activation (for the pointwise bound).
 ACT_FLOPS = {"identity": 0, "none": 0, "relu": 1, "leaky_relu": 2,
@@ -508,6 +521,22 @@ def attn_plan(mod, dev, D: int, B: int, Tq: int, Tk: int,
         return None
     bq, bk, stages, splits = fn(D, B, Tq, Tk, Hq, mod.sm_count(dev))
     return {"BQ": bq, "BK": bk, "stages": stages, "splits": splits}
+
+
+def dec_plan(mod, dev, S: int, window, D: int, rep: int, bh: int,
+             lens) -> dict | None:
+    """#12's positions a share and shares a row (``decode_attention.
+    _plan``) at a case's shape on ``dev``'s card, with the busy blocks
+    its lengths give, or None in a checkout from before that planner (an
+    ``--only`` run there)."""
+    fn = getattr(mod, "_plan", None)
+    if fn is None:
+        return None
+    L, shares = fn(S, window or 0, D, rep, bh, mod.sm_count(dev))
+    groups = -(-rep // mod.head_block(rep))
+    busy = sum(-(-n // L) for n in live_positions(S, lens, window))
+    return {"L": L, "shares": shares, "grid": bh * groups * shares,
+            "busy": bh // len(lens) * groups * busy}
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, float]:
@@ -1054,7 +1083,9 @@ def lm_cases(torch, F, K, quant, dev):
                 K.ref.decode_attention(q, kc, vc, ln, **kw), lib,
             4 * Hq * D * live, 4 * (2 * live * Hkv * D + 2 * B * Hq * D + B),
             PEAK_FP32_FLOPS, KERNEL_TOL["decode_attention"],
-            K.decode_attention.launches, None))
+            K.decode_attention.launches, None,
+            {"plan": dec_plan(K.decode_attention, dev, S, win, D, Hq // Hkv,
+                              B * Hkv, lens)}))
     M, Kf, N = 4, 4096, 12800
     x, w = rnd(M, Kf), rnd(Kf, N, scale=Kf ** -0.5)
     qt = quant.quantize(w, quant.QuantConfig(bits=8))   # per tensor, as
@@ -1419,13 +1450,114 @@ def attn_sums(per_kernel: dict) -> dict:
           f"{w['ms']} ms back to back, device {w['device_ms']}; SDPA "
           f"{w['library_ms']}, device {w['library_device_ms']}", flush=True)
     if "decode_attention" in per_kernel:
-        dec = [c for c in per_kernel["decode_attention"]["cases"]
-               if c["library_ms"] is not None]
-        d = {k: sum(c[k] for c in dec) for k in ("ms", "library_ms")}
-        out["decode_attention"] = {"sdpa_cases": len(dec), **d}
-        print(f"  decode_attention over the {len(dec)} cases without "
-              f"softcap: kernel {d['ms']:.4f} ms back to back; SDPA "
-              f"{d['library_ms']:.4f}", flush=True)
+        out["decode_attention"] = dec_sums(per_kernel)
+    return out
+
+
+def dec_sums(per_kernel: dict) -> dict:
+    """#12's sums over DEC_CASES (back to back, device time, host issue
+    per call, bound) and, over the cases SDPA takes (no softcap), the
+    kernel's and SDPA's, back to back and by device time; each printed
+    on a line of its own."""
+    cases = per_kernel["decode_attention"]["cases"]
+    keys = ("ms", "device_ms", "issue_ms", "bound_ms", "plain_ms")
+    sums = {k: sum(c[k] for c in cases) for k in keys}
+    lib = [c for c in cases if c["library_ms"] is not None]
+    with_lib = {k: sum(c[k] for c in lib) for k in (
+        "ms", "device_ms", "library_ms", "library_device_ms")}
+    f = {k: f"{v:.4f}" for k, v in sums.items()}
+    w = {k: f"{v:.4f}" for k, v in with_lib.items()}
+    print(f"  decode_attention sum over its {len(cases)} cases: kernel "
+          f"{f['ms']} ms back to back, device {f['device_ms']}, issue "
+          f"{f['issue_ms']}; plain {f['plain_ms']}; bound {f['bound_ms']} "
+          f"(bytes)", flush=True)
+    print(f"  decode_attention over the {len(lib)} cases without softcap: "
+          f"kernel {w['ms']} ms back to back, device {w['device_ms']}; SDPA "
+          f"{w['library_ms']}, device {w['library_device_ms']}", flush=True)
+    return {"cases": len(cases), **sums, "sdpa_cases": len(lib),
+            **{f"sdpa_cases_{k}": v for k, v in with_lib.items()}}
+
+
+def dec_share_sweep(torch, K, dev) -> dict | None:
+    """#12's device time a call (``per_call_ms``) at each DEC_CASES case
+    with the share length its plan picks, half of it and twice it
+    (``decode_attention._plan`` patched for the reading, the cap on
+    shares a row kept), to read the plan's rule against its neighbours;
+    None in a checkout from before that planner."""
+    mod = K.decode_attention
+    real = getattr(mod, "_plan", None)
+    if real is None:
+        return None
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    try:
+        for name, (B, S, Hq, Hkv, D, lens, win, cap) in DEC_CASES.items():
+            q = torch.randn(B, Hq, D, generator=gen, device=dev)
+            kc = torch.randn(B, S, Hkv, D, generator=gen, device=dev)
+            vc = torch.randn(B, S, Hkv, D, generator=gen, device=dev)
+            ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+            L0 = real(S, win or 0, D, Hq // Hkv, B * Hkv,
+                      mod.sm_count(dev))[0]
+            span = min(S, win) if win else S
+            row = {}
+            for L in (L0 // 2, L0, 2 * L0):
+                shares = -(-span // L)
+                if shares > mod.MAX_SHARES:
+                    continue
+                mod._plan = lambda *a, L=L, n=shares: (L, n)
+                row[L] = per_call_ms(torch, lambda: mod.decode_attention(
+                    q, kc, vc, ln, window=win, softcap=cap),
+                    BOTH_WAYS_CALLS)[0]
+            mod._plan = real
+            out[name] = {"plan_L": L0, "device_ms": row}
+            print(f"  decode_attention {name}: device ms by share length "
+                  + ", ".join(f"{L}{' (plan)' if L == L0 else ''}: {v:.4f}"
+                              for L, v in row.items()), flush=True)
+    finally:
+        mod._plan = real
+    return out
+
+
+def dec_step_split(torch, lm, registry, dev, arch: str) -> dict:
+    """One decode step of ``arch`` at full width and depth (float32
+    weights from a seeded generator on the card) over LM_BATCH rows of a
+    LM_CACHE cache at ``lm_spans``' lengths (128, 700, 2048, 4000), read
+    by ``profile_call``: the step's host issue and its time to a
+    synchronise, and its kernels' time split into #12 (kernels named
+    ``decode``: time and launches), cuBLAS GEMMs (names holding
+    ``gemm``) and the rest."""
+    cfg = registry.get(arch)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    cache = lm.init_cache(cfg, LM_BATCH, LM_CACHE, device=dev)
+    cache["len"] = torch.tensor([128, 700, 2048, 4000][:LM_BATCH],
+                                dtype=torch.int32, device=dev)
+    tokens = torch.arange(1, LM_BATCH + 1, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        sp = profile_call(torch, lambda: lm.decode_step(params, cfg, tokens,
+                                                        cache),
+                          match="decode")
+    del params, cache
+    torch.cuda.empty_cache()
+    by = sp.get("by_name", {})
+    gemm = sum(v[0] for k, v in by.items() if "gemm" in k.lower())
+    out = {"arch": arch, "layers": cfg.n_layers, "wall_ms": sp["wall"],
+           "issue_ms": sp["issue"], "busy_ms": sp["busy"],
+           "span_ms": sp["span"], "dec_ms": sp.get("match_ms"),
+           "dec_kernels": sp.get("match_kernels"), "gemm_ms": gemm,
+           "dec_by_name": {k: v for k, v in by.items() if "decode" in k}}
+    if sp["busy"] is not None:
+        out["rest_ms"] = sp["busy"] - out["dec_ms"] - gemm
+        print(f"[dec] {arch} decode step ({cfg.n_layers} layers, lengths "
+              f"128/700/2048/4000 of {LM_CACHE}): {sp['wall']:.2f} ms to a "
+              f"synchronise (host issue {sp['issue']:.2f}); kernels "
+              f"{sp['busy']:.3f} ms over a {sp['span']:.3f} ms span: "
+              f"decode_attention {out['dec_ms']:.4f} in "
+              f"{out['dec_kernels']} kernels, GEMM {gemm:.3f}, the rest "
+              f"{out['rest_ms']:.3f}", flush=True)
+    else:
+        print(f"[dec] {arch} decode step: {sp['wall']:.2f} ms; device not "
+              f"measured (no kernel records)", flush=True)
     return out
 
 
@@ -2647,7 +2779,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--only", choices=("stream", "a8", "conv", "attn",
-                                       "ssd"),
+                                       "ssd", "dec"),
                     help="only one slice's reading, for a before/after "
                     "(copied into an older checkout, it reads that "
                     "checkout's kernels): stream, #4 and #5's cases and the "
@@ -2659,7 +2791,10 @@ def main() -> int:
                     "attn, #11's cases (and SDPA's) and a profiler split "
                     "of one granite-3-8b prefill at 2048; ssd, #13's cases, "
                     "each at every compiled chunk, and a profiler split of "
-                    "one mamba2-130m and one zamba2-1.2b prefill at 2048. "
+                    "one mamba2-130m and one zamba2-1.2b prefill at 2048; "
+                    "dec, #12's cases (and SDPA's), #6's, #12 at half and "
+                    "twice its planned share length, and a profiler split "
+                    "of one granite-3-8b and one zamba2-1.2b decode step. "
                     "Prints no result line")
     args = ap.parse_args()
 
@@ -2758,6 +2893,20 @@ def main() -> int:
         sums = attn_sums(per_kernel)
         write_out(per_kernel, sums=sums, prefill=attn_prefill_split(
             torch, lm, registry, dev0))
+        print(f"[card] {smi()}")
+        return 0
+    if args.only == "dec":
+        print("[kernels] #12 and #6 vs their plain versions on the card",
+              flush=True)
+        per_kernel = {}
+        check_cases(torch, [c for c in lm_cases(torch, F, K, quant, dev0)
+                            if c[0] in ("decode_attention", "rmsnorm")],
+                    per_kernel)
+        sums = dec_sums(per_kernel)
+        write_out(per_kernel, sums=sums,
+                  share_sweep=dec_share_sweep(torch, K, dev0), step={
+            a: dec_step_split(torch, lm, registry, dev0, a)
+            for a in ("granite-3-8b", "zamba2-1.2b")})
         print(f"[card] {smi()}")
         return 0
     if args.only == "ssd":

@@ -58,7 +58,8 @@ _SIGNATURES = {
                                  _P, _P] + [_I] * 8 + [_P, _P],
     "repro_rmsnorm_f32": [_P, _P, _P, _LL, _I, _F, _I, _P],
     "repro_mha_f32": [_P] * 4 + [_I] * 8 + [_F, _F] + [_I] * 4 + [_P, _P],
-    "repro_decode_attention_f32": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
+    "repro_decode_attention_f32": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _P],
+    "repro_decode_smem_bytes": [_I, _I],
     "repro_ssd_scan_f32": [_P] * 9 + [_I] * 7 + [_P],
     "repro_ssd_smem_bytes": [_I, _I],
 }

@@ -222,8 +222,9 @@ def test_cpu_tensors_never_count_a_launch():
 
 def test_kernel_guards():
     """What the CUDA wrappers refuse before any launch: operands that
-    require grad (no backward yet), windows < 1, softcaps <= 0, and the
-    split count stays within the cache's tiles."""
+    require grad (no backward yet), windows < 1, softcaps <= 0; and the
+    decode plan's shares cover the cache's span (the window's where it
+    is shorter) within the merge's cap."""
     w = torch.zeros(4, requires_grad=True)
     with pytest.raises(RuntimeError, match="backward"):
         _build.check_no_grad(torch.zeros(4), w)
@@ -234,10 +235,12 @@ def test_kernel_guards():
         tattn.check_window(0)
     with pytest.raises(ValueError):
         tattn.check_softcap(-1.0)
-    assert tdec.n_split(4, 8, 4096) == 17
-    assert tdec.n_split(1, 1, 4096) == tdec.MAX_SPLIT
-    assert tdec.n_split(4, 8, 20) == 1
-    assert tdec.n_split(64, 8, 4096) == 2
+    assert tdec._plan(4096, 0, 128, 4, 32) == (128, 32)
+    assert tdec._plan(4096, 0, 128, 4, 1) == (tdec.MIN_SHARE, 128)
+    assert tdec._plan(20, 0, 128, 4, 32) == (tdec.MIN_SHARE, 1)
+    assert tdec._plan(4096, 0, 128, 4, 512) == (128, 32)    # SHARE_BYTES
+    assert tdec._plan(4096, 300, 128, 4, 32)[1] == -(-300 // tdec.MIN_SHARE)
+    assert tdec._plan(10 ** 6, 0, 128, 1, 1)[1] <= tdec.MAX_SHARES
 
 
 @pytest.fixture
