@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--out FILE.json]
-                          [--only stream|a8|conv|attn|ssd|dec]
+                          [--only stream|a8|conv|attn|ssd|dec|pool]
 
 Phases, each printed as it runs; any failure raises and the script exits
 non-zero:
@@ -17,7 +17,16 @@ non-zero:
    its time (CUDA events over back-to-back launches, after warm-up), the
    plain version's time, one PyTorch library call's time as a yardstick
    (never called by the port), and the bound: max(FLOPs / 67 TFLOP/s
-   fp32, bytes / 3.35 TB/s), H100 SXM data-sheet peaks. #1 (``conv2d``)
+   fp32, bytes / 3.35 TB/s), H100 SXM data-sheet peaks. #3
+   (``maxpool2d``, ``kernel_cases``) at the kernel table's three earlier
+   cases (POOL_EARLIER: yolov8n's SPPF pool at 640 and two 2×2 pools) and
+   at yolov3-tiny's six pool launches at 416 (V3T_POOLS, batch 8; each
+   checked to be a maxpool launch of the compiled yolov3-tiny graph, its
+   activation included); each prints its plan (``pool_plan``), launches
+   twice, bit-equal, and is read both ways; the sums over the earlier
+   three and over the six print apart (``pool_sums``); NaN inputs give
+   #3's NaN where its plain version has them, on both routes, and
+   ``pointwise(relu)``'s likewise (``nan_probe``). #1 (``conv2d``)
    at CONV_CASES: the seven earlier cases (CONV_EARLIER) and two short-M
    launches (M = 3200, K split); bound by its route, three TF32 passes at 495
    TFLOP/s (``CONV_PASSES``), the fp32 bound printed beside; each case
@@ -196,6 +205,15 @@ non-zero:
    for rmsnorm, mha and decode_attention, ``ssm`` for ssd_scan;
    ``launches_by_path`` has every path), then the result line.
 
+``--only pool`` runs only phase 1, #3's cases (``pool_sums``), the NaN
+probe (reported, not enforced, so that it reads an earlier checkout too),
+each case under its planned tile or grid and its neighbours
+(``pool_sweep``) and one yolov3-tiny float forward at 416, batch 8:
+device time, back to back, and a ``torch.profiler`` split, maxpool
+kernel time and launches, conv, the rest (``v3t_forward``), and prints
+no result line; like the other ``--only`` readings it can be copied
+into a checkout of an earlier commit to read that commit on the same
+card.
 ``--only stream`` runs only phase 1, #4 and #5's cases and fusion_off's
 forward reading, and prints no result line: copied into a checkout of an
 earlier commit and run there, it reads that commit's #4 and #5 on the
@@ -229,6 +247,7 @@ does not hold the repository's ``src/repro_torch``.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import functools
 import json
 import statistics
@@ -281,7 +300,7 @@ SSD_PASSES = 3
 A8_SPREAD = 2.0
 # Kernels whose cases also launch twice (bit-equal) and are read both
 # ways, device time and host issue per call, over this many calls (#3
-# too: its short cases are the next candidate for a redesign; #1 and #2
+# too, its short cases near the launch floor; #1 and #2
 # through ``conv_cases``' own flag, as #7-#10 through ``qmm_cases``';
 # #6's, #11's, #12's and #13's cases, SDPA beside #11's and #12's, through
 # ``check_cases``).
@@ -385,6 +404,22 @@ CONV_CASES = {
     "3x3s2_40_F256": (40, 128, 3, 256, 2, "hardswish", False),
 }
 CONV_EARLIER = tuple(CONV_CASES)[:7]
+# (input H, C, k, stride, act) of #3's earlier cases at batch 8 (the
+# kernel table's first rows): yolov8n's SPPF pool at 640, and two 2×2
+# pools that are no launch of a served model, kept comparable.
+POOL_EARLIER = {"5x5s1_sppf_20": (20, 128, 5, 1, "identity"),
+                "2x2s2_leaky_80": (80, 64, 2, 2, "leaky_relu"),
+                "2x2s1_leaky_13": (13, 128, 2, 1, "leaky_relu")}
+# (input H, W, C, k, stride, act) of the maxpool launches of yolov3-tiny
+# at its configured 416 (``yolo.build("yolov3-tiny")`` after the default
+# passes; the monotone leaky relu moved onto the pooled value), in launch
+# order: the pools that move the most bytes of any served model.
+V3T_POOLS = ((416, 416, 16, 2, 2, "leaky_relu"),
+             (208, 208, 32, 2, 2, "leaky_relu"),
+             (104, 104, 64, 2, 2, "leaky_relu"),
+             (52, 52, 128, 2, 2, "leaky_relu"),
+             (26, 26, 256, 2, 2, "identity"),
+             (13, 13, 512, 2, 1, "leaky_relu"))
 # (B, Tq, Tk, Hq, Hkv, D, causal, window, softcap) of the attention
 # cases: granite-3-8b's prefill at 2048, a ragged length, a gemma2-like
 # local layer (D 256, window 256, softcap 50), and 128 queries at the end
@@ -539,6 +574,20 @@ def dec_plan(mod, dev, S: int, window, D: int, rep: int, bh: int,
             "busy": bh // len(lens) * groups * busy}
 
 
+def pool_plan(mod, dev, N: int, H: int, W: int, C: int, k: int,
+              s: int) -> dict | None:
+    """#3's plan (``maxpool._plan``: route, float4 or float, tile, grid)
+    at a case's shape on ``dev``'s card, for 16-byte aligned operands (a
+    fresh allocation's), or None in a checkout from before that planner
+    (an ``--only`` run there)."""
+    fn = getattr(mod, "_plan", None)
+    if fn is None:
+        return None
+    p = fn(N, H, W, C, k, s, 0, 0, mod.sm_count(dev))
+    return {"route": ("overlap", "disjoint")[p.route], "vec": p.vec,
+            "tile": [p.th, p.tw, p.cs], "grid": [p.gx, p.gy, p.gz]}
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, float]:
     """(ms bound by operations, ms bound by bytes)."""
     return flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -574,6 +623,19 @@ def act_launch_shapes(codegen, graph) -> set:
             if n.op in ACT_FLOPS}
 
 
+def pool_launch_shapes(codegen, graph) -> list:
+    """(input H, W, C, k, stride, act) of every maxpool launch, in launch
+    order."""
+    out = []
+    for name in codegen.launch_nodes(graph):
+        n = graph.nodes[name]
+        if n.op == "maxpool":
+            H, W, C = graph.streams[n.inputs[0]].shape
+            out.append((H, W, C, n.geom("K"), n.geom("stride"),
+                        n.attrs.get("act", "identity")))
+    return out
+
+
 def matmul_launch_shapes(codegen, graph) -> set:
     """(M, K, N, act, res) of every quantized matmul launch at BATCH."""
     out = set()
@@ -591,22 +653,24 @@ def matmul_launch_shapes(codegen, graph) -> set:
 # phase 2: every kernel against its plain version, at yolov8n@640 shapes
 # --------------------------------------------------------------------------
 
-def kernel_cases(torch, F, K, dev):
-    """(kernel, case, kernel_fn, plain_fn, library_fn, flops, bytes): #3's
-    cases (#1's and #2's are ``conv_cases``')."""
+def kernel_cases(torch, F, K, dev, v3t_pools: list):
+    """(kernel, case, kernel_fn, plain_fn, library_fn, flops, bytes,
+    plan): #3's cases (#1's and #2's are ``conv_cases``'), POOL_EARLIER's
+    and V3T_POOLS', each of the latter checked against ``v3t_pools``, the
+    maxpool launches of the compiled yolov3-tiny graph."""
+    if sorted(v3t_pools) != sorted(V3T_POOLS):
+        raise AssertionError(f"yolov3-tiny's maxpool launches {v3t_pools} "
+                             f"are not V3T_POOLS")
     gen = torch.Generator(device=dev).manual_seed(0)
-
-    def rnd(*shape, scale=1.0):
-        return torch.randn(*shape, generator=gen, device=dev) * scale
-
-    cases = []
     nb = 4   # bytes per float32
-    for name, (H, C, k, s, act) in {
-            "5x5s1_sppf_20": (20, 128, 5, 1, "identity"),
-            "2x2s2_leaky_80": (80, 64, 2, 2, "leaky_relu"),
-            "2x2s1_leaky_13": (13, 128, 2, 1, "leaky_relu")}.items():
-        x = rnd(BATCH, H, H, C)
-        Ho = -(-H // s)
+    shapes = [(name, H, H, C, k, s, act)
+              for name, (H, C, k, s, act) in POOL_EARLIER.items()]
+    shapes += [(f"v3t_{H}x{W}x{C}_{k}x{k}s{s}", H, W, C, k, s, act)
+               for H, W, C, k, s, act in V3T_POOLS]
+    cases = []
+    for name, H, W, C, k, s, act in shapes:
+        x = torch.randn(BATCH, H, W, C, generator=gen, device=dev)
+        Ho, Wo = -(-H // s), -(-W // s)
         xn = x.permute(0, 3, 1, 2)
         cases.append((
             "maxpool2d", name,
@@ -615,8 +679,9 @@ def kernel_cases(torch, F, K, dev):
             lambda x=x, k=k, s=s, a=act: K.ref.maxpool2d(
                 x, k=k, stride=s, act=a),
             lambda xn=xn, k=k, s=s: F.max_pool2d(xn, k, s, (k - 1) // 2),
-            BATCH * Ho * Ho * C * (k * k + ACT_FLOPS[act]),
-            nb * (x.numel() + BATCH * Ho * Ho * C)))
+            BATCH * Ho * Wo * C * (k * k + ACT_FLOPS[act]),
+            nb * (x.numel() + BATCH * Ho * Wo * C),
+            pool_plan(K.maxpool, dev, BATCH, H, W, C, k, s)))
     return cases
 
 
@@ -1285,13 +1350,14 @@ def ssd_prefill_split(torch, lm, registry, dev, arch: str,
 
 def check_kernels(torch, cases: list) -> dict:
     """Phase 2 for the cases of ``kernel_cases`` and ``stream_cases``:
-    each agrees with its plain version and is timed back to back. A case
+    each agrees with its plain version and is timed back to back; an
+    eighth entry, #3's plan, is printed and kept. A case
     of a kernel in BOTH_WAYS also launches twice (the two results equal
     bit for bit) and is read both ways: the kernel's and the library
     call's device time and host issue per call (``per_call_ms``), kept
     in the case beside the back-to-back times."""
     per_kernel: dict = {}
-    for kname, case, kfn, pfn, lfn, flops, nbytes in cases:
+    for kname, case, kfn, pfn, lfn, flops, nbytes, *plan in cases:
         got, want = kfn(), pfn()
         torch.cuda.synchronize()
         tol = KERNEL_TOL[kname]
@@ -1305,6 +1371,11 @@ def check_kernels(torch, cases: list) -> dict:
                          cuda_ms(torch, lfn))
         b_ops, b_bytes = bound(flops, nbytes)
         extra, note = {}, ""
+        if plan:        # #3's, None in a checkout without its planner
+            extra["plan"] = plan[0]
+            note += "; plan " + (" ".join(f"{k}={v}" for k, v in
+                                          plan[0].items())
+                                 if plan[0] else "n/a")
         if kname in BOTH_WAYS:
             again = kfn()
             torch.cuda.synchronize()
@@ -1363,6 +1434,129 @@ def stream_sums(per_kernel: dict) -> dict:
               f"{sums['library_issue_ms']:.4f}; plain "
               f"{sums['plain_ms']:.4f}; bound {sums['bound_ms']:.4f}",
               flush=True)
+    return out
+
+
+def pool_sums(per_kernel: dict) -> dict:
+    """#3's sums over POOL_EARLIER's three cases and over yolov3-tiny's
+    six (V3T_POOLS), each key summed, each printed on a line of its
+    own."""
+    out = {}
+    keys = ("ms", "library_ms", "device_ms", "library_device_ms",
+            "issue_ms", "library_issue_ms", "bound_ms", "plain_ms")
+    for key, label, pick in (
+            ("earlier", "the 3 earlier cases", lambda c: c in POOL_EARLIER),
+            ("v3t", "yolov3-tiny's 6 pools at 416",
+             lambda c: c.startswith("v3t_"))):
+        cases = [c for c in per_kernel["maxpool2d"]["cases"]
+                 if pick(c["case"])]
+        sums = {k: sum(c[k] for c in cases) for k in keys}
+        out[key] = {"cases": len(cases), **sums}
+        f = {k: f"{v:.4f}" for k, v in sums.items()}
+        print(f"  maxpool2d sum over {label}: kernel {f['ms']} ms back to "
+              f"back, device {f['device_ms']}, issue {f['issue_ms']}; "
+              f"library {f['library_ms']}, device {f['library_device_ms']}"
+              f", issue {f['library_issue_ms']}; plain {f['plain_ms']}; "
+              f"bound {f['bound_ms']} (bytes)", flush=True)
+    return out
+
+
+def nan_probe(torch, K, dev, strict: bool = True) -> dict:
+    """NaN at a seeded 1% of the inputs: #3's output NaN exactly where
+    its plain version's is, and equal elsewhere, at SPPF's 5×5/s1 and a
+    2×2/s1 (overlap route), a 2×2/s2 (disjoint route) and C = 6 (one
+    float at a time); ``pointwise(relu)`` likewise on 8×80×80×64. With
+    ``strict``, a mismatch raises."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    cases = [("maxpool2d 5x5s1 8x20x20x128", (BATCH, 20, 20, 128), 5, 1),
+             ("maxpool2d 2x2s1 8x13x13x128", (BATCH, 13, 13, 128), 2, 1),
+             ("maxpool2d 2x2s2 8x80x80x64", (BATCH, 80, 80, 64), 2, 2),
+             ("maxpool2d 2x2s2 2x13x13x6", (2, 13, 13, 6), 2, 2),
+             ("pointwise relu 8x80x80x64", (BATCH, 80, 80, 64), 0, 0)]
+    for name, shape, k, s in cases:
+        x = torch.randn(*shape, generator=gen, device=dev)
+        x[torch.rand(*shape, generator=gen, device=dev) < 0.01] = \
+            float("nan")
+        if k:
+            got = K.maxpool.maxpool2d(x, k=k, stride=s, act="leaky_relu")
+            want = K.ref.maxpool2d(x, k=k, stride=s, act="leaky_relu")
+        else:
+            got, want = K.pointwise.pointwise(x, "relu"), K.ref.pointwise(
+                x, "relu")
+        torch.cuda.synchronize()
+        nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+        same = bool(torch.equal(nan_g, nan_w)) and bool(
+            torch.equal(got[~nan_w], want[~nan_w]))
+        out[name] = {"same": same, "nan_plain": int(nan_w.sum()),
+                     "nan_kernel": int(nan_g.sum())}
+    ok = all(v["same"] for v in out.values())
+    print("[nan] NaN positions and values equal to the plain version: "
+          + "; ".join(f"{k} {v['same']} ({v['nan_kernel']} of "
+                      f"{v['nan_plain']} NaN)" for k, v in out.items()),
+          flush=True)
+    if strict and not ok:
+        raise AssertionError(f"NaN probe: {out}")
+    return out
+
+
+def pool_sweep(torch, K, build, dev) -> dict | None:
+    """#3's device ms a call (``per_call_ms``) at each of its cases under
+    its planned launch and its neighbours, launched through ``build.
+    launch`` (not counted) and each bit-equal to the plain version: on the
+    overlap route every th of TILE_ROWS whose tile fits shared memory, on
+    the disjoint route one round of pairs a thread and one output a
+    thread (both past one wave where the outputs are many). None in a
+    checkout without ``maxpool._launch_args``."""
+    mp = K.maxpool
+    args_of = getattr(mp, "_launch_args", None)
+    if args_of is None:
+        return None
+    gen = torch.Generator(device=dev).manual_seed(21)
+    shapes = [(name, H, H, C, k, s, act)
+              for name, (H, C, k, s, act) in POOL_EARLIER.items()]
+    shapes += [(f"v3t_{H}x{W}x{C}_{k}x{k}s{s}", H, W, C, k, s, act)
+               for H, W, C, k, s, act in V3T_POOLS]
+    out = {}
+    for name, H, W, C, k, s, act in shapes:
+        x = torch.randn(BATCH, H, W, C, generator=gen, device=dev)
+        want = K.ref.maxpool2d(x, k=k, stride=s, act=act)
+        y = torch.empty_like(want)
+        args = args_of(BATCH, H, W, C, k, s, build.act_code(act), True,
+                       build.sm_count(dev)).values()
+        head, plan = args[:11], mp.Plan(*args[11:])
+        Ho, Wo = args[6], args[7]
+        alts = {"planned": plan}
+        if plan.route == mp.OVERLAP:
+            for t in mp.TILE_ROWS:
+                if t <= Ho and t != plan.th and mp.smem_bytes(
+                        t, plan.tw, plan.cs, k, s, plan.vec) <= mp.SMEM_LIMIT:
+                    alts[f"th {t}"] = plan._replace(th=t, gy=-(-Ho // t))
+        else:
+            vecs = BATCH * Ho * Wo * (C // 4 if plan.vec else C)
+            alts["one round"] = plan._replace(
+                gx=-(-vecs // (2 * mp.THREADS)))
+            alts["one output a thread"] = plan._replace(
+                gx=-(-vecs // mp.THREADS))
+        res = {}
+        for label, p in alts.items():
+            a = mp.PoolArgs(*head, *p)
+
+            def run(a=a):
+                build.launch("repro_maxpool2d_nhwc_f32", dev, x.data_ptr(),
+                             y.data_ptr(), ctypes.addressof(a))
+            y.zero_()
+            run()
+            torch.cuda.synchronize()
+            if not torch.equal(y, want):
+                raise AssertionError(f"pool_sweep {name} {label} {p}")
+            res[label] = {"th": p.th, "grid": [p.gx, p.gy, p.gz],
+                          "device_ms": per_call_ms(torch, run,
+                                                   BOTH_WAYS_CALLS)[0]}
+        out[name] = res
+        print(f"[pool_sweep] {name}: " + "; ".join(
+            f"{label} (th {r['th']}, grid {r['grid']}) {r['device_ms']:.4f}"
+            for label, r in res.items()), flush=True)
     return out
 
 
@@ -1951,6 +2145,43 @@ def fusion_off_forward(torch, acc_off, xb) -> dict:
     print(f"[fusion_off] forward (batch {BATCH}): device {dev:.3f} ms, "
           f"host issue {issue:.3f} ms", flush=True)
     return {"device_ms": dev, "issue_ms": issue}
+
+
+def v3t_forward(torch, acc_t, xb_t, counters) -> dict:
+    """One yolov3-tiny float forward at 416, batch 8 (6 maxpool launches):
+    device and host issue ms (``device_ms``, median of 5), back to back
+    (``cuda_ms``), and a ``torch.profiler`` split of one forward
+    (``profile_call``): the maxpool kernels (names holding "pool"), the
+    conv kernels ("conv2d"), and the rest."""
+    for c in counters.values():
+        c.reset()
+    acc_t.forward(xb_t)
+    torch.cuda.synchronize()
+    launches = {k: c.value for k, c in counters.items() if c.value}
+    if launches.get("maxpool2d") != len(V3T_POOLS):
+        raise AssertionError(f"yolov3-tiny forward launches {launches}")
+    dev, issue = device_ms(torch, lambda: acc_t.forward(xb_t), reps=5)
+    b2b = cuda_ms(torch, lambda: acc_t.forward(xb_t), budget_ms=300)
+    prof = profile_call(torch, lambda: acc_t.forward(xb_t))
+    by = prof.pop("by_name", {})
+    split = {}
+    for key, match in (("pool", "pool"), ("conv", "conv2d")):
+        hit = [v for k, v in by.items() if match in k]
+        split[f"{key}_ms"] = sum(v[0] for v in hit)
+        split[f"{key}_kernels"] = sum(v[1] for v in hit)
+    busy = prof["busy"]
+    split["rest_ms"] = None if busy is None \
+        else busy - split["pool_ms"] - split["conv_ms"]
+    print(f"[v3t_forward] yolov3-tiny@416 batch {BATCH}: launches "
+          f"{launches}; device {dev:.4f} ms, host issue {issue:.4f} ms, "
+          f"back to back {b2b:.4f} ms; profiler: "
+          + (f"kernels busy {busy:.4f} ms in {prof['kernels']} launches: "
+             f"maxpool {split['pool_ms']:.4f} ms ({split['pool_kernels']}),"
+             f" conv {split['conv_ms']:.4f} ({split['conv_kernels']}), the "
+             f"rest {split['rest_ms']:.4f}; top {prof['top']}"
+             if busy is not None else "no kernel records"), flush=True)
+    return {"launches": launches, "device_ms": dev, "issue_ms": issue,
+            "back_to_back_ms": b2b, "profile": prof, **split}
 
 
 def float_forward(torch, acc, xb, acc_off, xb_off) -> dict:
@@ -2779,7 +3010,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--only", choices=("stream", "a8", "conv", "attn",
-                                       "ssd", "dec"),
+                                       "ssd", "dec", "pool"),
                     help="only one slice's reading, for a before/after "
                     "(copied into an older checkout, it reads that "
                     "checkout's kernels): stream, #4 and #5's cases and the "
@@ -2794,8 +3025,10 @@ def main() -> int:
                     "one mamba2-130m and one zamba2-1.2b prefill at 2048; "
                     "dec, #12's cases (and SDPA's), #6's, #12 at half and "
                     "twice its planned share length, and a profiler split "
-                    "of one granite-3-8b and one zamba2-1.2b decode step. "
-                    "Prints no result line")
+                    "of one granite-3-8b and one zamba2-1.2b decode step; "
+                    "pool, #3's cases, the NaN probe and a profiler split "
+                    "of one yolov3-tiny forward at 416. Prints no result "
+                    "line")
     args = ap.parse_args()
 
     T0 = time.perf_counter()
@@ -2917,6 +3150,25 @@ def main() -> int:
         write_out(per_kernel, sums=sums, prefill={
             a: ssd_prefill_split(torch, lm, registry, dev0, a, lengths)
             for a, lengths in SSD_PREFILLS.items()})
+        print(f"[card] {smi()}")
+        return 0
+    # yolov3-tiny at 416 (float): its maxpool launches are #3's later cases
+    model_t = yolo.build("yolov3-tiny")
+    acc_t = core.compile(model_t, core.CompileConfig(batch_size=BATCH),
+                         params=random_params(torch, codegen, model_t.graph,
+                                              3))
+    pools = kernel_cases(torch, F, K, dev0,
+                         pool_launch_shapes(codegen, acc_t.graph))
+    if args.only == "pool":
+        print("[kernels] #3 vs its plain version on the card", flush=True)
+        per_kernel = check_kernels(torch, pools)
+        sums = pool_sums(per_kernel)
+        nan = nan_probe(torch, K, dev0, strict=False)
+        xb_t = torch.from_numpy(ImageStream(model_t.cfg.img_size, BATCH,
+                                            seed=8).batch_at(0)).to(dev0)
+        write_out(per_kernel, sums=sums, nan=nan,
+                  sweep=pool_sweep(torch, K, _build, dev0),
+                  v3t_forward=v3t_forward(torch, acc_t, xb_t, counters))
         print(f"[card] {smi()}")
         return 0
     # quant_per_group's design (yolov8n at 160, W8A8; its activation
@@ -3050,9 +3302,10 @@ def main() -> int:
           f"quant_mean_rel_delta="
           f"{acc_q.report['quant_mean_rel_delta']:.4e}", flush=True)
     print("[kernels] each kernel vs its plain version on the card", flush=True)
-    per_kernel = check_kernels(torch, kernel_cases(torch, F, K, dev0)
-                               + streams)
+    per_kernel = check_kernels(torch, pools + streams)
     sums = stream_sums(per_kernel)
+    sums_pool = pool_sums(per_kernel)
+    nan = nan_probe(torch, K, dev0)
     split = issue_split(torch, K, _build, dev0)
     check_cases(torch, qmm_cases(torch, K, quant, dev0, matmul_launch_shapes(
         codegen, acc_q.graph), g_shapes=g_shapes)
@@ -3342,6 +3595,7 @@ def main() -> int:
             "stream": {"sums": sums, "issue_split_us": split,
                        "fusion_off_forward": off_fwd},
             "conv": {"sums": sums_conv, "float_forward": fwd_split},
+            "pool": {"sums": sums_pool, "nan": nan},
             "attn": {"sums": sums_attn}, "ssd": {"sums": sums_ssd},
             **lm_runs, "build_s": info["seconds"]}, indent=1))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T0:.0f}s")

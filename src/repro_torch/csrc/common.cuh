@@ -23,6 +23,16 @@ enum Act : int {
     ACT_GELU = 5,
 };
 
+// max(a, b) that propagates NaN, as jnp.maximum, torch.max and torch.relu
+// do (PTX max.NaN, sm_80+: a NaN operand gives the canonical NaN). Where
+// neither operand is NaN it is max.f32, what fmaxf compiles to, bit for
+// bit. Not volatile: the compiler may schedule it freely.
+__device__ __forceinline__ float max_nan(float a, float b) {
+    float d;
+    asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(d) : "f"(a), "f"(b));
+    return d;
+}
+
 // The formulas of repro_torch.kernels.ref.ACTIVATIONS, in the same order
 // of operations.
 __device__ __forceinline__ float apply_act(float x, int act) {
@@ -34,7 +44,7 @@ __device__ __forceinline__ float apply_act(float x, int act) {
     case ACT_SILU:
         return x * (1.0f / (1.0f + expf(-x)));
     case ACT_RELU:
-        return fmaxf(x, 0.0f);
+        return max_nan(x, 0.0f);
     case ACT_GELU: {
         const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
         const float inner = k0 * (x + 0.044715f * x * x * x);

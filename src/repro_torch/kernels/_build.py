@@ -45,7 +45,7 @@ _SIGNATURES = {
     "repro_conv2d_nhwc_f32": [_P, _P, _P, _P, _P] + [_I] * 15 + [_P, _P],
     "repro_conv2d_nhwc_f32_double": [_P, _P, _P, _P, _P] + [_I] * 15
     + [_P, _P],
-    "repro_maxpool2d_nhwc_f32": [_P, _P] + [_I] * 11 + [_P],
+    "repro_maxpool2d_nhwc_f32": [_P, _P, _P, _P],
     "repro_resize_nearest_nhwc_f32": [_P, _P] + [_I] * 9 + [_P],
     "repro_pointwise_f32": [_P, _P, _LL, _LL, _LL, _I, _I, _P],
     "repro_qmatmul_f32": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P]

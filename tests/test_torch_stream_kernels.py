@@ -9,19 +9,21 @@ inputs from numpy with a fixed seed: resize bit-equal at C in {3, 4, 6,
 oracle alone: the Pallas kernel cannot slice an empty batch); every
 activation within atol = rtol = 1e-4 (the Pallas ``_act`` multiplies
 hardswish by 1/6 where the oracle divides by 6) on lengths that are not
-a multiple of 4 and on an offset contiguous view. Then the wrappers'
+a multiple of 4 and on an offset contiguous view, and relu keeping NaN
+as ``jax.nn.relu`` does. Then the wrappers'
 plans (``_plan``: the float4 path taken or not, the grid from the SM
 count) and ``_build.launch`` with its CUDA calls replaced by stand-ins
 (the current stream's handle, the device switch, a nonzero return code).
 
 On the card (``-m gpu``; they skip without one): the CUDA kernels
 against the same plain versions on misaligned starts, C % 4 != 0 and
-every activation, two launches bit-equal, a launch on a non-default
+every activation, relu keeping NaN, two launches bit-equal, a launch on a non-default
 stream, a refused launch raising, and an empty operand returning an
 empty result with no launch.
 """
 import contextlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -96,6 +98,19 @@ def test_pointwise_offset_view_matches_jax(act):
     got = tpw.pointwise(x, act).numpy()
     want = np.asarray(jref.ACTIVATIONS[act](jnp.asarray(base.ravel()[1:])))
     np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_relu_keeps_nan_as_jax_does():
+    """``jax.nn.relu`` and the plain ``pointwise(·, "relu")`` both give
+    NaN for NaN (assert_array_equal takes NaN as equal to NaN)."""
+    x = _np(12, (4099,), 4.0)
+    x[::7] = np.nan
+    got = tpw.pointwise(torch.from_numpy(x), "relu").numpy()
+    want = np.asarray(jax.nn.relu(jnp.asarray(x)))
+    assert np.isnan(got).sum() == np.isnan(x).sum() > 0
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.asarray(
+        jref.ACTIVATIONS["relu"](jnp.asarray(x))))
 
 
 def test_empty_operands_return_empty_results_on_the_cpu():
@@ -273,6 +288,22 @@ def test_pointwise_on_the_card(cuda_device, act):
             torch.testing.assert_close(got, tref.pointwise(x, act), **TOL,
                                        msg=lambda m: f"n={n} off={off}: {m}")
             assert torch.equal(got, again), (n, off)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("off", [0, 1, 3])
+def test_relu_keeps_nan_on_the_card(cuda_device, off):
+    """NaN stays NaN, as in ``torch.relu`` (the earlier epilogue's fmaxf
+    gave 0), on the float4 body and the scalar head and tail alike."""
+    for n in LENGTHS + (8 * 5 * 5 * 64,):
+        x = torch.randn(n, device=cuda_device) * 4
+        x[::7] = float("nan")
+        x = _offset(x, off)
+        got = tpw.pointwise(x, "relu")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, tref.pointwise(x, "relu"), rtol=0,
+                                   atol=0, equal_nan=True)
+        assert torch.isnan(got).sum() == torch.isnan(x).sum() > 0
 
 
 @pytest.mark.gpu
