@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--out FILE.json]
-                          [--only stream|a8|conv|attn|ssd|dec|pool]
+                          [--only stream|a8|conv|attn|ssd|dec|pool|load|
+                                  decwin]
 
 Phases, each printed as it runs; any failure raises and the script exits
 non-zero:
@@ -144,9 +145,12 @@ non-zero:
    (``decode_attention.cu``, fixed-size shares of the live cache) prints
    its plan (positions a share, shares a row, grid and busy blocks:
    ``dec_plan``), launches twice, bit-equal, and is read both ways with
-   SDPA beside it; its sums print on lines of their own (``dec_sums``).
-   #6 is read both ways too. #7 gains a case at granite's decode shape
-   (4, 4096, 12800).
+   SDPA beside it; its sums print on lines of their own (``dec_sums``);
+   past the cache with a window (DEC_PAST_S: lengths S - 1 to
+   S + 137, window 100) it is held to the reference's rule, the window
+   from len - window, exactly 0 where nothing is visible
+   (``dec_window_check``). #6 is read both ways too. #7 gains a case at
+   granite's decode shape (4, 4096, 12800).
 4. Timing: a short serving window (a smoke reading, not a benchmark),
    the executor forward, and the spans of one replica step run alone
    (assemble, issue, wait, copy-out on the host clock; the forward's and
@@ -157,6 +161,20 @@ non-zero:
    forward at 640 and fusion_off's at 160 by device time, each split by
    ``torch.profiler`` into conv kernels, ``torch.cat`` and the rest
    (``float_forward``).
+   ``load``: the open-loop harness (``repro_torch.loadgen``) with the
+   counters set to 0 just before it and read just after: the JAX
+   package's published model-clock sweep (yolov3-tiny at 64, batch 4, 2
+   replicas, an SLO of 6 modeled rounds, levels 0.5-2.0, 48 rounds;
+   ``model_clock_load``) on the card, every served output finite, its
+   rows equal to the same sweep on the CPU (run after the counters are
+   read) and its knee to LOAD_KNEE_RPS; then main's design at 640
+   (``wall_load``): the card's fleet round measured (``fleet_round_ms``)
+   and used as the harness's step_ms, and Poisson arrivals at 0.5, 1.0
+   and 2.0 x the capacity that gives, on the wall clock, the first level
+   read twice; each level prints offered load, goodput, on-time
+   fraction, admitted/rejected/expired/failed, p50/p99, the worst submit
+   lag, utilization, the round and the capacity, and the ledger is
+   asserted. Its launches must be conv2d, maxpool2d and resize only.
 5. ``lm``: granite-3-8b at full width and depth (40 layers, d 4096,
    vocab 49155; float32 weights from ``lm.init_params`` with a seeded
    generator on the card, ~30 GiB) served by ``serve.engine.Engine``
@@ -239,7 +257,13 @@ time and launches (its passes counted apart), GEMM, the rest
 step, full width and depth, 4 rows at lengths 128/700/2048/4000 of a
 4096 cache: host issue, time to a synchronise, and a ``torch.profiler``
 split, decode_attention kernel time and launches, GEMM, the rest
-(``dec_step_split``).
+(``dec_step_split``); ``--only load`` for the wall-clock load of
+yolov8n at 640, float and W8A16 (``wall_load``: DEFAULT_LEVELS with
+Poisson arrivals, the four arrival shapes at 1.0x, replica 0 crashing
+at step 16 at 0.9x, and the sweep and the crash again with arrivals in
+groups of 8), with each design's launches; ``--only decwin`` for
+``dec_window_check`` alone (reported, not enforced, so that it reads an
+earlier checkout's #12 too).
 
 Needs one CUDA card; exits non-zero without one, and in a directory that
 does not hold the repository's ``src/repro_torch``.
@@ -442,6 +466,11 @@ DEC_CASES = {
     "zamba2_B4_S4096_D64": (4, 4096, 32, 32, 64, (1, 700, 2048, 4096), None,
                             None),
 }
+# #12 where a cache length passes S with a window (B, S, Hq, Hkv, D,
+# window, seed; the card test's shape): the window starts at len - window,
+# as the Pallas kernel's does, and a row with nothing visible gives 0
+# (``dec_window_check``).
+DEC_PAST_S = (8, 700, 8, 2, 128, 100, 11)
 # (Bt, T, H, P, G, N, initial state) of the SSD cases: mamba2-130m's and
 # zamba2-1.2b's prefill at 2048, a batch of 4 at a ragged 509, a state
 # handed over (h0) at mamba2's width, and mamba2's widths over two groups
@@ -458,6 +487,34 @@ SSD_CASES = {
 # the calls of each read on the host clock.
 SSD_PREFILLS = {"mamba2-130m": (512, 1024, 2048), "zamba2-1.2b": (2048,)}
 PREFILL_CALLS = 21
+
+
+# Path load: the port's open-loop harness (``repro_torch.loadgen``).
+# (a) The JAX package's published saturation sweep on the model clock
+# (benchmarks/load_harness.py): yolov3-tiny at 64, batch 4, 2 replicas,
+# an SLO of 6 modeled rounds, seed 0, 48 rounds a level. Its knee is a
+# DSE figure (the report's batched_latency_ms, an FPGA model): the card
+# and the CPU must both give LOAD_KNEE_RPS, the JAX package's figure.
+LOAD_MODEL = ("yolov3-tiny", 64, 4)             # arch, img, batch
+LOAD_MODEL_LEVELS = (0.5, 0.75, 1.0, 1.5, 2.0)
+LOAD_MODEL_ROUNDS = 48
+LOAD_KNEE_RPS = 5704.059151093396
+# (b) Wall-clock sweeps of yolov8n at IMG, batch BATCH, LOAD_REPLICAS
+# replicas, Poisson arrivals at multiples of the card's capacity: the
+# harness's step_ms is the card's fleet round (the median wall time of
+# one round, every replica serving one full batch, after
+# LOAD_ROUND_WARM rounds), the SLO LOAD_SLO_ROUNDS of them, LOAD_ROUNDS
+# rounds a level. The full run reads LOAD_SHORT_LEVELS (the first one
+# twice); ``--only load`` DEFAULT_LEVELS, the arrival shapes at 1.0x and
+# replica 0 crashing at step LOAD_KILL_STEP at LOAD_KILL_LEVEL x.
+LOAD_REPLICAS, LOAD_SLO_ROUNDS, LOAD_ROUNDS = 2, 6, 32
+LOAD_SHORT_LEVELS = (0.5, 1.0, 2.0)
+LOAD_ROUND_WARM, LOAD_ROUND_REPS = 3, 9
+LOAD_KILL_STEP, LOAD_KILL_LEVEL = 16, 0.9
+# a wall run keeps every LOAD_SAMPLE-th request to check its outputs
+# after the run (keeping all of them would add allocations to the
+# timed window: 4.8 MB of outputs a request at 640)
+LOAD_SAMPLE = 16
 
 
 def smi() -> str:
@@ -1066,11 +1123,12 @@ def visible_pairs(Tq: int, Tk: int, causal: bool, window) -> int:
 
 
 def live_positions(S: int, lengths, window) -> list:
-    """Per row, the cache positions a decode step reads."""
+    """Per row, the cache positions a decode step reads: those below
+    min(len, S) and, with a window, from len - window on."""
     out = []
     for n in lengths:
-        hi = min(n, S)
-        out.append(hi - (max(hi - window, 0) if window else 0))
+        hi = max(min(n, S), 0)
+        out.append(max(hi - (max(n - window, 0) if window else 0), 0))
     return out
 
 
@@ -1753,6 +1811,48 @@ def dec_step_split(torch, lm, registry, dev, arch: str) -> dict:
         print(f"[dec] {arch} decode step: {sp['wall']:.2f} ms; device not "
               f"measured (no kernel records)", flush=True)
     return out
+
+
+def dec_window_check(torch, K, dev, strict: bool = True) -> dict:
+    """#12 at lengths around and past S with a window (DEC_PAST_S):
+    within KERNEL_TOL of the plain version where a position is visible,
+    exactly 0 where none is (the plain version gives NaN there, the
+    Pallas kernel 0). The visible range is [max(len - window, 0),
+    min(len, S)). With ``strict``, a miss raises; without, it is only
+    reported, so that the check reads an earlier checkout too."""
+    B, S, Hq, Hkv, D, win, seed = DEC_PAST_S
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Hq, D, generator=gen, device=dev)
+    kc = torch.randn(B, S, Hkv, D, generator=gen, device=dev)
+    vc = torch.randn(B, S, Hkv, D, generator=gen, device=dev)
+    lens = (S - 1, S, S + 1, S + 9, S + 50, S + win - 1, S + win,
+            S + win + 37)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = K.decode_attention.decode_attention(q, kc, vc, ln, window=win)
+    want = K.ref.decode_attention(q, kc, vc, ln, window=win)
+    torch.cuda.synchronize()
+    tol = KERNEL_TOL["decode_attention"]
+    rows, ok = {}, True
+    for b, n in enumerate(lens):
+        visible = min(n, S) - max(n - win, 0)
+        if visible > 0:
+            err = float((got[b] - want[b]).abs().max())
+            good = bool(torch.all((got[b] - want[b]).abs()
+                                  <= tol + tol * want[b].abs()))
+        else:
+            err = float(got[b].abs().max())
+            good = err == 0.0
+        rows[n] = {"visible": max(visible, 0), "max_abs_err": err,
+                   "ok": good}
+        ok = ok and good
+    print(f"[dec_window] #12 at B {B}, S {S}, window {win}: "
+          + "; ".join(f"len {n} ({v['visible']} visible) max_abs_err "
+                      f"{v['max_abs_err']:.3e}{'' if v['ok'] else ' MISS'}"
+                      for n, v in rows.items())
+          + f" (within {tol}, 0 where nothing is visible)", flush=True)
+    if strict and not ok:
+        raise AssertionError(f"#12 past S with a window: {rows}")
+    return {"shape": DEC_PAST_S, "lengths": rows, "ok": ok}
 
 
 def attn_prefill_split(torch, lm, registry, dev, T: int = 2048) -> dict:
@@ -2999,6 +3099,242 @@ def run_lm(torch, np, lm, ops, registry, Engine, Request, counters, dev,
                     "check": check, "tolerance": tol}
 
 
+def long_gaps(proc, duration_s: float, step_s: float) -> int:
+    """Gaps of ``proc``'s schedule (from 0) longer than half a round:
+    the wall loop (``OpenLoopHarness._run_wall``) starts a round only
+    in such a gap, while the queue holds a request."""
+    ts = [0.0] + [a.t for a in proc.schedule(duration_s)]
+    return sum(1 for a, b in zip(ts, ts[1:]) if b - a > step_s / 2)
+
+
+def recording(OpenLoopHarness, every: int):
+    """``OpenLoopHarness`` keeping every ``every``-th request it submits
+    (by uid) in ``kept``, so that a run's served outputs can be checked
+    after the run (``check_served``)."""
+    class Recording(OpenLoopHarness):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.kept = []
+
+        def _request(self, arrival):
+            req = super()._request(arrival)
+            if arrival.uid % every == 0:
+                self.kept.append(req)
+            return req
+    return Recording
+
+
+def check_served(np, kept: list) -> int:
+    """Every served request in ``kept`` has outputs, all finite; returns
+    how many were served, and empties ``kept``."""
+    n = 0
+    for req in kept:
+        if not getattr(req, "done", False):
+            continue
+        if not req.outputs or not all(np.isfinite(o).all()
+                                      for o in req.outputs):
+            raise AssertionError(f"load: request {req.uid} served a "
+                                 f"missing or non-finite output")
+        n += 1
+    kept.clear()
+    return n
+
+
+def load_row(r) -> dict:
+    """The numbers a load reading prints of one ``LoadResult``."""
+    x = r.extras
+    return {"process": r.process["process"], "level": x.get("level"),
+            "offered_rps": r.offered_rps,
+            "offered_rps_measured": r.offered_rps_measured,
+            "goodput_rps": r.goodput_rps, "on_time_frac": r.on_time_frac,
+            "n_offered": r.n_offered, "admitted": r.admitted,
+            "rejected": r.rejected, "expired": r.expired,
+            "failed": r.failed, "completed": r.completed,
+            "p50_ms": r.latency["p50_ms"], "p99_ms": r.latency["p99_ms"],
+            "max_submit_lag_ms": x.get("max_submit_lag_ms"),
+            "utilization": r.utilization, "rounds": x["rounds"],
+            "makespan_s": r.makespan_s, "step_ms": x["step_ms"],
+            "capacity_rps": x["capacity_rps"], "faults": x["faults"]}
+
+
+def check_ledger(r, label: str) -> None:
+    """Open loop: every offered request admitted or rejected, every
+    admitted one completed, expired or failed."""
+    if r.admitted + r.rejected != r.n_offered or \
+            r.admitted != r.completed + r.expired + r.failed:
+        raise AssertionError(f"load {label}: ledger {load_row(r)}")
+
+
+def print_load(tag: str, row: dict) -> None:
+    def ms(v):
+        return "-" if v is None else f"{v:.2f}"
+    lag = row["max_submit_lag_ms"]
+    util = row["utilization"]
+    print(f"[{tag}] {row['process']} level {row['level']}: offered "
+          f"{row['offered_rps']:.2f} rps (measured "
+          f"{row['offered_rps_measured']:.2f}), goodput "
+          f"{row['goodput_rps']:.2f} rps, on time {row['on_time_frac']:.4f}, "
+          f"admitted/rejected/expired/failed {row['admitted']}/"
+          f"{row['rejected']}/{row['expired']}/{row['failed']} of "
+          f"{row['n_offered']}, p50 {ms(row['p50_ms'])} ms, p99 "
+          f"{ms(row['p99_ms'])} ms, max submit lag {ms(lag)} ms, "
+          f"utilization {'-' if util is None else f'{util:.3f}'}, "
+          f"{row['rounds']} rounds in {row['makespan_s']:.3f} s "
+          f"({row.get('long_gaps')} arrival gaps over half a round); round "
+          f"{row['step_ms']:.3f} ms, capacity {row['capacity_rps']:.2f} rps",
+          flush=True)
+
+
+def model_clock_load(np, core, yolo, lg, devices=None) -> dict:
+    """(a) of path load: the JAX package's published sweep (LOAD_MODEL)
+    on the model clock, over a design compiled for ``devices`` (None:
+    the card). Every served output is checked finite."""
+    arch, img, batch = LOAD_MODEL
+    acc = core.compile(yolo.build(arch, img),
+                       core.CompileConfig(batch_size=batch),
+                       torch_device=devices[0] if devices else None)
+    step = float(acc.report["batched_latency_ms"])
+    h = recording(lg.OpenLoopHarness, 1)(
+        acc, replicas=LOAD_REPLICAS, batch_size=batch,
+        slo_ms=LOAD_SLO_ROUNDS * step, step_ms=step, seed=0,
+        devices=devices)
+    t0 = time.perf_counter()
+    results, knee = h.sweep(levels=LOAD_MODEL_LEVELS,
+                            rounds=LOAD_MODEL_ROUNDS, seed=0)
+    for r in results:
+        check_ledger(r, "model clock")
+    return {"where": "cpu" if devices else "card", "step_ms": step,
+            "knee": knee, "rows": [r.to_row() for r in results],
+            "outputs_checked": check_served(np, h.kept),
+            "seconds": time.perf_counter() - t0}
+
+
+def fleet_round_ms(h, DetectRequest) -> tuple[float, list]:
+    """The card's fleet round under ``h``'s own deployment: the median
+    wall time of ``dep.run(max_steps=replicas, max_steps_per_replica=1)``
+    with every replica's batch full, over LOAD_ROUND_REPS rounds after
+    LOAD_ROUND_WARM (and after the harness's warm-up)."""
+    h._warmup()
+    n = h.replicas * h.batch_size
+    times = []
+    with h._make_deployment(time.monotonic, faults=False) as dep:
+        for i in range(LOAD_ROUND_WARM + LOAD_ROUND_REPS):
+            for j in range(n):
+                if not dep.submit(DetectRequest(
+                        uid=i * n + j, image=h._frames[j % len(h._frames)])):
+                    raise AssertionError("load: a round's request rejected")
+            t0 = time.perf_counter()
+            done = dep.run(max_steps=h.replicas, max_steps_per_replica=1)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if len(done) != n or not all(r.done for r in done):
+                raise AssertionError(f"load: a round served {len(done)} of "
+                                     f"{n}")
+    return statistics.median(times[LOAD_ROUND_WARM:]), times
+
+
+def wall_load(np, lg, serve_mod, acc, DetectRequest, label: str,
+              backend=None, levels=LOAD_SHORT_LEVELS,
+              extended=False) -> dict:
+    """(b) of path load: a wall-clock sweep of ``acc`` at ``levels`` x
+    the card's capacity (``fleet_round_ms``), Poisson arrivals, seed 0,
+    LOAD_ROUNDS rounds a level; the first level read once more before
+    the sweep (is the warm-up enough?). ``extended`` (``--only load``)
+    reads instead, after the sweep, the four arrival shapes at 1.0x
+    (``load_harness._process_rows``), one row with replica 0 crashing
+    at step LOAD_KILL_STEP at LOAD_KILL_LEVEL x (``chaos_harness``'s
+    kill scenario), and the sweep and the crash row again with arrivals
+    in groups of BATCH (``GroupedArrivals``: a camera handing over a
+    batch a capture, the reference's elastic workload), whose gaps are
+    long enough for the wall loop to start rounds in them (PERF.md
+    §7)."""
+    Rec = recording(lg.OpenLoopHarness, LOAD_SAMPLE)
+    kw = dict(replicas=LOAD_REPLICAS, batch_size=BATCH, backend=backend,
+              seed=0)
+    round_ms, samples = fleet_round_ms(Rec(acc, step_ms=1.0, **kw),
+                                       DetectRequest)
+    slo_ms = LOAD_SLO_ROUNDS * round_ms
+    h = Rec(acc, slo_ms=slo_ms, step_ms=round_ms, **kw)
+    cap = h.capacity_rps()
+    duration = LOAD_ROUNDS * h.step_s
+    print(f"[load] {label}: fleet round {round_ms:.3f} ms (median of "
+          f"{LOAD_ROUND_REPS} after {LOAD_ROUND_WARM}; all: "
+          + ", ".join(f"{t:.2f}" for t in samples)
+          + f") -> capacity {cap:.2f} rps; slo {slo_ms:.2f} ms; "
+          f"{LOAD_ROUNDS} rounds ({duration:.3f} s) a level", flush=True)
+    out = {"round_ms": round_ms, "round_samples_ms": samples,
+           "capacity_rps": cap, "slo_ms": slo_ms, "duration_s": duration}
+    kept = [h.kept]
+
+    def poisson(rate, seed=0):
+        return lg.PoissonArrivals(rate=rate, seed=seed)
+
+    def groups(rate, seed=0):
+        return lg.GroupedArrivals(poisson(rate / BATCH, seed), BATCH)
+
+    def row_of(tag, r, proc):
+        check_ledger(r, f"{label} {tag}")
+        row = load_row(r)
+        row["long_gaps"] = long_gaps(proc, duration, h.step_s)
+        print_load(f"load {label} {tag}", row)
+        return row
+
+    def run(tag, proc, level, harness=h):
+        r = harness.run(proc, duration, clock="wall")
+        r.extras["level"] = level
+        return row_of(tag, r, proc)
+
+    def sweep(tag, process_for):
+        results, knee = h.sweep(levels=levels, rounds=LOAD_ROUNDS, seed=0,
+                                clock="wall", process_for=process_for)
+        rows = [row_of(tag, r, process_for(r.extras["level"] * cap, 0))
+                for r in results]
+        # find_knee falls back to the lowest level when none clears its
+        # floor
+        floor = knee["efficiency_floor"]
+        held = "" if any(e >= floor for e in knee["on_time_frac_by_level"]) \
+            else f"; no level on time >= {floor}: the lowest"
+        print(f"[load] {label} {tag}: knee at "
+              f"{knee['knee_offered_rps']:.2f} rps offered "
+              f"({knee['knee_offered_rps'] / cap:.2f} x capacity{held}), "
+              f"goodput peak {knee['goodput_peak_rps']:.2f} rps; on time "
+              f"by level {knee['on_time_frac_by_level']}", flush=True)
+        return {"rows": rows, "knee": knee}
+
+    def crash(tag, proc):
+        hk = Rec(acc, slo_ms=slo_ms, step_ms=round_ms, retry_budget=2,
+                 fault_plan=serve_mod.FaultPlan([serve_mod.FaultEvent(
+                     replica=0, kind="crash", step=LOAD_KILL_STEP)], seed=0),
+                 **kw)
+        kept.append(hk.kept)
+        row = run(tag, proc, LOAD_KILL_LEVEL, harness=hk)
+        # the crash fires only if replica 0 reaches step LOAD_KILL_STEP
+        # inside the run; the ledger holds either way
+        print(f"[load] {label} {tag} at replica 0's step {LOAD_KILL_STEP}: "
+              f"{'fired' if row['faults']['faults'] else 'did not fire'}; "
+              f"faults {row['faults']}", flush=True)
+        return row
+
+    if not extended:
+        out["first_level_first_reading"] = run(
+            "first reading", poisson(levels[0] * cap), levels[0])
+    out["sweep"] = sweep("sweep", poisson)
+    if extended:
+        period, burst_w = duration / 2.0, max(duration / 8.0, 2 * h.step_s)
+        out["shapes"] = [run("shape", proc, 1.0) for proc in (
+            lg.ConstantArrivals(rate=cap), poisson(cap),
+            lg.DiurnalPoissonArrivals(base_rate=0.2 * cap,
+                                      peak_rate=1.8 * cap, period_s=period,
+                                      seed=0),
+            lg.OnOffBurstArrivals(rate_on=2.0 * cap, on_s=burst_w,
+                                  off_s=burst_w, seed=0))]
+        out["kill"] = crash("crash", poisson(LOAD_KILL_LEVEL * cap))
+        out["grouped"] = sweep("grouped", groups)
+        out["grouped_kill"] = crash("grouped crash",
+                                    groups(LOAD_KILL_LEVEL * cap))
+    out["outputs_checked"] = sum(check_served(np, k) for k in kept)
+    return out
+
+
 def _leaves(tree) -> list:
     """The leaves of a nested dict."""
     if isinstance(tree, dict):
@@ -3010,7 +3346,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--only", choices=("stream", "a8", "conv", "attn",
-                                       "ssd", "dec", "pool"),
+                                       "ssd", "dec", "pool", "load",
+                                       "decwin"),
                     help="only one slice's reading, for a before/after "
                     "(copied into an older checkout, it reads that "
                     "checkout's kernels): stream, #4 and #5's cases and the "
@@ -3027,8 +3364,11 @@ def main() -> int:
                     "twice its planned share length, and a profiler split "
                     "of one granite-3-8b and one zamba2-1.2b decode step; "
                     "pool, #3's cases, the NaN probe and a profiler split "
-                    "of one yolov3-tiny forward at 416. Prints no result "
-                    "line")
+                    "of one yolov3-tiny forward at 416; load, the wall-"
+                    "clock load sweeps of yolov8n at 640, float and W8A16, "
+                    "the arrival shapes and a replica crash; decwin, #12 "
+                    "past S with a window (reported, not enforced). Prints "
+                    "no result line")
     args = ap.parse_args()
 
     T0 = time.perf_counter()
@@ -3056,6 +3396,7 @@ def main() -> int:
         from repro_torch.core.toolflow import place
         from repro_torch.serve import (AcceleratorReplica, Deployment,
                                        DetectRequest)
+        import repro_torch.serve as serve_mod
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from "
               f"{ROOT / 'src'}: {e}", file=sys.stderr)
@@ -3140,6 +3481,34 @@ def main() -> int:
                   share_sweep=dec_share_sweep(torch, K, dev0), step={
             a: dec_step_split(torch, lm, registry, dev0, a)
             for a in ("granite-3-8b", "zamba2-1.2b")})
+        print(f"[card] {smi()}")
+        return 0
+    if args.only == "decwin":
+        write_out({}, dec_window=dec_window_check(torch, K, dev0,
+                                                  strict=False))
+        print(f"[card] {smi()}")
+        return 0
+    if args.only == "load":
+        import repro_torch.loadgen as lg
+        load = {}
+        # the designs of main and quant_w8a16 (the same weights)
+        for label, backend in (("float", None), ("w8a16", "quant")):
+            acc_l = core.compile(model, core.CompileConfig(
+                backend=backend, batch_size=BATCH, replicas=LOAD_REPLICAS),
+                params=random_params(torch, codegen, model.graph, 0))
+            for c in counters.values():
+                c.reset()
+            load[label] = wall_load(
+                np, lg, serve_mod, acc_l, DetectRequest,
+                f"yolov8n@{IMG} {label}", backend=backend,
+                levels=lg.DEFAULT_LEVELS, extended=True)
+            load[label]["launches"] = {k: c.value
+                                       for k, c in counters.items()}
+            print(f"[load] {label}: launches "
+                  f"{_nonzero(load[label]['launches'])}", flush=True)
+            del acc_l
+            torch.cuda.empty_cache()
+        write_out({}, load=load)
         print(f"[card] {smi()}")
         return 0
     if args.only == "ssd":
@@ -3317,6 +3686,7 @@ def main() -> int:
     sums_attn = attn_sums(per_kernel)
     sums_ssd = ssd_sums(per_kernel)
     pointer = a8_pointer_check(torch, qmatmul, dev0)
+    dec_window = dec_window_check(torch, K, dev0)
 
     # ---------------------------------------------------------------- 3
     (images, done, stats, wall), main_counts = drive(acc, N_REQ, IMG, 0)
@@ -3540,6 +3910,42 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3f}" for k, v in spans_q.items()),
           flush=True)
 
+    # ---------------------------------------------------------------- load
+    # the open-loop harness through the user's entry points: (a) the
+    # published model-clock sweep on the card (and, outside the counted
+    # run, on the CPU: the same rows), (b) a short wall-clock sweep of
+    # main's design at multiples of the card's measured capacity
+    import repro_torch.loadgen as lg
+    t_load = time.perf_counter()
+    for c in counters.values():
+        c.reset()
+    load = {"model_clock": model_clock_load(np, core, yolo, lg)}
+    load["wall_float"] = wall_load(np, lg, serve_mod, acc, DetectRequest,
+                                   f"yolov8n@{IMG} float")
+    paths["load"] = {k: c.value for k, c in counters.items()}
+    load["model_clock_cpu"] = model_clock_load(np, core, yolo, lg,
+                                               devices=["cpu"])
+    mc, mc_cpu = load["model_clock"], load["model_clock_cpu"]
+    knee = mc["knee"]["knee_offered_rps"]
+    print(f"[load] model clock, {LOAD_MODEL[0]}@{LOAD_MODEL[1]} batch "
+          f"{LOAD_MODEL[2]}: knee {knee!r} rps on the card "
+          f"({mc['seconds']:.1f}s), {mc_cpu['knee']['knee_offered_rps']!r} "
+          f"on the CPU ({mc_cpu['seconds']:.1f}s), published "
+          f"{LOAD_KNEE_RPS!r}; on time by level "
+          f"{mc['knee']['on_time_frac_by_level']}; "
+          f"{mc['outputs_checked']} served outputs finite on the card",
+          flush=True)
+    if mc["rows"] != mc_cpu["rows"] or mc["knee"] != mc_cpu["knee"] \
+            or knee != LOAD_KNEE_RPS or mc["outputs_checked"] <= 0:
+        raise AssertionError(f"load: model-clock sweep {mc['knee']} on the "
+                             f"card, {mc_cpu['knee']} on the CPU")
+    want_load = {k: v for k, v in paths["load"].items() if v}
+    if set(want_load) != {"conv2d", "maxpool2d", "resize_nearest"}:
+        raise AssertionError(f"load path launches {paths['load']}")
+    load["seconds"] = time.perf_counter() - t_load
+    print(f"[load] launches {_nonzero(paths['load'])}; path load took "
+          f"{load['seconds']:.1f}s", flush=True)
+
     # ---------------------------------------------------------------- 5, 6
     # lm, ssm, hybrid: granite-3-8b, mamba2-130m and zamba2-1.2b at full
     # width and depth, each served by Engine
@@ -3597,6 +4003,7 @@ def main() -> int:
             "conv": {"sums": sums_conv, "float_forward": fwd_split},
             "pool": {"sums": sums_pool, "nan": nan},
             "attn": {"sums": sums_attn}, "ssd": {"sums": sums_ssd},
+            "dec_window": dec_window, "load": load,
             **lm_runs, "build_s": info["seconds"]}, indent=1))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T0:.0f}s")
     print(f"[card] {smi()}")

@@ -15,6 +15,7 @@ buffers, codegen, toolflow), ``kernels`` (ops dispatch, plain versions in
 ``nn`` (layers, attention), ``models`` (``yolo``, ``lm``), ``serve``
 (with the deprecated ``serve.detection`` and ``serve.engine`` shims),
 ``check`` (the design-rule checker's command line), ``data.synthetic``,
-``roofline.hw``. The package imports torch, numpy and the standard
-library only.
+``loadgen`` (seeded arrival processes and the open-loop harness over
+``serve.Deployment``, on a model or a wall clock), ``roofline.hw``. The
+package imports torch, numpy and the standard library only.
 """

@@ -12,7 +12,9 @@
 //   one kv head (K and V are read once for all of them; RB = the next
 //   power of two of Hq/Hkv, at most 8, more groups past that) and the
 //   share [lo + j·L, lo + (j+1)·L) of the row's LIVE range [lo, hi),
-//   hi = min(len, S), lo = max(hi - window, 0). L comes from the host's
+//   hi = min(len, S), lo = max(len - window, 0) (the window starts from
+//   the raw length, as the Pallas kernel's does, also past S; a row with
+//   lo >= hi has no share to stream). L comes from the host's
 //   plan (kernels/decode_attention.py `_plan`), which never reads the
 //   lengths: the grid is the upper bound ceil(min(S, window)/L) shares,
 //   and a block whose share starts past its row's live range exits at
@@ -191,9 +193,10 @@ decode_share_kernel(const float* __restrict__ q, const float* __restrict__ kc,
     const int j = blockIdx.y;
     const int V4 = D / 4;
 
-    const int hi = max(min(lens[b], S), 0);
-    const int lo = window > 0 ? max(hi - window, 0) : 0;
-    const int busy = (hi - lo + L - 1) / L;
+    const int len = lens[b];
+    const int hi = max(min(len, S), 0);
+    const int lo = window > 0 ? max(len - window, 0) : 0;
+    const int busy = hi > lo ? (hi - lo + L - 1) / L : 0;
     if (j >= busy) {
         if (j == 0)                     // no visible position: 0
             for (int f = threadIdx.x; f < nh * V4; f += kThreads)

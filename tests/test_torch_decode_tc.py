@@ -16,13 +16,16 @@ the warps, each warp an online softmax over its stages; the warps merged
 in the block, then the shares in share order) holds seeded GQA cases
 with a window and a softcap within 2e-5 of the JAX package's
 ``ref.decode_attention`` on the same numpy inputs, and gives exactly 0
-on a row with no visible position.
+on a row with no visible position; past S with a window (the window
+starts at len - window, also past S) it holds within 2e-5 of the Pallas
+kernel in interpret mode, 0 where nothing is visible.
 
 On the card (``-m gpu``; they skip without one), each against
 ``ref.decode_attention`` at atol = rtol = 2e-5
 (``KERNEL_TOL["decode_attention"]`` in chip_smoke.py): D in {36, 64,
 128, 256} x rep in {1, 2, 4, 8} x window x softcap; lengths 0, 1, L - 1,
-L, L + 1, 2L + 1, S and (without a window) above S; 12 and 16 q heads a
+L, L + 1, 2L + 1, S and S + 9, with and without a window; lengths past
+S + window (nothing visible: 0); 12 and 16 q heads a
 kv head (two head groups); two launches bit-equal; a non-default stream;
 the scratch grown and reused across two shapes; no host sync
 (``torch.cuda.set_sync_debug_mode("error")``); the library's shared
@@ -35,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import decode_attention as jdec
 from repro.kernels import ref as jref
 from repro_torch.configs import registry
 from repro_torch.kernels import _build
@@ -69,8 +73,12 @@ PLAN_SHAPES = {**DEC_SHAPES, **_model_shapes()}
 
 
 def _live(n, S, window):
+    """The visible range [lo, hi) of a row of length n: the positions
+    below min(n, S) and, with a window, from n - window on (the Pallas
+    kernel's and ``ref.decode_attention``'s rule, also for n > S);
+    empty where lo >= hi."""
     hi = max(min(n, S), 0)
-    lo = max(hi - window, 0) if window else 0
+    lo = max(n - window, 0) if window else 0
     return lo, hi
 
 
@@ -80,9 +88,10 @@ def _live(n, S, window):
 
 @pytest.mark.parametrize("name", sorted(PLAN_SHAPES))
 def test_plan_covers_every_length(name):
-    """For every length 1..S + 1: the busy shares, ceil(live / L), fit
-    the grid, and tile the live range [lo, hi) exactly, each but the
-    last L positions; the grid is the fewest shares that cover the
+    """For every length 1..S + 1 and a few past S + window: the busy
+    shares, ceil(live / L), fit the grid, and tile the live range
+    [lo, hi) exactly, each but the last L positions (none where the
+    range is empty); the grid is the fewest shares that cover the
     span."""
     B, S, Hq, Hkv, D, win = PLAN_SHAPES[name]
     L, shares = tdec._plan(S, win or 0, D, Hq // Hkv, B * Hkv)
@@ -91,8 +100,11 @@ def test_plan_covers_every_length(name):
     assert shares == -(-span // L) <= tdec.MAX_SHARES
     for window in (win or 0, 0, 1, 7, L, L + 1):
         Lw, sw = tdec._plan(S, window, D, Hq // Hkv, B * Hkv)
-        for n in range(1, S + 2):
+        for n in [*range(1, S + 2), S + 9, S + window, S + window + 1]:
             lo, hi = _live(n, S, window)
+            if lo >= hi:                    # nothing visible: no share
+                assert window and n >= S + 1, (window, n)
+                continue
             busy = -(-(hi - lo) // Lw)
             assert 1 <= busy <= sw, (window, n)
             starts = [lo + j * Lw for j in range(busy)]
@@ -167,9 +179,9 @@ def _emulate(q, kc, vc, lens, *, window, softcap, scale, L):
     out = np.zeros(q.shape, f32)
     for b, hk in itertools.product(range(B), range(Hkv)):
         lo, hi = _live(int(lens[b]), S, window)
-        busy = -(-(hi - lo) // L)
-        if busy == 0:
+        if lo >= hi:                        # nothing visible: 0
             continue
+        busy = -(-(hi - lo) // L)
         heads = slice(hk * rep, (hk + 1) * rep)
         qs = (q[b, heads] * f32(scale)).astype(f32)
         parts = []
@@ -254,6 +266,31 @@ def test_emulated_row_with_no_visible_position_is_zero():
     np.testing.assert_allclose(got[1], want[1], atol=TOL, rtol=TOL)
 
 
+@pytest.mark.parametrize("window", [40, 7])
+def test_emulated_past_s_with_a_window_matches_pallas(window):
+    """Lengths past S with a window: the route's live range starts at
+    len - window (not min(len, S) - window), as the Pallas kernel's
+    does; where nothing is visible both give exactly 0."""
+    B, S, Hq, Hkv, D = 8, 160, 4, 2, 64
+    lens = (S - 1, S, S + 1, S + 9, S + window - 1, S + window,
+            S + window + 23, 20)
+    q, kc, vc = _inputs(window, B, S, Hq, Hkv, D)
+    L = tdec._plan(S, window, D, Hq // Hkv, B * Hkv)[0]
+    got = _emulate(q, kc, vc, lens, window=window, softcap=None,
+                   scale=1.0 / np.sqrt(D), L=L)
+    want = np.asarray(jdec.decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(np.asarray(lens, np.int32)), window=window))
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+    for b, n in enumerate(lens):
+        lo, hi = _live(n, S, window)
+        if lo >= hi:
+            assert np.all(got[b] == 0) and np.all(want[b] == 0)
+        # the rule the route had before: the window from min(len, S)
+        old_lo = max(min(n, S) - window, 0)
+        assert (old_lo != lo) == (n > S)
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
@@ -285,7 +322,8 @@ def _check(got, q, kc, vc, ln, lens, **kw):
     want = tref.decode_attention(q, kc, vc, ln, **kw)
     S = kc.shape[1]
     for b, n in enumerate(lens):
-        if min(n, S) <= 0:
+        lo, hi = _live(n, S, kw.get("window"))
+        if lo >= hi:
             assert torch.equal(got[b], torch.zeros_like(got[b]))
         else:
             torch.testing.assert_close(got[b], want[b], atol=TOL, rtol=TOL)
@@ -308,14 +346,25 @@ def test_matches_plain_on_the_card(cuda_device, D, rep, window, softcap):
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("window", [None, 100])
 def test_lengths_at_the_share_edges_on_the_card(cuda_device, D, window):
-    """Lengths 0, 1, L - 1, L, L + 1, 2L + 1, S and, without a window,
-    above S (with one, the kernel's live range ends at min(len, S), as
-    the parent's did, where the plain version's window starts at len)."""
+    """Lengths 0, 1, L - 1, L, L + 1, 2L + 1, S and S + 9, with and
+    without a window (with one, the live range at S + 9 starts at
+    len - window, as the plain version's window does)."""
     B, S, Hq, Hkv = 8, 700, 8, 2
     L = tdec._plan(S, window or 0, D, Hq // Hkv, B * Hkv,
                    _build.sm_count(cuda_device))[0]
-    lens = (0, 1, L - 1, L, L + 1, S, S + 9 if window is None else S - 1,
-            2 * L + 1)
+    lens = (0, 1, L - 1, L, L + 1, S, S + 9, 2 * L + 1)
+    q, kc, vc = _on(cuda_device, 11, B, S, Hq, Hkv, D)
+    got, ln = _launch(q, kc, vc, lens, window=window)
+    _check(got, q, kc, vc, ln, lens, window=window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_past_s_with_a_window_on_the_card(cuda_device, D):
+    """Lengths past S with a window, some with nothing visible (0)."""
+    B, S, Hq, Hkv, window = 8, 700, 8, 2, 100
+    lens = (S + 1, S + 9, S + 50, S + window - 1, S + window,
+            S + window + 37, 3 * S, S - 1)
     q, kc, vc = _on(cuda_device, 11, B, S, Hq, Hkv, D)
     got, ln = _launch(q, kc, vc, lens, window=window)
     _check(got, q, kc, vc, ln, lens, window=window)

@@ -13,6 +13,7 @@ import torch
 
 import repro_torch.core as tcore
 from repro_torch.configs import registry
+from repro_torch.loadgen import OpenLoopHarness, PoissonArrivals
 from repro_torch.models import lm, yolo
 from repro_torch.serve import Deployment, LmReplica
 from repro_torch.serve.engine import Engine
@@ -32,7 +33,7 @@ def test_no_file_imports_jax_or_the_jax_package():
     assert {"kernels/qmatmul.py", "serve/detection.py",
             "check/__main__.py", "models/lm.py", "nn/attention.py",
             "serve/engine.py", "configs/registry.py", "nn/ssm.py",
-            "kernels/ssd_scan.py"} <= names
+            "kernels/ssd_scan.py", "loadgen/harness.py"} <= names
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
@@ -51,6 +52,7 @@ def test_import_compile_and_run_load_no_jax():
         import repro_torch
         import repro_torch.core as core
         import repro_torch.check.__main__
+        import repro_torch.loadgen
         from repro_torch.models import yolo
         from repro_torch.serve import Deployment, DetectRequest
         from repro_torch.serve.detection import DetectionEngine
@@ -107,6 +109,10 @@ def test_entry_points_refuse_silent_cpu(monkeypatch, cpu_acc):
         tcore.compile(yolo.build("yolov3-tiny", 32))
     with pytest.raises(RuntimeError, match="CPU"):
         Deployment(cpu_acc)
+    for clock in ("model", "wall"):
+        with pytest.raises(RuntimeError, match="CPU"):
+            OpenLoopHarness(cpu_acc, step_ms=10.0).run(
+                PoissonArrivals(rate=100.0, seed=0), 0.05, clock=clock)
     with pytest.raises(RuntimeError):
         tcore.compile(yolo.build("yolov3-tiny", 32), torch_device="cuda")
     cfg = registry.reduced("granite-3-8b")
