@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out FILE.json]
                           [--only stream|a8|conv|attn|ssd|dec|pool|load|
-                                  decwin]
+                                  decwin|moe]
 
 Phases, each printed as it runs; any failure raises and the script exits
 non-zero:
@@ -215,13 +215,44 @@ non-zero:
    beside it; the sums print on a line of their own (``ssd_sums``).
    The attention kernels are also held at zamba2's head width 64
    (MHA_CASES, DEC_CASES).
+6b. The moe, vlm and encdec families and the int8 KV cache, each path
+   with the counters set to 0 just before it, its launches asserted
+   per prefill and step (``lm_launches``: qk-norm adds 2 rmsnorm a
+   layer; encdec adds ``ln_x``, the encoder and a cross-attention mha
+   per prefill, a second decode_attention a step; kv8's step attends
+   through tensor code, no decode_attention), its weights freed after
+   it and its peak memory printed. ``kv8``: granite-3-8b with
+   ``kv_bits=8`` on the ``lm`` path's weights, served by Engine
+   (FAMILY_REQ prompts in LM_PROMPT, FAMILY_NEW tokens each), held to
+   the plain ``kv_bits=8`` replay: prefill logits within LM_TOL, the
+   clear-margin token rule, each decode step's mean relative logit
+   difference below KV8_MEAN_REL (the JAX package's bound), the served
+   and replayed caches' differing codes counted. ``moe``:
+   qwen3-moe-30b-a3b at full width, MOE_LAYERS of 48, served likewise;
+   every routing recorded through ``moe.route`` (``Routes``) and the
+   plain replay forced onto the served experts (its own gates at them),
+   its logits within LM_TOL, every decision where its own top-k
+   differs a near tie (margin below ROUTE_TIE); dropped_frac per
+   prefill. ``vlm``: llava-next-34b at full width, VLM_LAYERS of 60, at
+   the model level (the reference's LmReplica passes only tokens):
+   VLM_ROWS rows of its 2880 seeded patch embeddings and a
+   VLM_PROMPT-token prompt, FAMILY_NEW greedy steps. ``encdec``:
+   seamless-m4t-medium whole at the model level, ENCDEC_ROWS rows of
+   ENCDEC_SRC frames and ENCDEC_PROMPT tokens. Both held at LM_TOL by
+   teacher forcing. Phase 2 holds #11 and #12 at these paths' head
+   ratios and cross-attention shapes (MHA_FAMILY_CASES,
+   DEC_FAMILY_CASES; their sums print apart, ``family_sums``). The
+   grouped expert contractions' (``moe.experts``) and the int8 decode
+   attention's (``flash.decode_grouped_q8``) device time in a step is
+   read under ``torch.profiler`` (``profile_call`` labels).
 7. A JSON line listing all 13 kernels (``launches`` is the count on
    the path that runs it: ``main`` for conv, maxpool and resize,
    ``fusion_off`` for pointwise, ``quant_w8a16`` for qmatmul,
    ``quant_w4a8`` for qmatmul_a8, ``quant_per_group`` for the grouped
    kernel, ``double`` for conv2d_double and qmatmul_a8_double, ``lm``
    for rmsnorm, mha and decode_attention, ``ssm`` for ssd_scan;
-   ``launches_by_path`` has every path), then the result line.
+   ``launches_by_path`` has every path; #11's and #12's sums include
+   their LM-family cases), then the result line.
 
 ``--only pool`` runs only phase 1, #3's cases (``pool_sums``), the NaN
 probe (reported, not enforced, so that it reads an earlier checkout too),
@@ -263,7 +294,12 @@ Poisson arrivals, the four arrival shapes at 1.0x, replica 0 crashing
 at step 16 at 0.9x, and the sweep and the crash again with arrivals in
 groups of 8), with each design's launches; ``--only decwin`` for
 ``dec_window_check`` alone (reported, not enforced, so that it reads an
-earlier checkout's #12 too).
+earlier checkout's #12 too); ``--only moe`` for path ``moe`` and
+llama4-maverick-400b-a17b at full width, one group of its grouped
+layout (a dense and an MoE layer with all 128 experts: 69.1 GiB of
+float32 weights), at the model level: one row of LLAMA4_PROMPT tokens
+and FAMILY_NEW greedy steps, checked as ``moe``, its peak memory
+printed (kept out of the full run, which must not fail on memory).
 
 Needs one CUDA card; exits non-zero without one, and in a directory that
 does not hold the repository's ``src/repro_torch``.
@@ -390,6 +426,24 @@ SSM_TOL = 1e-3
 LM_PATHS = {"lm": ("granite-3-8b", None, LM_TOL),
             "ssm": ("mamba2-130m", SSM_PROMPTS, SSM_TOL),
             "hybrid": ("zamba2-1.2b", SSM_PROMPTS, SSM_TOL)}
+# The moe, vlm and encdec families and the int8 KV cache (paths moe, kv8,
+# vlm, encdec; llama4-maverick under --only moe): FAMILY_REQ requests
+# (prompts uniform in LM_PROMPT) and FAMILY_NEW greedy tokens each, at
+# full width; the layers run of the configs the card cannot hold whole
+# in float32, and the rows and lengths of the model-level paths.
+FAMILY_REQ, FAMILY_NEW = 4, 16
+MOE_LAYERS = 12                  # of qwen3-moe-30b-a3b's 48: 30.2 GiB
+VLM_LAYERS = 8                   # of llava-next-34b's 60: 20.0 GiB
+VLM_ROWS, VLM_PROMPT = 2, 128    # after its 2880 patch embeddings
+ENCDEC_ROWS, ENCDEC_SRC, ENCDEC_PROMPT = 4, 1024, 64
+LLAMA4_PROMPT = 2048             # one group (2 of 48 layers): 69.1 GiB
+# kv8's decode steps against the plain kv_bits=8 replay: mean relative
+# logit difference below the JAX package's own bound for the int8 cache
+# (tests/test_quantized_serving.py:46-48).
+KV8_MEAN_REL = 0.05
+# A replayed MoE routing whose own top-k differs from the served one
+# must be a near tie: a probability margin below this.
+ROUTE_TIE = 1e-4
 # (M, K, N, act, res) of the quantized matmul cases: matmul launches of
 # the quantized yolov8n at 640, batch 8 (stem, a 3x3 with residual at
 # 160, the 3x3 head at 80, the 3x3 at 20, the 1x1 class head at 80).
@@ -465,6 +519,30 @@ DEC_CASES = {
                                  512, 50.0),
     "zamba2_B4_S4096_D64": (4, 4096, 32, 32, 64, (1, 700, 2048, 4096), None,
                             None),
+}
+# The LM families' attention launches (the moe, vlm and encdec paths),
+# apart from MHA_CASES and DEC_CASES so that their sums stay comparable:
+# #11 at qwen3-moe's rep 8 (32/4) and llava-next's rep 7 (56/8), causal,
+# and seamless-m4t's cross-attention (64 queries over 1024 encoder rows)
+# and encoder, non-causal at D 64; #12 at rep 8, llama4-maverick's rep 5
+# (40/8), and seamless-m4t's cross-attention step, len = S = 1024.
+MHA_FAMILY_CASES = {
+    "qwen3_rep8_T2048_causal": (1, 2048, 2048, 32, 4, 128, True, None,
+                                None),
+    "llava_rep7_T3008_causal": (1, 3008, 3008, 56, 8, 128, True, None,
+                                None),
+    "seamless_cross_Tq64_Tk1024_D64": (4, 64, 1024, 16, 16, 64, False, None,
+                                       None),
+    "seamless_encoder_T1024_D64": (4, 1024, 1024, 16, 16, 64, False, None,
+                                   None),
+}
+DEC_FAMILY_CASES = {
+    "qwen3_rep8_B4_S4096": (4, 4096, 32, 4, 128, (1, 700, 2048, 4096),
+                            None, None),
+    "llama4_rep5_B4_S4096": (4, 4096, 40, 8, 128, (1, 700, 2048, 4096),
+                             None, None),
+    "seamless_cross_B4_len_S1024_D64": (4, 1024, 16, 16, 64, (1024,) * 4,
+                                        None, None),
 }
 # #12 where a cache length passes S with a window (B, S, Hq, Hkv, D,
 # window, seed; the card test's shape): the window starts at len - window,
@@ -1161,7 +1239,8 @@ def lm_cases(torch, F, K, quant, dev):
             lambda x=x, w1=w1, D=D: F.rms_norm(x, (D,), w1, 1e-6),
             5 * R * D, 4 * (2 * R * D + D), PEAK_FP32_FLOPS,
             KERNEL_TOL["rmsnorm"], K.pointwise.rmsnorm_launches, None))
-    for name, (B, Tq, Tk, Hq, Hkv, D, causal, win, cap) in MHA_CASES.items():
+    for name, (B, Tq, Tk, Hq, Hkv, D, causal, win, cap) in {
+            **MHA_CASES, **MHA_FAMILY_CASES}.items():
         q, k, v = rnd(B, Tq, Hq, D), rnd(B, Tk, Hkv, D), rnd(B, Tk, Hkv, D)
         kw = dict(causal=causal, window=win, softcap=cap)
         qi = torch.arange(Tq, device=dev)[:, None] + Tk - Tq
@@ -1184,7 +1263,8 @@ def lm_cases(torch, F, K, quant, dev):
             {"fp32_bound_ms": max(bound(flops, nbytes)),
              "plan": attn_plan(K.attention, dev, D, B, Tq, Tk, Hq),
              "library_backend": True}))
-    for name, (B, S, Hq, Hkv, D, lens, win, cap) in DEC_CASES.items():
+    for name, (B, S, Hq, Hkv, D, lens, win, cap) in {
+            **DEC_CASES, **DEC_FAMILY_CASES}.items():
         q, kc, vc = rnd(B, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
         kw = dict(window=win, softcap=cap)
@@ -1685,7 +1765,7 @@ def attn_sums(per_kernel: dict) -> dict:
     out = {}
     keys = ("ms", "device_ms", "issue_ms", "bound_ms", "fp32_bound_ms",
             "plain_ms")
-    cases = per_kernel["mha"]["cases"]
+    cases = [c for c in per_kernel["mha"]["cases"] if c["case"] in MHA_CASES]
     sums = {k: sum(c[k] for c in cases) for k in keys}
     lib = [c for c in cases if c["library_ms"] is not None]
     with_lib = {k: sum(c[k] for c in lib) for k in (
@@ -1701,6 +1781,7 @@ def attn_sums(per_kernel: dict) -> dict:
     print(f"  mha over the {len(lib)} cases without softcap: kernel "
           f"{w['ms']} ms back to back, device {w['device_ms']}; SDPA "
           f"{w['library_ms']}, device {w['library_device_ms']}", flush=True)
+    out["mha_families"] = family_sums(per_kernel, "mha", MHA_FAMILY_CASES)
     if "decode_attention" in per_kernel:
         out["decode_attention"] = dec_sums(per_kernel)
     return out
@@ -1711,7 +1792,8 @@ def dec_sums(per_kernel: dict) -> dict:
     per call, bound) and, over the cases SDPA takes (no softcap), the
     kernel's and SDPA's, back to back and by device time; each printed
     on a line of its own."""
-    cases = per_kernel["decode_attention"]["cases"]
+    cases = [c for c in per_kernel["decode_attention"]["cases"]
+             if c["case"] in DEC_CASES]
     keys = ("ms", "device_ms", "issue_ms", "bound_ms", "plain_ms")
     sums = {k: sum(c[k] for c in cases) for k in keys}
     lib = [c for c in cases if c["library_ms"] is not None]
@@ -1727,7 +1809,24 @@ def dec_sums(per_kernel: dict) -> dict:
           f"kernel {w['ms']} ms back to back, device {w['device_ms']}; SDPA "
           f"{w['library_ms']}, device {w['library_device_ms']}", flush=True)
     return {"cases": len(cases), **sums, "sdpa_cases": len(lib),
-            **{f"sdpa_cases_{k}": v for k, v in with_lib.items()}}
+            **{f"sdpa_cases_{k}": v for k, v in with_lib.items()},
+            "families": family_sums(per_kernel, "decode_attention",
+                                    DEC_FAMILY_CASES)}
+
+
+def family_sums(per_kernel: dict, kname: str, names: dict) -> dict:
+    """``kname``'s sums over its LM-family cases ``names`` (kernel back to
+    back and by device time, plain, bound, SDPA by device time), printed
+    on a line of their own."""
+    cases = [c for c in per_kernel[kname]["cases"] if c["case"] in names]
+    sums = {k: sum(c[k] for c in cases) for k in (
+        "ms", "device_ms", "plain_ms", "bound_ms", "library_device_ms")}
+    f = {k: f"{v:.4f}" for k, v in sums.items()}
+    print(f"  {kname} sum over the {len(cases)} LM-family cases: kernel "
+          f"{f['ms']} ms back to back, device {f['device_ms']}; plain "
+          f"{f['plain_ms']}; bound {f['bound_ms']}; SDPA device "
+          f"{f['library_device_ms']}", flush=True)
+    return {"cases": len(cases), **sums}
 
 
 def dec_share_sweep(torch, K, dev) -> dict | None:
@@ -2788,24 +2887,26 @@ def quant_extra_spans(torch, codegen, ops, quant, acc, float_params) -> dict:
 # the lm path: granite-3-8b served by Engine, checked by teacher forcing
 # --------------------------------------------------------------------------
 
-def lm_prompts(np, vocab: int, lens=None) -> list:
-    """Prompts from seed 0 of the lengths ``lens``, or of LM_REQ lengths
+def lm_prompts(np, vocab: int, lens=None, n: int = LM_REQ) -> list:
+    """Prompts from seed 0 of the lengths ``lens``, or of ``n`` lengths
     uniform in LM_PROMPT."""
     rng = np.random.default_rng(0)
     if lens is None:
-        lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQ)
+        lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=n)
     return [[int(t) for t in rng.integers(0, vocab, size=int(n))]
             for n in lens]
 
 
-def serve_lm(torch, np, Engine, Request, cfg, params, dev, prompts):
-    """Serve ``prompts`` through ``Engine`` (greedy, LM_NEW tokens each).
-    The replica's sampler records the logits it samples from (the served
-    logits), and its prefill is timed on the host clock between two
-    synchronisations (its sampling synchronises right after anyway).
-    Returns (finished requests, wall s, {uid: [logits per token]},
-    [(prompt length, prefill ms)], decode steps, [host ms to issue each
-    decode step])."""
+def serve_lm(torch, np, Engine, Request, cfg, params, dev, prompts,
+             n_new: int = LM_NEW, on_prefill=None, on_decode=None):
+    """Serve ``prompts`` through ``Engine`` (greedy, ``n_new`` tokens
+    each). The replica's sampler records the logits it samples from (the
+    served logits), and its prefill is timed on the host clock between
+    two synchronisations (its sampling synchronises right after anyway).
+    ``on_prefill(tokens)`` and ``on_decode(replica)`` are called just
+    before each prefill and decode step. Returns (finished requests, wall
+    s, {uid: [logits per token]}, [(prompt length, prefill ms)], decode
+    steps, [host ms to issue each decode step], the replica)."""
     eng = Engine(cfg, params, max_batch=LM_BATCH, cache_size=LM_CACHE,
                  seed=0, device=dev)
     rep = eng._replica
@@ -2821,6 +2922,8 @@ def serve_lm(torch, np, Engine, Request, cfg, params, dev, prompts):
         return sample(logits, req)
 
     def timed_prefill(p, batch):
+        if on_prefill is not None:
+            on_prefill(batch["tokens"])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = prefill(p, batch)
@@ -2832,6 +2935,8 @@ def serve_lm(torch, np, Engine, Request, cfg, params, dev, prompts):
     decode, decode_issue = rep._decode, []
 
     def timed_decode(p, tokens, cache):
+        if on_decode is not None:
+            on_decode(rep)
         t0 = time.perf_counter()
         out = decode(p, tokens, cache)
         decode_issue.append((time.perf_counter() - t0) * 1e3)
@@ -2840,72 +2945,112 @@ def serve_lm(torch, np, Engine, Request, cfg, params, dev, prompts):
     rep._sample, rep._prefill1 = record, timed_prefill
     rep._decode = timed_decode
     for i, prompt in enumerate(prompts):
-        eng.submit(Request(uid=i, prompt=prompt, max_new_tokens=LM_NEW))
+        eng.submit(Request(uid=i, prompt=prompt, max_new_tokens=n_new))
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = rep.stats["batches"]
     eng.close()
-    return done, wall, served, prefill_ms, steps, decode_issue
+    # the wrappers close over the replica's own bound methods: drop them
+    # so that the replica, and its weights, go when its last name does
+    del rep._sample, rep._prefill1, rep._decode
+    return done, wall, served, prefill_ms, steps, decode_issue, rep
+
+
+def hold_logits(torch, tag: str, want_rows: list, got_rows: list,
+                tokens: list, out: dict) -> None:
+    """One request's served logits (``got_rows``, numpy, one a token)
+    against the plain path's (``want_rows``, tensors) on the same
+    tokens: each step's max |difference| and mean relative difference
+    (mean |difference| over mean |plain|) go into ``out`` (step 0, the
+    prefill, apart), and every served token whose plain top-2 margin
+    exceeds twice that step's difference must be the plain argmax."""
+    if len(got_rows) != len(want_rows):
+        raise AssertionError(f"{tag}: {len(got_rows)} served logits, "
+                             f"{len(want_rows)} replayed")
+    for t, (want, g) in enumerate(zip(want_rows, got_rows)):
+        g = torch.from_numpy(g) if not isinstance(g, torch.Tensor) else g
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{tag} step {t}: non-finite logits")
+        diff = (g - want).abs()
+        d = float(diff.max())
+        rel = float(diff.mean() / (want.abs().mean() + 1e-9))
+        out["prefill" if t == 0 else "steps"].append(d)
+        if t:
+            out["step_rel"].append(rel)
+        top2 = torch.topk(want, 2).values
+        if float(top2[0] - top2[1]) > 2 * d:
+            out["tokens_checked"] += 1
+            if tokens[t] != int(want.argmax()):
+                raise AssertionError(
+                    f"{tag} step {t}: served token {tokens[t]} != plain "
+                    f"argmax {int(want.argmax())} (margin "
+                    f"{float(top2[0] - top2[1]):.3e}, difference {d:.3e})")
+        else:
+            out["tokens_within_margin"] += 1
+
+
+def held_summary(out: dict) -> dict:
+    """``hold_logits``' lists as maxima and means."""
+    diffs = out["prefill"] + out["steps"]
+    return {"max_abs_err": max(diffs),
+            "mean_step_err": sum(diffs) / len(diffs),
+            "prefill_max_abs_err": max(out["prefill"]),
+            "step_max_abs_err": max(out["steps"], default=0.0),
+            "step_mean_rel_max": max(out["step_rel"], default=0.0),
+            "tokens_checked": out["tokens_checked"],
+            "tokens_within_margin": out["tokens_within_margin"]}
+
+
+def new_held() -> dict:
+    return {"prefill": [], "steps": [], "step_rel": [],
+            "tokens_checked": 0, "tokens_within_margin": 0}
 
 
 def replay_plain(torch, np, lm, ops, cfg, params, dev, prompts, done,
-                 served) -> dict:
+                 served, n_new: int = LM_NEW, before=None,
+                 after=None) -> dict:
     """Teacher forcing on the plain path: every request's prompt, then
     its served tokens one by one, through ``lm.prefill`` and
     ``lm.decode_step`` with the default backend set to ``"ref"`` (the
-    plain versions, on the card). Returns the max and mean |served -
-    plain| logits over every step, and how many served tokens were held
-    to the plain argmax (those whose plain top-2 margin exceeds twice
-    that step's difference; a mismatch there raises)."""
-    diffs, checked, skipped = [], 0, 0
+    plain versions, on the card), each request's logits held to its
+    served ones by ``hold_logits``. ``before(uid)`` runs before a
+    request's replay, ``after(uid, cache)`` after it. Returns
+    ``held_summary``."""
+    out = new_held()
     ops.set_default_backend("ref")
     try:
         for req in sorted(done, key=lambda r: r.uid):
-            prompt, out = prompts[req.uid], req.out_tokens
+            prompt, toks = prompts[req.uid], req.out_tokens
+            if len(toks) != n_new:
+                raise AssertionError(f"request {req.uid}: {len(toks)} "
+                                     f"tokens, expected {n_new}")
+            if before is not None:
+                before(req.uid)
             rows = []
             with torch.inference_mode():
-                toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
-                logits, cache = lm.prefill(params, cfg, {"tokens": toks},
-                                           len(prompt) + LM_NEW)
+                t = torch.tensor([prompt], dtype=torch.int32, device=dev)
+                logits, cache = lm.prefill(params, cfg, {"tokens": t},
+                                           len(prompt) + n_new)
                 rows.append(logits[0].cpu())
-                for t in out[:-1]:
+                for tok in toks[:-1]:
                     logits, cache = lm.decode_step(
                         params, cfg,
-                        torch.tensor([t], dtype=torch.int32, device=dev),
+                        torch.tensor([tok], dtype=torch.int32, device=dev),
                         cache)
                     rows.append(logits[0].cpu())
-            got = served[req.uid]
-            if len(got) != len(rows) or len(out) != LM_NEW:
-                raise AssertionError(f"lm request {req.uid}: {len(out)} "
-                                     f"tokens, {len(got)} served logits")
-            for t, (want, g) in enumerate(zip(rows, got)):
-                g = torch.from_numpy(g)
-                if not bool(torch.isfinite(g).all()):
-                    raise AssertionError(f"lm request {req.uid} step {t}: "
-                                         f"non-finite logits")
-                d = float((g - want).abs().max())
-                diffs.append(d)
-                top2 = torch.topk(want, 2).values
-                if float(top2[0] - top2[1]) > 2 * d:
-                    checked += 1
-                    if out[t] != int(want.argmax()):
-                        raise AssertionError(
-                            f"lm request {req.uid} step {t}: served token "
-                            f"{out[t]} != plain argmax {int(want.argmax())}"
-                            f" (margin {float(top2[0] - top2[1]):.3e}, "
-                            f"difference {d:.3e})")
-                else:
-                    skipped += 1
+            if after is not None:
+                after(req.uid, cache)
+            hold_logits(torch, f"{cfg.name} request {req.uid}", rows,
+                        served[req.uid], toks, out)
     finally:
         ops.set_default_backend("auto")
-    return {"max_abs_err": max(diffs), "mean_step_err": sum(diffs)
-            / len(diffs), "tokens_checked": checked,
-            "tokens_within_margin": skipped}
+    return held_summary(out)
 
 
-def profile_call(torch, fn, top: int = 6, match: str | None = None) -> dict:
+def profile_call(torch, fn, top: int = 6, match: str | None = None,
+                 labels: dict | None = None) -> dict:
     """Three calls of ``fn`` (after a warm-up call) on the host clock,
     then one under ``torch.profiler``: ``issue`` (the host's time to
     return from ``fn``, the queue empty at its start, median), ``wall``
@@ -2915,10 +3060,15 @@ def profile_call(torch, fn, top: int = 6, match: str | None = None) -> dict:
     last kernel end), ``kernels`` (launches) and the ``top`` kernel
     names by time, and ``by_name`` (each kernel name's ms and count);
     with ``match``, ``match_ms`` and ``match_kernels``,
-    the time and count of the kernels whose name contains it; the device
-    numbers are None where the profiler records no kernel."""
+    the time and count of the kernels whose name contains it; with
+    ``labels`` ({label: (module, function name)}), each such function
+    runs under ``torch.profiler.record_function(label)`` in the profiled
+    call only, and ``label_ms`` has, for each label, the summed time of
+    the kernels inside its ranges on the device's timeline, its ranges
+    and those kernels; the device numbers are None where the profiler
+    records no kernel."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     fn()
     issue, wall = [], []
     for _ in range(3):
@@ -2931,11 +3081,34 @@ def profile_call(torch, fn, top: int = 6, match: str | None = None) -> dict:
         wall.append((time.perf_counter() - t0) * 1e3)
     out = {"issue": sorted(issue)[1], "wall": sorted(wall)[1], "busy": None,
            "span": None, "kernels": 0, "top": []}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    saved = {}
+    for label, (mod, name) in (labels or {}).items():
+        def under(*a, _f=getattr(mod, name), _label=label, **kw):
+            with record_function(_label):
+                return _f(*a, **kw)
+        saved[label] = (mod, name, getattr(mod, name))
+        setattr(mod, name, under)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for mod, name, f in saved.values():
+            setattr(mod, name, f)
+    gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ks = [e for e in gpu if e.name not in (labels or {})]   # not ranges
+    if labels:
+        out["label_ms"] = {}
+        for label in labels:
+            spans = [(e.time_range.start, e.time_range.end) for e in gpu
+                     if e.name == label]
+            inside = [k for k in ks if any(
+                a <= k.time_range.start and k.time_range.end <= b
+                for a, b in spans)]
+            out["label_ms"][label] = [
+                sum(k.time_range.elapsed_us() for k in inside) / 1e3,
+                len(spans), len(inside)]
     if ks:
         by_name: dict = {}
         counts: dict = {}
@@ -2958,104 +3131,163 @@ def profile_call(torch, fn, top: int = 6, match: str | None = None) -> dict:
     return out
 
 
-def lm_spans(torch, lm, cfg, params, dev) -> dict:
-    """``profile_call`` of one prefill at two prompt lengths and of one
-    decode step of LM_BATCH rows over a LM_CACHE cache at lengths 128,
-    700, 2048 and 4000."""
+def lm_spans(torch, lm, cfg, params, dev, prefills=(512, 2048),
+             labels: dict | None = None) -> dict:
+    """``profile_call`` of one prefill at each length of ``prefills`` and
+    of one decode step of LM_BATCH rows over a LM_CACHE cache at lengths
+    128, 700, 2048 and 4000 (``labels`` passed on)."""
     gen = torch.Generator(device=dev).manual_seed(5)
     out: dict = {}
     with torch.inference_mode():
-        for T in (512, 2048):
+        for T in prefills:
             toks = torch.randint(0, cfg.vocab, (1, T), generator=gen,
                                  device=dev, dtype=torch.int32)
             out[f"prefill_{T}"] = profile_call(torch, lambda: lm.prefill(
-                params, cfg, {"tokens": toks}, T + LM_NEW))
+                params, cfg, {"tokens": toks}, T + LM_NEW), labels=labels)
         cache = lm.init_cache(cfg, LM_BATCH, LM_CACHE, device=dev)
         cache["len"] = torch.tensor([128, 700, 2048, 4000][:LM_BATCH],
                                     dtype=torch.int32, device=dev)
         tokens = torch.arange(1, LM_BATCH + 1, dtype=torch.int32,
                               device=dev)
         out["decode_step"] = profile_call(
-            torch, lambda: lm.decode_step(params, cfg, tokens, cache))
+            torch, lambda: lm.decode_step(params, cfg, tokens, cache),
+            labels=labels)
     del cache
     return out
 
 
 def lm_launches(cfg, prefills: int, steps: int) -> dict:
     """The LM kernels' launches of ``prefills`` prefills and ``steps``
-    decode steps. Dense (no post_norm, no qk_norm): per layer 2 rmsnorm
-    and one mha (prefill) or decode_attention (step). SSM: per layer 2
-    rmsnorm (``ln``, the mixer's norm) and, in a prefill, one ssd_scan;
-    per shared-block call of a hybrid, 2 rmsnorm and one mha or
-    decode_attention. One more rmsnorm for the final norm."""
+    decode steps. Attention families: per layer 2 rmsnorm (4 more with
+    post_norm, 2 more, qnorm and knorm, with qk_norm) and one mha
+    (prefill) or decode_attention (step; none with kv_bits=8, whose step
+    attends through plain tensor code); encdec adds per decoder layer
+    ``ln_x`` and a cross-attention mha (prefill, with qk_norm its two
+    norms) or decode_attention (step), and per prefill the encoder: per
+    layer 2 rmsnorm (and qk_norm's 2) and one mha, then ``enc_norm``.
+    SSM: per layer 2 rmsnorm (``ln``, the mixer's norm) and, in a
+    prefill, one ssd_scan; per shared-block call of a hybrid, 2 rmsnorm
+    and one mha or decode_attention. One more rmsnorm for the final
+    norm."""
     L = cfg.n_layers
-    if cfg.family == "dense":
-        norms, attn, ssd = 2 * L, L, 0
-    else:
-        attn = -(-L // cfg.shared_attn_every) if cfg.family == "hybrid" \
-            else 0
-        norms, ssd = 2 * (L + attn), L
-    return {"rmsnorm": (norms + 1) * (prefills + steps),
-            "mha": attn * prefills, "decode_attention": attn * steps,
-            "ssd_scan": ssd * prefills}
+    if cfg.family in ("dense", "moe", "vlm", "encdec"):
+        qk = 2 if cfg.qk_norm else 0
+        per = 2 + (4 if cfg.post_norm else 0) + qk
+        pre_norms = step_norms = per * L + 1
+        mha, dec = L, (0 if cfg.kv_bits == 8 else L)
+        if cfg.is_encdec:
+            E = cfg.n_enc_layers
+            pre_norms += L * (1 + qk) + E * (2 + qk) + 1
+            step_norms += L
+            mha += L + E
+            dec += L
+        return {"rmsnorm": pre_norms * prefills + step_norms * steps,
+                "mha": mha * prefills, "decode_attention": dec * steps,
+                "ssd_scan": 0}
+    attn = -(-L // cfg.shared_attn_every) if cfg.family == "hybrid" else 0
+    norms = 2 * (L + attn) + 1
+    return {"rmsnorm": norms * (prefills + steps), "mha": attn * prefills,
+            "decode_attention": attn * steps, "ssd_scan": L * prefills}
 
 
 def _nonzero(d: dict) -> str:
     return " + ".join(f"{v} {k}" for k, v in d.items() if v) or "none"
 
 
-def run_lm(torch, np, lm, ops, registry, Engine, Request, counters, dev,
-           path: str) -> tuple:
-    """An LM path of LM_PATHS (``lm``: granite-3-8b; ``ssm``: mamba2-130m;
-    ``hybrid``: zamba2-1.2b) at full width and depth, random float32
-    weights from a seeded generator on the card, served by Engine with
-    the launch counters set to 0 just before and read just after;
-    launches checked per prefill and per decode step (``lm_launches``);
-    the served logits held to the plain path by teacher forcing (the
-    path's tolerance, and the served tokens to its argmax where its
-    margin is clear); spans timed."""
-    arch, lens, tol = LM_PATHS[path]
-    tag = f"[{path}]"
-    cfg = registry.get(arch)
+def describe(cfg) -> str:
+    """An LM config's widths, for a path's first line."""
+    if cfg.family in ("ssm", "hybrid"):
+        sc = cfg.ssm
+        out = (f"SSD d_inner {sc.d_inner}, {sc.n_heads} heads of "
+               f"{sc.head_dim}, N {sc.d_state}, G {sc.n_groups}, chunk "
+               f"{sc.chunk}")
+        if cfg.family == "hybrid":
+            out += (f"; a shared block of {cfg.n_heads}/{cfg.n_kv_heads} "
+                    f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, every "
+                    f"{cfg.shared_attn_every} layers")
+        return out
+    out = f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}"
+    if cfg.family == "moe":
+        m = cfg.moe
+        out += (f", {m.n_experts} experts top-{m.top_k} of d_ff {m.d_ff}"
+                + (f" and {m.n_shared} shared of {m.shared_d_ff}"
+                   if m.n_shared else "")
+                + (f" every {cfg.moe_every} layers (dense d_ff {cfg.d_ff})"
+                   if cfg.moe_every > 1 else "")
+                + f", capacity factor {m.capacity_factor}")
+    else:
+        out += f", d_ff {cfg.d_ff}"
+    if cfg.qk_norm:
+        out += ", qk-norm"
+    if cfg.is_encdec:
+        out += f", {cfg.n_enc_layers} encoder layers"
+    if cfg.kv_bits == 8:
+        out += ", int8 KV cache"
+    return out
+
+
+def make_lm(torch, lm, registry, dev, tag: str, arch: str,
+            n_layers: int | None = None, params=None, **replace):
+    """``arch``'s config (``n_layers`` of its layers, fields replaced),
+    and random float32 weights made on the card from seed 0 (or
+    ``params``); the peak memory statistic reset first."""
+    import dataclasses
+    full = registry.get(arch)
+    cfg = dataclasses.replace(full, **replace, **(
+        {} if n_layers is None else {"n_layers": n_layers}))
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                            device=dev)
+    made = params is None
+    if made:
+        params = lm.init_params(cfg, torch.Generator(
+            device=dev).manual_seed(0), device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    if cfg.family == "dense":
-        shape = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
-                 f"d_ff {cfg.d_ff}")
-    else:
-        sc = cfg.ssm
-        shape = (f"SSD d_inner {sc.d_inner}, {sc.n_heads} heads of "
-                 f"{sc.head_dim}, N {sc.d_state}, G {sc.n_groups}, chunk "
-                 f"{sc.chunk}")
-        if cfg.family == "hybrid":
-            shape += (f"; a shared block of {cfg.n_heads}/{cfg.n_kv_heads} "
-                      f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, every "
-                      f"{cfg.shared_attn_every} layers")
-    print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{shape}, vocab {cfg.vocab}; {n_params / 1e9:.3f} B float32 "
-          f"parameters ({n_params * 4 / 2 ** 30:.1f} GiB) made on {dev} in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
-    prompts = lm_prompts(np, cfg.vocab, lens)
+    depth = (f"{cfg.n_layers} of {full.n_layers} layers"
+             if cfg.n_layers != full.n_layers else f"{cfg.n_layers} layers")
+    print(f"{tag} {cfg.name}: {depth}, d {cfg.d_model}, {describe(cfg)}, "
+          f"vocab {cfg.vocab}; {n_params / 1e9:.3f} B float32 parameters "
+          f"({n_params * 4 / 2 ** 30:.1f} GiB) "
+          + (f"made on {dev} in {time.perf_counter() - t0:.1f}s" if made
+             else "reused"), flush=True)
+    return cfg, params
+
+
+def free_card(torch) -> None:
+    """Collect what only a reference cycle keeps (a path's weights), then
+    hand the cached blocks back to the card."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def peak_gib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def serve_path(torch, np, Engine, Request, counters, dev, tag: str, cfg,
+               params, prompts, n_new: int, **hooks) -> tuple:
+    """``prompts`` served by Engine (``serve_lm``) with the launch
+    counters set to 0 just before and read just after, the launches
+    checked per prefill and per decode step (``lm_launches``). Returns
+    (counts, run dict, done, served logits, replica)."""
     for c in counters.values():
         c.reset()
-    done, wall, served, prefill_ms, steps, decode_issue = serve_lm(
-        torch, np, Engine, Request, cfg, params, dev, prompts)
+    done, wall, served, prefill_ms, steps, decode_issue, rep = serve_lm(
+        torch, np, Engine, Request, cfg, params, dev, prompts, n_new,
+        **hooks)
     counts = {k: c.value for k, c in counters.items()}
-    n_pre = len(prompts)
     want = {k: 0 for k in counters}
-    want.update(lm_launches(cfg, n_pre, steps))
-    if len(done) != n_pre or not all(r.done for r in done) \
+    want.update(lm_launches(cfg, len(prompts), steps))
+    if len(done) != len(prompts) or not all(r.done for r in done) \
             or counts != want:
-        raise AssertionError(f"{path}: {len(done)} requests done over "
+        raise AssertionError(f"{tag}: {len(done)} requests done over "
                              f"{steps} decode steps, launches {counts}, "
                              f"expected {want}")
     n_tok = sum(len(r.out_tokens) for r in done)
     print(f"{tag} Engine(max_batch={LM_BATCH}, cache_size={LM_CACHE}) "
           f"served {len(done)} requests (prompts "
-          f"{sorted(len(p) for p in prompts)}, {LM_NEW} greedy tokens each)"
+          f"{sorted(len(p) for p in prompts)}, {n_new} greedy tokens each)"
           f" in {wall:.2f}s over {steps} decode steps: {n_tok / wall:.1f} "
           f"tokens/s; launches {counts} = per prefill "
           f"{_nonzero(lm_launches(cfg, 1, 0))}, per decode step "
@@ -3066,37 +3298,499 @@ def run_lm(torch, np, lm, ops, registry, Engine, Request, counters, dev,
           + ", ".join(f"{n}: {m:.1f}" for n, m in sorted(prefill_ms))
           + f"; the rest of the run over the decode steps: {step_ms:.2f} "
           f"ms a step, host issue median {issue_med:.2f} ms", flush=True)
-    check = replay_plain(torch, np, lm, ops, cfg, params, dev, prompts,
-                         done, served)
-    print(f"{tag} teacher-forced plain path on the card: served logits "
-          f"within {check['max_abs_err']:.3e} (mean per step "
-          f"{check['mean_step_err']:.3e}; tolerance {tol}); "
-          f"{check['tokens_checked']} served tokens equal to the plain "
-          f"argmax where its top-2 margin exceeds twice the step's "
-          f"difference, {check['tokens_within_margin']} within that "
-          f"margin", flush=True)
-    if not check["max_abs_err"] <= tol:
-        raise AssertionError(f"{path}: served logits "
-                             f"{check['max_abs_err']} from the plain path, "
-                             f"tolerance {tol}")
-    spans = lm_spans(torch, lm, cfg, params, dev)
+    run = {"arch": cfg.name, "layers": cfg.n_layers,
+           "requests": len(done), "tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "decode_steps": steps,
+           "prefill_ms": sorted(prefill_ms),
+           "decode_issue_ms_median": issue_med,
+           "decode_step_ms_in_serving": step_ms}
+    return counts, run, done, served, rep
+
+
+def print_spans(tag: str, spans: dict) -> None:
     for name, sp in spans.items():
         dev_txt = "device not measured (no kernel records)" \
             if sp["busy"] is None else (
                 f"kernels {sp['busy']:.3f} ms busy over a {sp['span']:.3f}"
                 f" ms span ({sp['kernels']} launches; idle share "
                 f"{1 - sp['busy'] / sp['span']:.3f}); top {sp['top']}")
+        lab = "".join(
+            f"; {k} {v[0]:.3f} ms of kernels ({v[2]}) in {v[1]} calls"
+            + (f" ({v[0] / sp['busy']:.3f} of the kernels)"
+               if sp["busy"] else "")
+            for k, v in sp.get("label_ms", {}).items())
         print(f"{tag} {name}: host issue {sp['issue']:.3f} ms, issue to "
-              f"synchronised {sp['wall']:.3f} ms; {dev_txt}", flush=True)
+              f"synchronised {sp['wall']:.3f} ms; {dev_txt}{lab}",
+              flush=True)
+
+
+def print_check(tag: str, check: dict, tol: float) -> None:
+    print(f"{tag} teacher-forced plain path on the card: served logits "
+          f"within {check['max_abs_err']:.3e} (prefill "
+          f"{check['prefill_max_abs_err']:.3e}, decode steps "
+          f"{check['step_max_abs_err']:.3e}, mean per step "
+          f"{check['mean_step_err']:.3e}; tolerance {tol}); "
+          f"{check['tokens_checked']} served tokens equal to the plain "
+          f"argmax where its top-2 margin exceeds twice the step's "
+          f"difference, {check['tokens_within_margin']} within that "
+          f"margin", flush=True)
+
+
+def run_lm(torch, np, lm, ops, registry, Engine, Request, counters, dev,
+           path: str, keep: bool = False) -> tuple:
+    """An LM path of LM_PATHS (``lm``: granite-3-8b; ``ssm``: mamba2-130m;
+    ``hybrid``: zamba2-1.2b) at full width and depth, random float32
+    weights from a seeded generator on the card, served by Engine with
+    the launch counters set to 0 just before and read just after;
+    launches checked per prefill and per decode step (``lm_launches``);
+    the served logits held to the plain path by teacher forcing (the
+    path's tolerance, and the served tokens to its argmax where its
+    margin is clear); spans timed. Returns (counts, run dict, and with
+    ``keep`` the weights, else None: freed)."""
+    arch, lens, tol = LM_PATHS[path]
+    tag = f"[{path}]"
+    cfg, params = make_lm(torch, lm, registry, dev, tag, arch)
+    prompts = lm_prompts(np, cfg.vocab, lens)
+    counts, run, done, served, _ = serve_path(
+        torch, np, Engine, Request, counters, dev, tag, cfg, params,
+        prompts, LM_NEW)
+    check = replay_plain(torch, np, lm, ops, cfg, params, dev, prompts,
+                         done, served)
+    hold(tag, check, tol)
+    spans = lm_spans(torch, lm, cfg, params, dev)
+    print_spans(tag, spans)
+    run.update(spans_ms=spans, check=check, tolerance=tol,
+               peak_gib=peak_gib(torch))
+    print(f"{tag} peak memory {run['peak_gib']:.2f} GiB", flush=True)
+    if not keep:
+        del params
+        params = None
+        free_card(torch)
+    return counts, run, params
+
+
+# --------------------------------------------------------------------------
+# the moe, vlm and encdec families and the int8 KV cache
+# --------------------------------------------------------------------------
+
+class Routes:
+    """An MoE path's routes. While recording, ``moe.route`` and
+    ``moe.forward_with_aux`` are wrapped: every routing's experts (``idx``,
+    (N, K), kept on the card) and every layer's ``dropped_frac`` are kept
+    with ``tag`` (("prefill", uid) or ("decode", [uid of each slot or
+    None])). ``force`` then makes ``moe.route`` replay a request's
+    recorded experts in order (``start(uid)``) with the replay's own
+    gates at them (its softmax at the recorded experts, normalised), and
+    counts the decisions whose own top-k differs, each with its margin:
+    the largest |p(own k-th) - p(recorded k-th)| over the ranks where
+    the two differ, in the replay's probabilities."""
+
+    def __init__(self, moe):
+        self.moe = moe
+        self.route, self.fwa = moe.route, moe.forward_with_aux
+        self.tag = None
+        self.log: list = []
+        self.dropped: list = []
+        self.queue: list = []
+        self.decisions = 0
+        self.flips: list = []
+
+    def record(self) -> None:
+        def route(p, cfg, xt):
+            out = self.route(p, cfg, xt)
+            self.log.append((self.tag, out[2].clone()))
+            return out
+
+        def fwa(p, cfg, x):
+            y, aux = self.fwa(p, cfg, x)
+            self.dropped.append((self.tag, aux["dropped_frac"]))
+            return y, aux
+        self.moe.route, self.moe.forward_with_aux = route, fwa
+
+    def restore(self) -> None:
+        self.moe.route, self.moe.forward_with_aux = self.route, self.fwa
+
+    def by_request(self) -> dict:
+        """{uid: recorded idx of each routing, in call order}: a prefill's
+        whole, a decode step's row of the request's slot."""
+        out: dict = {}
+        for (kind, who), idx in self.log:
+            if kind == "prefill":
+                out.setdefault(who, []).append(idx)
+            else:
+                for slot, uid in enumerate(who):
+                    if uid is not None:
+                        out.setdefault(uid, []).append(idx[slot:slot + 1])
+        return out
+
+    def dropped_by_prefill(self) -> dict:
+        """{uid: (mean, max) of dropped_frac over a prefill's layers}."""
+        out: dict = {}
+        for (kind, who), d in self.dropped:
+            if kind == "prefill":
+                out.setdefault(who, []).append(float(d))
+        return {u: (sum(v) / len(v), max(v)) for u, v in out.items()}
+
+    def force(self) -> None:
+        recorded = self.by_request()
+
+        def route(p, cfg, xt):
+            probs, _, own = self.route(p, cfg, xt)
+            rec = self.queue.pop(0)
+            if rec.shape != own.shape:
+                raise AssertionError(f"replayed routing {tuple(own.shape)}"
+                                     f" against recorded "
+                                     f"{tuple(rec.shape)}")
+            self.decisions += own.shape[0]
+            differ = own != rec
+            rows = differ.any(-1).nonzero()[:, 0]
+            if rows.numel():
+                po = probs[rows].gather(-1, own[rows])
+                pr = probs[rows].gather(-1, rec[rows])
+                gap = ((po - pr).abs() * differ[rows]).amax(-1)
+                self.flips.extend(float(g) for g in gap.cpu())
+            gate = probs.gather(-1, rec)
+            gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+            return probs, gate, rec
+
+        self.recorded = recorded
+        self.moe.route = route
+
+    def start(self, uid) -> None:
+        if self.queue:
+            raise AssertionError(f"{len(self.queue)} recorded routings "
+                                 f"not replayed")
+        self.queue = list(self.recorded[uid])
+
+    def summary(self) -> dict:
+        return {"decisions": self.decisions, "flips": len(self.flips),
+                "flip_margins": sorted(self.flips),
+                "max_flip_margin": max(self.flips, default=0.0)}
+
+
+def check_routes(tag: str, routes: Routes) -> dict:
+    """Every decision whose replayed top-k differs from the served one is
+    a near tie: margin below ROUTE_TIE."""
+    if routes.queue:
+        raise AssertionError(f"{tag}: {len(routes.queue)} recorded "
+                             f"routings not replayed")
+    r = routes.summary()
+    print(f"{tag} routes: the plain replay forced onto the served path's "
+          f"experts; its own top-k differs at {r['flips']} of "
+          f"{r['decisions']} routing decisions, margins "
+          f"{[f'{m:.2e}' for m in r['flip_margins'][-8:]]} (largest "
+          f"{r['max_flip_margin']:.3e}; each must be below {ROUTE_TIE})",
+          flush=True)
+    if r["max_flip_margin"] >= ROUTE_TIE:
+        raise AssertionError(f"{tag}: a route flip with margin "
+                             f"{r['max_flip_margin']} is no near tie")
+    return r
+
+
+def hold(tag: str, check: dict, tol: float) -> None:
+    print_check(tag, check, tol)
+    if not check["max_abs_err"] <= tol:
+        raise AssertionError(f"{tag}: served logits {check['max_abs_err']}"
+                             f" from the plain path, tolerance {tol}")
+
+
+def run_moe(torch, np, lm, ops, registry, Engine, Request, counters,
+            dev) -> tuple:
+    """Path moe: qwen3-moe-30b-a3b at full width, MOE_LAYERS of its 48
+    layers, served by Engine (FAMILY_REQ prompts in LM_PROMPT,
+    FAMILY_NEW greedy tokens each); every routing recorded (``Routes``)
+    and the plain replay forced onto the served experts, its logits held
+    at LM_TOL and its own flips near ties; dropped_frac per prefill;
+    spans with the grouped expert contractions' share (``moe.experts``)."""
+    from repro_torch.nn import moe
+    tag = "[moe]"
+    cfg, params = make_lm(torch, lm, registry, dev, tag,
+                          "qwen3-moe-30b-a3b", MOE_LAYERS)
+    prompts = lm_prompts(np, cfg.vocab, n=FAMILY_REQ)
+    uid_of = {tuple(p): i for i, p in enumerate(prompts)}
+    routes = Routes(moe)
+
+    def on_prefill(tokens):
+        routes.tag = ("prefill", uid_of[tuple(tokens[0].tolist())])
+
+    def on_decode(rep):
+        routes.tag = ("decode", [r.uid if r is not None else None
+                                 for r in rep.slots])
+
+    routes.record()
+    try:
+        counts, run, done, served, _ = serve_path(
+            torch, np, Engine, Request, counters, dev, tag, cfg, params,
+            prompts, FAMILY_NEW, on_prefill=on_prefill, on_decode=on_decode)
+    finally:
+        routes.restore()
+    dropped = routes.dropped_by_prefill()
+    print(f"{tag} dropped_frac per prefill (mean, max over {cfg.n_layers} "
+          f"MoE layers): " + ", ".join(
+              f"{len(prompts[u])} tokens: {m:.4f}, {x:.4f}"
+              for u, (m, x) in sorted(dropped.items())), flush=True)
+    routes.force()
+    try:
+        check = replay_plain(torch, np, lm, ops, cfg, params, dev, prompts,
+                             done, served, FAMILY_NEW, before=routes.start)
+    finally:
+        routes.restore()
+    hold(tag, check, LM_TOL)
+    run["routes"] = check_routes(tag, routes)
+    spans = lm_spans(torch, lm, cfg, params, dev, labels={
+        "moe.experts": (moe, "experts")})
+    print_spans(tag, spans)
+    run.update(check=check, tolerance=LM_TOL, spans_ms=spans,
+               dropped_frac_by_prefill=dropped, peak_gib=peak_gib(torch))
+    print(f"{tag} peak memory {run['peak_gib']:.2f} GiB", flush=True)
     del params
-    torch.cuda.empty_cache()
-    return counts, {"arch": arch, "requests": len(done), "tokens": n_tok,
-                    "wall_s": wall, "tokens_per_s": n_tok / wall,
-                    "decode_steps": steps,
-                    "prefill_ms": sorted(prefill_ms), "spans_ms": spans,
-                    "decode_issue_ms_median": issue_med,
-                    "decode_step_ms_in_serving": step_ms,
-                    "check": check, "tolerance": tol}
+    free_card(torch)
+    return counts, run
+
+
+def run_kv8(torch, np, lm, ops, registry, Engine, Request, counters, dev,
+            params) -> tuple:
+    """Path kv8: granite-3-8b at full width and depth with the int8 KV
+    cache (``kv_bits=8``), on the ``lm`` path's weights, served by Engine
+    (FAMILY_REQ prompts, FAMILY_NEW tokens). Held to the plain
+    ``kv_bits=8`` replay: prefill logits within LM_TOL; each decode step
+    (whose attention is the same tensor code on both sides, over codes
+    that may differ by one where their inputs differ in the last bits)
+    by the clear-margin token rule and a mean relative difference below
+    KV8_MEAN_REL; the served and replayed caches' codes compared."""
+    from repro_torch.nn import flash
+    tag = "[kv8]"
+    cfg, params = make_lm(torch, lm, registry, dev, tag, "granite-3-8b",
+                          params=params, kv_bits=8)
+    prompts = lm_prompts(np, cfg.vocab, n=FAMILY_REQ)
+    slot_of: dict = {}
+
+    def on_decode(rep):
+        for s, r in enumerate(rep.slots):
+            if r is not None and slot_of.setdefault(r.uid, s) != s:
+                raise AssertionError(f"{tag}: request {r.uid} moved slots")
+
+    counts, run, done, served, rep = serve_path(
+        torch, np, Engine, Request, counters, dev, tag, cfg, params,
+        prompts, FAMILY_NEW, on_decode=on_decode)
+    if rep.cache["k"].dtype != torch.int8 or len(set(slot_of.values())) \
+            != len(prompts):
+        raise AssertionError(f"{tag}: slots {slot_of}, cache "
+                             f"{rep.cache['k'].dtype}")
+    codes = {"differ": 0, "total": 0, "max_code_diff": 0,
+             "scale_max_rel": 0.0}
+
+    def after(uid, cache):
+        n = len(prompts[uid]) + FAMILY_NEW - 1
+        s = slot_of[uid]
+        for k in ("k", "v"):
+            d = (rep.cache[k][:, s, :n].to(torch.int32)
+                 - cache[k][:, 0, :n]).abs()
+            codes["differ"] += int((d > 0).sum())
+            codes["total"] += d.numel()
+            codes["max_code_diff"] = max(codes["max_code_diff"],
+                                         int(d.max()))
+            a, b = rep.cache[k + "_s"][:, s, :n], cache[k + "_s"][:, 0, :n]
+            codes["scale_max_rel"] = max(codes["scale_max_rel"], float(
+                ((a - b).abs() / b.abs()).max()))
+
+    check = replay_plain(torch, np, lm, ops, cfg, params, dev, prompts,
+                         done, served, FAMILY_NEW, after=after)
+    print_check(tag, check, f"prefill {LM_TOL}, decode steps mean relative "
+                f"{KV8_MEAN_REL}")
+    print(f"{tag} served cache against the replay's: {codes['differ']} of "
+          f"{codes['total']} codes differ (largest by {codes['max_code_diff']}"
+          f"), scales within {codes['scale_max_rel']:.3e} relative; the "
+          f"decode steps' mean relative logit difference at most "
+          f"{check['step_mean_rel_max']:.3e}", flush=True)
+    if not check["prefill_max_abs_err"] <= LM_TOL \
+            or not check["step_mean_rel_max"] < KV8_MEAN_REL:
+        raise AssertionError(f"{tag}: prefill {check['prefill_max_abs_err']}"
+                             f" (tolerance {LM_TOL}), decode steps' mean "
+                             f"relative {check['step_mean_rel_max']} "
+                             f"(bound {KV8_MEAN_REL})")
+    spans = lm_spans(torch, lm, cfg, params, dev, prefills=(), labels={
+        "decode_grouped_q8": (flash, "decode_grouped_q8")})
+    print_spans(tag, spans)
+    run.update(check=check, codes=codes, spans_ms=spans,
+               tolerance={"prefill": LM_TOL, "step_mean_rel": KV8_MEAN_REL},
+               peak_gib=peak_gib(torch))
+    print(f"{tag} peak memory {run['peak_gib']:.2f} GiB", flush=True)
+    return counts, run
+
+
+def model_level(torch, lm, ops, counters, tag: str, cfg, params, batch,
+                n_new: int, routes: Routes | None = None) -> tuple:
+    """A model-level path: ``lm.prefill`` on ``batch`` then ``n_new``
+    greedy ``lm.decode_step`` calls (n_new + 1 tokens a row), the launch
+    counters set to 0 just
+    before and read just after (checked by ``lm_launches``), each call
+    timed (prefill and steps to a synchronise, the steps' host issue);
+    then the plain path on the card (``ops.set_default_backend("ref")``)
+    teacher-forced on the served tokens, held by ``hold_logits``. With
+    ``routes``, the served routings are recorded and the replay forced
+    onto them. Returns (counts, run dict, held summary)."""
+    B = batch["tokens"].shape[0]
+    T = batch["tokens"].shape[1] + (batch["embeds"].shape[1]
+                                    if "embeds" in batch else 0)
+    size = T + n_new + 1
+    for c in counters.values():
+        c.reset()
+    rows, toks, step_ms, issue_ms = [], [], [], []
+    if routes is not None:
+        routes.record()
+    try:
+        with torch.inference_mode():
+            if routes is not None:
+                routes.tag = ("prefill", 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = lm.prefill(params, cfg, batch, size)
+            torch.cuda.synchronize()
+            pre_ms = (time.perf_counter() - t0) * 1e3
+            for i in range(n_new + 1):
+                rows.append(logits.float().cpu())
+                tok = logits.argmax(-1).to(torch.int32)
+                toks.append(tok.cpu())
+                if i == n_new:
+                    break
+                if routes is not None:
+                    routes.tag = ("decode", [0])
+                t0 = time.perf_counter()
+                logits, cache = lm.decode_step(params, cfg, tok, cache)
+                issue_ms.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        if routes is not None:
+            routes.restore()
+    counts = {k: c.value for k, c in counters.items()}
+    want = {k: 0 for k in counters}
+    want.update(lm_launches(cfg, 1, n_new))
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, expected {want}")
+    del cache
+    n_tok = B * (n_new + 1)
+    wall = (pre_ms + sum(step_ms)) / 1e3
+    step_med = sorted(step_ms)[n_new // 2]
+    print(f"{tag} prefill of {B} rows x {T} positions {pre_ms:.1f} ms, then "
+          f"{n_new} greedy decode steps: median {step_med:.2f} ms a step "
+          f"to a synchronise, host issue median "
+          f"{sorted(issue_ms)[n_new // 2]:.2f} ms; {n_tok / wall:.1f} "
+          f"tokens/s; launches {_nonzero(counts)} = per prefill "
+          f"{_nonzero(lm_launches(cfg, 1, 0))}, per decode step "
+          f"{_nonzero(lm_launches(cfg, 0, 1))}", flush=True)
+    if routes is not None:
+        routes.force()
+        routes.start(0)
+    out = new_held()
+    ops.set_default_backend("ref")
+    try:
+        with torch.inference_mode():
+            logits, cache = lm.prefill(params, cfg, batch, size)
+            want_rows = [logits.float().cpu()]
+            for tok in toks[:-1]:
+                logits, cache = lm.decode_step(params, cfg, tok.to(
+                    logits.device), cache)
+                want_rows.append(logits.float().cpu())
+        del cache
+    finally:
+        ops.set_default_backend("auto")
+        if routes is not None:
+            routes.restore()
+    for b in range(B):
+        hold_logits(torch, f"{tag} row {b}", [w[b] for w in want_rows],
+                    [r[b] for r in rows], [int(t[b]) for t in toks], out)
+    run = {"arch": cfg.name, "layers": cfg.n_layers, "rows": B,
+           "positions": T, "prefill_ms": pre_ms, "decode_steps": n_new,
+           "step_ms_median": step_med,
+           "step_issue_ms_median": sorted(issue_ms)[n_new // 2],
+           "tokens_per_s": n_tok / wall}
+    return counts, run, held_summary(out)
+
+
+def run_vlm(torch, np, lm, ops, registry, counters, dev) -> tuple:
+    """Path vlm: llava-next-34b at full width, VLM_LAYERS of its 60
+    layers, at the model level (the reference's LmReplica cannot serve
+    it): VLM_ROWS rows of its 2880 seeded patch embeddings and a
+    VLM_PROMPT-token prompt, then FAMILY_NEW greedy steps, held at
+    LM_TOL."""
+    tag = "[vlm]"
+    cfg, params = make_lm(torch, lm, registry, dev, tag, "llava-next-34b",
+                          VLM_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (VLM_ROWS, VLM_PROMPT),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32),
+             "embeds": torch.randn(VLM_ROWS, cfg.n_frontend_tokens,
+                                   cfg.d_model, generator=gen, device=dev)}
+    counts, run, check = model_level(torch, lm, ops, counters, tag, cfg,
+                                     params, batch, FAMILY_NEW)
+    hold(tag, check, LM_TOL)
+    run.update(check=check, tolerance=LM_TOL, peak_gib=peak_gib(torch))
+    print(f"{tag} peak memory {run['peak_gib']:.2f} GiB", flush=True)
+    del params, batch
+    free_card(torch)
+    return counts, run
+
+
+def run_encdec(torch, np, lm, ops, registry, counters, dev) -> tuple:
+    """Path encdec: seamless-m4t-medium whole, at the model level:
+    ENCDEC_ROWS rows of ENCDEC_SRC seeded source frames and an
+    ENCDEC_PROMPT-token prompt, then FAMILY_NEW greedy steps, held at
+    LM_TOL."""
+    tag = "[encdec]"
+    cfg, params = make_lm(torch, lm, registry, dev, tag,
+                          "seamless-m4t-medium")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab,
+                                     (ENCDEC_ROWS, ENCDEC_PROMPT),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32),
+             "src_embeds": torch.randn(ENCDEC_ROWS, ENCDEC_SRC, cfg.d_model,
+                                       generator=gen, device=dev)}
+    counts, run, check = model_level(torch, lm, ops, counters, tag, cfg,
+                                     params, batch, FAMILY_NEW)
+    hold(tag, check, LM_TOL)
+    run.update(check=check, tolerance=LM_TOL, src_len=ENCDEC_SRC,
+               peak_gib=peak_gib(torch))
+    print(f"{tag} peak memory {run['peak_gib']:.2f} GiB", flush=True)
+    del params, batch
+    free_card(torch)
+    return counts, run
+
+
+def run_llama4(torch, np, lm, ops, registry, counters, dev) -> tuple:
+    """``--only moe``: llama4-maverick-400b-a17b at full width, one group
+    of its grouped layout (a dense layer and an MoE layer with all 128
+    experts and the shared expert: 2 of 48 layers), at the model level:
+    one row of LLAMA4_PROMPT tokens, then FAMILY_NEW greedy steps, the
+    replay forced onto the served routes (as path moe), held at
+    LM_TOL; peak memory printed."""
+    from repro_torch.nn import moe
+    tag = "[llama4]"
+    cfg, params = make_lm(torch, lm, registry, dev, tag,
+                          "llama4-maverick-400b-a17b",
+                          registry.get("llama4-maverick-400b-a17b")
+                          .moe_every)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, LLAMA4_PROMPT),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    routes = Routes(moe)
+    counts, run, check = model_level(torch, lm, ops, counters, tag, cfg,
+                                     params, batch, FAMILY_NEW, routes)
+    hold(tag, check, LM_TOL)
+    run.update(check=check, tolerance=LM_TOL,
+               routes=check_routes(tag, routes),
+               dropped_frac_prefill=routes.dropped_by_prefill(),
+               peak_gib=peak_gib(torch))
+    print(f"{tag} dropped_frac of the prefill (mean, max): "
+          f"{run['dropped_frac_prefill']}; peak memory "
+          f"{run['peak_gib']:.2f} GiB", flush=True)
+    del params, batch
+    free_card(torch)
+    return counts, run
 
 
 def long_gaps(proc, duration_s: float, step_s: float) -> int:
@@ -3347,7 +4041,7 @@ def main() -> int:
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--only", choices=("stream", "a8", "conv", "attn",
                                        "ssd", "dec", "pool", "load",
-                                       "decwin"),
+                                       "decwin", "moe"),
                     help="only one slice's reading, for a before/after "
                     "(copied into an older checkout, it reads that "
                     "checkout's kernels): stream, #4 and #5's cases and the "
@@ -3367,8 +4061,9 @@ def main() -> int:
                     "of one yolov3-tiny forward at 416; load, the wall-"
                     "clock load sweeps of yolov8n at 640, float and W8A16, "
                     "the arrival shapes and a replica crash; decwin, #12 "
-                    "past S with a window (reported, not enforced). Prints "
-                    "no result line")
+                    "past S with a window (reported, not enforced); moe, "
+                    "path moe and llama4-maverick's one full-width group "
+                    "(69.1 GiB of weights). Prints no result line")
     args = ap.parse_args()
 
     T0 = time.perf_counter()
@@ -3459,6 +4154,15 @@ def main() -> int:
                 "cases": {k: v["cases"] for k, v in per_kernel.items()},
                 **extra}, indent=1))
 
+    if args.only == "moe":
+        lm_runs = {}
+        _, lm_runs["moe"] = run_moe(torch, np, lm, ops, registry, Engine,
+                                    Request, counters, dev0)
+        _, lm_runs["llama4"] = run_llama4(torch, np, lm, ops, registry,
+                                          counters, dev0)
+        write_out({}, **lm_runs)
+        print(f"[card] {smi()}")
+        return 0
     if args.only == "attn":
         print("[kernels] #11 vs its plain version on the card", flush=True)
         per_kernel = {}
@@ -3951,9 +4655,24 @@ def main() -> int:
     # width and depth, each served by Engine
     lm_runs = {}
     for path in LM_PATHS:
-        paths[path], lm_runs[path] = run_lm(
+        paths[path], lm_runs[path], kept = run_lm(
             torch, np, lm, ops, registry, Engine, Request, counters, dev0,
-            path)
+            path, keep=path == "lm")
+        if path == "lm":        # kv8 serves granite on the same weights
+            paths["kv8"], lm_runs["kv8"] = run_kv8(
+                torch, np, lm, ops, registry, Engine, Request, counters,
+                dev0, kept)
+            del kept
+            free_card(torch)
+    # moe, vlm, encdec: qwen3-moe-30b-a3b (12 of 48 layers) served by
+    # Engine; llava-next-34b (8 of 60) and seamless-m4t-medium (whole) at
+    # the model level
+    paths["moe"], lm_runs["moe"] = run_moe(
+        torch, np, lm, ops, registry, Engine, Request, counters, dev0)
+    paths["vlm"], lm_runs["vlm"] = run_vlm(torch, np, lm, ops, registry,
+                                           counters, dev0)
+    paths["encdec"], lm_runs["encdec"] = run_encdec(
+        torch, np, lm, ops, registry, counters, dev0)
     for kname, path in KERNEL_PATH.items():
         if paths[path][kname] <= 0:
             raise AssertionError(f"{kname} never launched on {path}")

@@ -1,35 +1,53 @@
-"""Language models of the ``dense``, ``ssm`` and ``hybrid`` families:
-granite-3-8b, gemma2-2b (local/global windows, softcaps, sandwich
-norms), llama3-405b, starcoder2-7b; mamba2-130m (attention-free, SSD);
-zamba2-1.2b (a Mamba-2 backbone with ONE shared transformer block
-applied every ``shared_attn_every`` layers, the embedding re-injected
-into it each time).
+"""Language models of every family of the JAX package's ``models/lm.py``:
+dense (granite-3-8b, gemma2-2b with local/global windows, softcaps and
+sandwich norms, llama3-405b, starcoder2-7b), moe (qwen3-moe-30b-a3b:
+128 experts top-8 and QK-norm; llama4-maverick-400b-a17b: 128 experts
+top-1 with a shared expert every second layer), vlm (llava-next-34b:
+the batch carries precomputed patch embeddings, ``embeds``, before the
+tokens), ssm (mamba2-130m, attention-free, SSD), hybrid (zamba2-1.2b: a
+Mamba-2 backbone with ONE shared transformer block applied every
+``shared_attn_every`` layers, the embedding re-injected into it each
+time) and encdec (seamless-m4t-medium: a bidirectional encoder over
+precomputed frame embeddings, ``src_embeds``, and a decoder with
+cross-attention).
 
-A torch port of the JAX package's ``models/lm.py`` for these families:
-``attn_cfg``, ``init_params``, ``forward``, ``init_cache``, ``prefill``
-and ``decode_step``, with every dense flag (``window_pattern``,
-``attn_softcap``, ``final_softcap``, ``post_norm``, ``embed_scale``,
-``mlp_gated``, ``qk_norm``, ``tie_embeddings``). The parameter tree is
-the JAX package's, layers stacked on axis 0; where the JAX package
-scans over that axis, the port loops over the layers in Python (eager
-PyTorch has no compile step to spare). The families ``moe``, ``vlm``
-and ``encdec``, and the int8 KV cache (``kv_bits=8``) of the attention
-families, raise ``NotImplementedError``; the SSM and hybrid caches
-ignore ``kv_bits``, as in the JAX package.
+A torch port of ``attn_cfg``, ``init_params``, ``forward``,
+``init_cache``, ``prefill`` and ``decode_step``, with every dense flag
+(``window_pattern``, ``attn_softcap``, ``final_softcap``,
+``post_norm``, ``embed_scale``, ``mlp_gated``, ``qk_norm``,
+``tie_embeddings``) and the int8 KV cache of the attention families
+(``kv_bits=8``: codes and per-row scales, ``nn/flash.py``; any other
+``kv_bits`` is a float cache, and the SSM and hybrid caches ignore it,
+as in the JAX package). The parameter tree is the JAX package's, layers
+stacked on axis 0; llama4's ``moe_every = 2`` has the JAX package's
+grouped layout, ``layers = {"dense": (G, moe_every - 1, ...), "moe":
+(G, ...)}``, its cache one row a layer (layer ``g·moe_every + j`` at
+row ``g·moe_every + j``). Where the JAX package scans over the layers,
+the port loops over them in Python (eager PyTorch has no compile step
+to spare).
 
-Per layer, on the card: dense, two RMSNorm launches (``ln1``, ``ln2``;
-four more with ``post_norm``, two with ``qk_norm``) and one attention
-launch (``mha`` in forward and prefill, ``decode_attention`` in a
-decode step); SSM, two RMSNorm launches (``ln`` and the mixer's norm)
-and, in forward and prefill, one ``ssd_scan`` launch (a decode step
-runs the one-token recurrence as plain tensor code, as the JAX package
-does); each call of zamba2's shared block, two RMSNorm launches and one
-attention launch. The projections are ``torch.matmul``
-(``ops.qmatmul`` for a quantized weight); one more RMSNorm for the
-final norm.
+Per layer, on the card: attention families, two RMSNorm launches
+(``ln1``, ``ln2``; four more with ``post_norm``, two more with
+``qk_norm``: ``qnorm`` and ``knorm``) and one attention launch (``mha``
+in forward and prefill; ``decode_attention`` in a decode step, none
+with ``kv_bits=8``, whose step attends through the tensor code of
+``flash.decode_grouped_q8`` as the JAX package does); an encdec decoder
+layer one more RMSNorm (``ln_x``) and one more attention launch
+(cross-attention: ``mha`` in forward and prefill, ``decode_attention``
+over the ``src_len`` encoder rows in a step), and in forward and
+prefill each encoder layer two RMSNorm launches and one ``mha``, then
+one more RMSNorm (``enc_norm``). An MoE layer's router and expert
+contractions are ``torch.matmul``/``torch.bmm``. SSM, two RMSNorm
+launches (``ln`` and the mixer's norm) and, in forward and prefill, one
+``ssd_scan`` launch (a decode step runs the one-token recurrence as
+plain tensor code, as the JAX package does); each call of zamba2's
+shared block, two RMSNorm launches and one attention launch. The
+projections are ``torch.matmul`` (``ops.qmatmul`` for a quantized
+weight); one more RMSNorm for the final norm.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -38,25 +56,15 @@ import torch
 from ..configs.base import ModelCfg
 from ..core.quant import QTensor
 from ..device import resolve_device
+from ..kernels import ops
 from ..nn import attention as A
+from ..nn import flash
 from ..nn import layers as L
+from ..nn import moe as M
 from ..nn import ssm as S
 
-_PORTED = ("dense", "ssm", "hybrid")
-
-
-def check_supported(cfg: ModelCfg) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a family the port
-    has (dense, ssm, hybrid) and, for the dense family, has a float KV
-    cache. ``kv_bits`` is not read by the SSM and hybrid caches."""
-    if cfg.family not in _PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet "
-            f"(ROADMAP.md, modules to port: moe/vlm/encdec)")
-    if cfg.family == "dense" and cfg.kv_bits != 16:
-        raise NotImplementedError(
-            f"kv_bits={cfg.kv_bits}: the int8 KV cache is not ported yet "
-            f"(ROADMAP.md, modules to port: kv_bits=8)")
+# the families whose layers are transformer blocks with a KV cache
+ATTN_FAMILIES = ("dense", "moe", "vlm", "encdec")
 
 
 # ---------------------------------------------------------------------------
@@ -75,6 +83,11 @@ def attn_cfg(cfg: ModelCfg, causal: bool = True,
 def layer_windows(cfg: ModelCfg) -> list:
     """Per-layer window sizes; None is full attention."""
     return [cfg.layer_window(i) for i in range(cfg.n_layers)]
+
+
+def _grouped(cfg: ModelCfg) -> bool:
+    """The grouped layout: an MoE layer every ``moe_every`` layers."""
+    return cfg.family == "moe" and cfg.moe_every > 1
 
 
 # ---------------------------------------------------------------------------
@@ -108,11 +121,19 @@ def _layer_leaf(v, i: int):
     return v[i]
 
 
-def layer(stacked, i: int) -> dict:
-    """Layer ``i`` of a layer-stacked tree (views, no copy), or of the
-    list :func:`split_layers` makes."""
+def layer(stacked, i: int, cfg: ModelCfg | None = None) -> dict:
+    """Layer ``i`` of a layer-stacked tree (views, no copy), of the list
+    :func:`split_layers` makes, or, given a ``cfg`` with the grouped
+    layout, of the grouped tree: group ``i // moe_every``, its dense
+    sublayer ``i % moe_every`` or, last in the group, its MoE layer."""
     if isinstance(stacked, list):
         return stacked[i]
+    if cfg is not None and _grouped(cfg):
+        g, j = divmod(i, cfg.moe_every)
+        if j == cfg.moe_every - 1:
+            return tree_map(lambda v: _layer_leaf(v, g), stacked["moe"])
+        return tree_map(lambda v: _layer_leaf(_layer_leaf(v, g), j),
+                        stacked["dense"])
     return tree_map(lambda v: _layer_leaf(v, i), stacked)
 
 
@@ -120,20 +141,30 @@ def split_layers(params: dict, cfg: ModelCfg) -> dict:
     """``params`` with ``layers`` as a list of per-layer trees (views of
     the stacked tensors, no copy): a caller that runs many steps, such
     as ``LmReplica``, slices once instead of once per layer per step."""
-    return dict(params, layers=[layer(params["layers"], i)
+    return dict(params, layers=[layer(params["layers"], i, cfg)
                                 for i in range(cfg.n_layers)])
 
 
-def _init_dense_layers(gen, cfg: ModelCfg, device, dtype) -> dict:
-    kw = dict(lead=(cfg.n_layers,), device=device, dtype=dtype)
+def _init_dense_layers(gen, cfg: ModelCfg, lead: tuple, device,
+                       dtype) -> dict:
+    """Transformer blocks stacked on ``lead``: an MoE block for the moe
+    family (its MLP the experts), cross-attention for encdec."""
+    kw = dict(lead=lead, device=device, dtype=dtype)
     p = {"ln1": L.rmsnorm_init(cfg.d_model, **kw),
          "ln2": L.rmsnorm_init(cfg.d_model, **kw),
          "attn": A.init(gen, attn_cfg(cfg), **kw)}
     if cfg.post_norm:
         p["ln1p"] = L.rmsnorm_init(cfg.d_model, **kw)
         p["ln2p"] = L.rmsnorm_init(cfg.d_model, **kw)
-    p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.mlp_gated,
-                          **kw)
+    if cfg.family == "moe":
+        p["moe"] = M.init(gen, cfg.moe, **kw)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff,
+                              gated=cfg.mlp_gated, **kw)
+    if cfg.is_encdec:
+        p["ln_x"] = L.rmsnorm_init(cfg.d_model, **kw)
+        p["xattn"] = A.init(gen, attn_cfg(cfg, causal=False,
+                                          use_rope=False), **kw)
     return p
 
 
@@ -160,18 +191,33 @@ def init_params(cfg: ModelCfg, generator: torch.Generator, device=None,
     """Random parameters with the JAX package's tree and distributions,
     made on ``device`` (default ``cuda:0``; raises without CUDA) from
     ``generator``, which must be a generator of that device."""
-    check_supported(cfg)
     device = resolve_device(device)
     p: dict[str, Any] = {"embed": L.embed_init(generator, cfg.vocab,
                                                cfg.d_model, device, dtype)}
-    init_layers = _init_dense_layers if cfg.family == "dense" \
-        else _init_ssm_layers
-    p["layers"] = init_layers(generator, cfg, device, dtype)
+    if _grouped(cfg):
+        me = cfg.moe_every
+        G = cfg.n_layers // me
+        dense_cfg = dataclasses.replace(cfg, family="dense")
+        p["layers"] = {
+            "dense": _init_dense_layers(generator, dense_cfg, (G, me - 1),
+                                        device, dtype),
+            "moe": _init_dense_layers(generator, cfg, (G,), device, dtype)}
+    elif cfg.family in ATTN_FAMILIES:
+        p["layers"] = _init_dense_layers(generator, cfg, (cfg.n_layers,),
+                                         device, dtype)
+    else:
+        p["layers"] = _init_ssm_layers(generator, cfg, device, dtype)
     p["final_norm"] = L.rmsnorm_init(cfg.d_model, device=device,
                                      dtype=dtype)
     if not cfg.tie_embeddings:
         p["lm_head"] = L.linear_init(generator, cfg.d_model, cfg.vocab,
                                      device=device, dtype=dtype)
+    if cfg.is_encdec:
+        enc_cfg = dataclasses.replace(cfg, family="dense", n_enc_layers=0)
+        p["enc_layers"] = _init_dense_layers(
+            generator, enc_cfg, (cfg.n_enc_layers,), device, dtype)
+        p["enc_norm"] = L.rmsnorm_init(cfg.d_model, device=device,
+                                       dtype=dtype)
     if _shared_every(cfg):
         p["shared"] = _init_shared_block(generator, cfg, device, dtype)
     return p
@@ -181,8 +227,16 @@ def init_params(cfg: ModelCfg, generator: torch.Generator, device=None,
 # forward (full sequence)
 # ---------------------------------------------------------------------------
 
-def _mlp_block(cfg: ModelCfg, pl, h):
-    m = L.mlp(pl["mlp"], L.rmsnorm(pl["ln2"], h, cfg.norm_eps), act=cfg.act)
+def _mlp_block(cfg: ModelCfg, pl, h, lb: list | None = None):
+    """``h`` plus the block's MLP, or its MoE layer where it has one
+    (whose load-balance loss is appended to ``lb``)."""
+    m_in = L.rmsnorm(pl["ln2"], h, cfg.norm_eps)
+    if "moe" in pl:
+        m, aux = M.forward_with_aux(pl["moe"], cfg.moe, m_in)
+        if lb is not None:
+            lb.append(aux["load_balance"])
+    else:
+        m = L.mlp(pl["mlp"], m_in, act=cfg.act)
     if cfg.post_norm:
         m = L.rmsnorm(pl["ln2p"], m, cfg.norm_eps)
     return h + m
@@ -192,11 +246,18 @@ def _attn_out(cfg: ModelCfg, pl, a):
     return L.rmsnorm(pl["ln1p"], a, cfg.norm_eps) if cfg.post_norm else a
 
 
-def _dense_layer_fwd(cfg: ModelCfg, pl, h, pos, window, rope):
+def _dense_layer_fwd(cfg: ModelCfg, pl, h, pos, window, rope,
+                     enc_out=None, lb: list | None = None):
     a = A.forward(pl["attn"], attn_cfg(cfg),
                   L.rmsnorm(pl["ln1"], h, cfg.norm_eps), positions=pos,
                   window=window, rope=rope)
-    return _mlp_block(cfg, pl, h + _attn_out(cfg, pl, a))
+    h = h + _attn_out(cfg, pl, a)
+    if enc_out is not None:
+        h = h + A.forward(pl["xattn"], attn_cfg(cfg, causal=False,
+                                                use_rope=False),
+                          L.rmsnorm(pl["ln_x"], h, cfg.norm_eps),
+                          kv_x=enc_out, window=None)
+    return _mlp_block(cfg, pl, h, lb)
 
 
 def _rope(cfg: ModelCfg, pos):
@@ -214,6 +275,14 @@ def _embed_tokens(cfg: ModelCfg, params, tokens):
     return h
 
 
+def _embed_inputs(cfg: ModelCfg, params, batch: dict):
+    """The tokens' embeddings, after a vlm's patch embeddings."""
+    h = _embed_tokens(cfg, params, batch["tokens"])
+    if cfg.family == "vlm":
+        h = torch.cat([batch["embeds"].to(h.dtype), h], dim=1)
+    return h
+
+
 def _readout(cfg: ModelCfg, params, h):
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = (L.unembed(params["embed"], h) if cfg.tie_embeddings
@@ -224,17 +293,41 @@ def _readout(cfg: ModelCfg, params, h):
     return logits
 
 
+def _run_encoder(cfg: ModelCfg, params, src_embeds):
+    """An encdec model's encoder: bidirectional self-attention with RoPE
+    over the source positions, no windows and no post norms, then
+    ``enc_norm`` (the JAX package's ``_run_encoder``)."""
+    acfg = attn_cfg(cfg, causal=False)
+    h = src_embeds
+    rope = _rope(cfg, torch.arange(h.shape[1], device=h.device)[None, :])
+    for i in range(cfg.n_enc_layers):
+        pl = layer(params["enc_layers"], i)
+        h = h + A.forward(pl["attn"], acfg,
+                          L.rmsnorm(pl["ln1"], h, cfg.norm_eps),
+                          window=None, rope=rope)
+        h = h + L.mlp(pl["mlp"], L.rmsnorm(pl["ln2"], h, cfg.norm_eps),
+                      act=cfg.act)
+    return L.rmsnorm(params["enc_norm"], h, cfg.norm_eps)
+
+
 def forward(params: dict, cfg: ModelCfg, batch: dict) -> tuple:
-    """Full-sequence forward. batch: {"tokens": (B, T) integer tensor}.
-    Returns (logits (B, T, V), aux dict)."""
-    check_supported(cfg)
-    h = _embed_tokens(cfg, params, batch["tokens"])
+    """Full-sequence forward. batch: {"tokens": (B, T) integer tensor},
+    with "embeds" (B, F, d) for vlm and "src_embeds" (B, S, d) for
+    encdec. Returns (logits (B, T_total, V), aux dict); a moe model's aux
+    has "load_balance", the mean over its MoE layers."""
+    h = _embed_inputs(cfg, params, batch)
     pos = torch.arange(h.shape[1], device=h.device)[None, :]
     rope = _rope(cfg, pos)
-    if cfg.family == "dense":
+    aux: dict = {}
+    if cfg.family in ATTN_FAMILIES:
+        enc_out = _run_encoder(cfg, params, batch["src_embeds"]) \
+            if cfg.is_encdec else None
+        lb: list = []
         for i, w in enumerate(layer_windows(cfg)):
-            h = _dense_layer_fwd(cfg, layer(params["layers"], i), h, pos, w,
-                                 rope)
+            h = _dense_layer_fwd(cfg, layer(params["layers"], i, cfg), h,
+                                 pos, w, rope, enc_out, lb)
+        if cfg.family == "moe":
+            aux["load_balance"] = sum(lb) / len(lb)
     else:
         acfg = attn_cfg(cfg)
         h = _ssm_stack(
@@ -243,7 +336,7 @@ def forward(params: dict, cfg: ModelCfg, batch: dict) -> tuple:
             lambda call, a_in: A.forward(params["shared"]["attn"], acfg,
                                          a_in, positions=pos, window=None,
                                          rope=rope))
-    return _readout(cfg, params, h), {}
+    return _readout(cfg, params, h), aux
 
 
 # ---------------------------------------------------------------------------
@@ -291,20 +384,37 @@ def _ssm_stack(params, cfg: ModelCfg, h, mix, attend):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelCfg, batch: int, cache_size: int,
-               dtype=torch.float32, device=None) -> dict:
+               dtype=torch.float32, device=None, src_len: int = 0) -> dict:
     """Static-shape decode cache on ``device`` (default ``cuda:0``):
-    ``len`` (B,) int32; dense: ``k``/``v`` (L, B, cache_size, Hkv, Dh);
-    ssm and hybrid: ``conv`` (L, B, K-1, conv_dim) and ``ssm`` (L, B, H,
-    N, P) float32; hybrid: ``sk``/``sv`` (calls, B, cache_size, Hkv, Dh)
-    for the ceil(L / shared_attn_every) calls of the shared block."""
-    check_supported(cfg)
+    ``len`` (B,) int32; attention families: ``k``/``v`` (L, B,
+    cache_size, Hkv, Dh), int8 codes with ``k_s``/``v_s`` (L, B,
+    cache_size, Hkv) float32 scales (filled with 1e-8) for
+    ``kv_bits=8``; encdec: ``xk``/``xv`` (L, B, src_len, Hkv, Dh), the
+    encoder's cross-attention keys and values; ssm and hybrid: ``conv``
+    (L, B, K-1, conv_dim) and ``ssm`` (L, B, H, N, P) float32; hybrid:
+    ``sk``/``sv`` (calls, B, cache_size, Hkv, Dh) for the
+    ceil(L / shared_attn_every) calls of the shared block."""
     device = resolve_device(device)
     kw = dict(dtype=dtype, device=device)
     cache = {"len": torch.zeros((batch,), dtype=torch.int32, device=device)}
     kv = (batch, cache_size, cfg.n_kv_heads, cfg.head_dim)
-    if cfg.family == "dense":
-        cache["k"] = torch.zeros((cfg.n_layers,) + kv, **kw)
-        cache["v"] = torch.zeros((cfg.n_layers,) + kv, **kw)
+    if cfg.family in ATTN_FAMILIES:
+        shape = (cfg.n_layers,) + kv
+        if cfg.kv_bits == 8:
+            for name in ("k", "v"):
+                cache[name] = torch.zeros(shape, dtype=torch.int8,
+                                          device=device)
+            for name in ("k_s", "v_s"):
+                cache[name] = torch.full(shape[:-1], 1e-8,
+                                         dtype=torch.float32, device=device)
+        else:
+            cache["k"] = torch.zeros(shape, **kw)
+            cache["v"] = torch.zeros(shape, **kw)
+        if cfg.is_encdec:
+            xshape = (cfg.n_layers, batch, src_len, cfg.n_kv_heads,
+                      cfg.head_dim)
+            cache["xk"] = torch.zeros(xshape, **kw)
+            cache["xv"] = torch.zeros(xshape, **kw)
         return cache
     st = S.init_state(cfg.ssm, batch, **kw)
     cache["conv"] = st["conv"][None].repeat(cfg.n_layers, 1, 1, 1)
@@ -316,24 +426,54 @@ def init_cache(cfg: ModelCfg, batch: int, cache_size: int,
     return cache
 
 
+def _kv_slices(cfg: ModelCfg, cache: dict, i: int) -> tuple:
+    """Layer ``i``'s cache: (k, v), or (kq, ks, vq, vs) for
+    ``kv_bits=8`` (views, written in place)."""
+    if cfg.kv_bits == 8:
+        return (cache["k"][i], cache["k_s"][i], cache["v"][i],
+                cache["v_s"][i])
+    return cache["k"][i], cache["v"][i]
+
+
 def prefill(params: dict, cfg: ModelCfg, batch: dict, cache_size: int):
-    """Process the prompt; returns (last_logits (B, V), cache)."""
-    check_supported(cfg)
-    tokens = batch["tokens"]
-    B, T = tokens.shape
-    h = _embed_tokens(cfg, params, tokens)
-    cache = init_cache(cfg, B, cache_size, h.dtype, device=h.device)
+    """Process the prompt (after a vlm's ``embeds``; an encdec model also
+    runs its encoder over ``src_embeds`` and caches every decoder layer's
+    cross-attention keys and values); returns (last_logits (B, V),
+    cache)."""
+    h = _embed_inputs(cfg, params, batch)
+    B, T = h.shape[:2]
+    src_len = batch["src_embeds"].shape[1] if cfg.is_encdec else 0
+    cache = init_cache(cfg, B, cache_size, h.dtype, device=h.device,
+                       src_len=src_len)
     acfg = attn_cfg(cfg)
     rope = _rope(cfg, torch.arange(T, device=h.device)[None, :])
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
+        enc_out = _run_encoder(cfg, params, batch["src_embeds"]) \
+            if cfg.is_encdec else None
+        xcfg = attn_cfg(cfg, causal=False, use_rope=False)
         for i, w in enumerate(layer_windows(cfg)):
-            pl = layer(params["layers"], i)
+            pl = layer(params["layers"], i, cfg)
             a, (kc, vc) = A.prefill(pl["attn"], acfg,
                                     L.rmsnorm(pl["ln1"], h, cfg.norm_eps),
                                     cache_size, window=w, rope=rope)
-            cache["k"][i] = kc
-            cache["v"][i] = vc
-            h = _mlp_block(cfg, pl, h + _attn_out(cfg, pl, a))
+            if cfg.kv_bits == 8:
+                cache["k"][i], cache["k_s"][i] = flash.quantize_kv_rows(kc)
+                cache["v"][i], cache["v_s"][i] = flash.quantize_kv_rows(vc)
+            else:
+                cache["k"][i] = kc
+                cache["v"][i] = vc
+            h = h + _attn_out(cfg, pl, a)
+            if enc_out is not None:
+                # the reference's prefill passes no softcap here
+                q, xk, xv = A._project_qkv(
+                    pl["xattn"], xcfg, L.rmsnorm(pl["ln_x"], h,
+                                                 cfg.norm_eps), enc_out)
+                o = ops.mha(q, xk, xv, causal=False, window=None,
+                            softcap=None)
+                h = h + L.linear(pl["xattn"]["wo"], o.reshape(B, T, -1))
+                cache["xk"][i] = xk
+                cache["xv"][i] = xv
+            h = _mlp_block(cfg, pl, h)
     else:
         def mix(i, pm, x):
             y, st = S.forward(pm, cfg.ssm, x)
@@ -350,30 +490,45 @@ def prefill(params: dict, cfg: ModelCfg, batch: dict, cache_size: int):
 
         h = _ssm_stack(params, cfg, h, mix, attend)
     cache["len"] = torch.full((B,), T, dtype=torch.int32, device=h.device)
-    logits = _readout(cfg, params, h[:, -1:])[:, 0]
+    # the last position of each row: a strided view where B > 1, which
+    # the RMSNorm kernel does not take
+    logits = _readout(cfg, params, h[:, -1:].contiguous())[:, 0]
     return logits, cache
 
 
 def decode_step(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
                 cache: dict):
     """One decode step. tokens: (B,) integer tensor → (logits (B, V),
-    cache). The cache is updated IN PLACE (each row's k/v written at its
-    ``len``, the SSM layers' conv ring and state overwritten, then
-    ``len`` advanced) and returned; the JAX package returns a new
-    one."""
-    check_supported(cfg)
+    cache). The cache is updated IN PLACE (each row's k/v, or codes and
+    scales, written at its ``len``, the SSM layers' conv ring and state
+    overwritten, then ``len`` advanced) and returned; the JAX package
+    returns a new one. An encdec step attends to all ``src_len`` cached
+    encoder rows through ``ops.decode_attention``, its query ``wq``
+    alone (no ``qnorm``), as the reference's."""
     h = _embed_tokens(cfg, params, tokens[:, None])
+    B = h.shape[0]
     clen = cache["len"]
     acfg = attn_cfg(cfg)
     rope = _rope(cfg, clen[:, None])
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
+        if cfg.is_encdec:
+            src_len = torch.full((B,), cache["xk"].shape[2],
+                                 dtype=torch.int32, device=h.device)
         for i, w in enumerate(layer_windows(cfg)):
-            pl = layer(params["layers"], i)
+            pl = layer(params["layers"], i, cfg)
             a, _ = A.decode_step(pl["attn"], acfg,
                                  L.rmsnorm(pl["ln1"], h, cfg.norm_eps),
-                                 (cache["k"][i], cache["v"][i]), clen,
-                                 window=w, rope=rope)
-            h = _mlp_block(cfg, pl, h + _attn_out(cfg, pl, a))
+                                 _kv_slices(cfg, cache, i), clen, window=w,
+                                 rope=rope)
+            h = h + _attn_out(cfg, pl, a)
+            if cfg.is_encdec:
+                x_in = L.rmsnorm(pl["ln_x"], h, cfg.norm_eps)
+                q = L.linear(pl["xattn"]["wq"], x_in).reshape(
+                    B, cfg.n_heads, cfg.head_dim)
+                o = ops.decode_attention(q, cache["xk"][i], cache["xv"][i],
+                                         src_len)
+                h = h + L.linear(pl["xattn"]["wo"], o.reshape(B, 1, -1))
+            h = _mlp_block(cfg, pl, h)
     else:
         h = _ssm_stack(
             params, cfg, h,

@@ -468,10 +468,13 @@ class LmReplica:
     and decode run under ``torch.inference_mode()``; the cache's
     ``len`` stays a device tensor that the attention kernels read on
     the card (one small host-to-device copy per step, no host sync).
-    The dense (float KV cache), ssm and hybrid families are ported
-    (``NotImplementedError`` otherwise); a prefilled row's cache leaves
-    (``k``/``v``, or ``conv``/``ssm`` and the shared block's ``sk``/``sv``,
-    all layer-stacked) go into the slot at ``[:, slot]``."""
+    A prefilled row's cache leaves (``k``/``v``, with ``kv_bits=8`` int8
+    codes and their ``k_s``/``v_s`` scales; or ``conv``/``ssm`` and the
+    shared block's ``sk``/``sv``; all layer-stacked) go into the slot at
+    ``[:, slot]``, in the slot cache's dtype. Admission passes only the
+    tokens to ``prefill``, as the JAX package's does, so a vlm (which
+    needs ``embeds``) or encdec (``src_embeds``) model raises
+    ``KeyError`` there as it does in the JAX package."""
 
     max_inflight = 1
 
@@ -479,7 +482,6 @@ class LmReplica:
                  cache_size: int = 256, seed: int = 0, device=None,
                  index: int = 0):
         from ..models import lm         # deferred: vision path stays light
-        lm.check_supported(cfg)
         self._lm = lm
         self.cfg = cfg
         self.max_batch = max_batch

@@ -423,3 +423,27 @@ def test_planned_split_on_the_card(cuda_device):
     assert plan[3] > 1
     torch.testing.assert_close(_launch(q, k, v), tref.mha(q, k, v),
                                atol=TOL, rtol=TOL)
+
+
+# (B, Tq, Tk, Hq, Hkv, D, causal) of the LM families' launches, cut in
+# length: qwen3-moe's rep 8 (32/4), llama4-maverick's rep 5 (40/8) and
+# llava-next's rep 7 (56/8), causal at D 128; seamless-m4t's
+# cross-attention (64 queries over 1024 encoder rows) and encoder (1024
+# both ways), non-causal at D 64.
+FAMILY_CASES = {"qwen3_rep8": (1, 300, 300, 32, 4, 128, True),
+                "llama4_rep5": (1, 300, 300, 40, 8, 128, True),
+                "llava_rep7": (2, 200, 200, 56, 8, 128, True),
+                "seamless_cross_Tq64_Tk1024": (2, 64, 1024, 16, 16, 64,
+                                               False),
+                "seamless_encoder_T1024": (1, 1024, 1024, 16, 16, 64,
+                                           False)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FAMILY_CASES))
+def test_lm_family_shapes_on_the_card(cuda_device, case):
+    B, Tq, Tk, Hq, Hkv, D, causal = FAMILY_CASES[case]
+    q, k, v = _on(cuda_device, len(case), B, Tq, Tk, Hq, Hkv, D)
+    kw = dict(causal=causal, window=None, softcap=None)
+    torch.testing.assert_close(_launch(q, k, v, **kw),
+                               tref.mha(q, k, v, **kw), atol=TOL, rtol=TOL)

@@ -58,14 +58,21 @@ DEC_SHAPES = {"granite_B4_S4096": (4, 4096, 32, 8, 128, None),
 def _model_shapes():
     """(B, S, Hq, Hkv, D, window) of the served decode steps: 4 slots
     over a 4096 cache (chip_smoke.py's LM_BATCH, LM_CACHE), gemma2-2b's
-    local layers with its window and its global ones without."""
+    local layers with its window and its global ones without; the moe,
+    vlm and encdec configs' self-attention likewise, and seamless-m4t's
+    cross-attention step over its 1024 encoder rows."""
     out = {}
-    for name in ("granite-3-8b", "zamba2-1.2b", "gemma2-2b"):
+    for name in ("granite-3-8b", "zamba2-1.2b", "gemma2-2b",
+                 "qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b",
+                 "llava-next-34b", "seamless-m4t-medium"):
         cfg = registry.get(name)
         wins = (cfg.window, None) if cfg.window else (None,)
         for w in wins:
             out[f"{name}_win{w}"] = (4, 4096, cfg.n_heads, cfg.n_kv_heads,
                                      cfg.head_dim, w)
+    cfg = registry.get("seamless-m4t-medium")
+    out["seamless-m4t-medium_cross"] = (4, 1024, cfg.n_heads,
+                                        cfg.n_kv_heads, cfg.head_dim, None)
     return out
 
 
@@ -454,3 +461,23 @@ def test_rep_above_a_block_on_the_card(cuda_device):
         lens = (499, 37)
         got, ln = _launch(q, kc, vc, lens, window=200)
         _check(got, q, kc, vc, ln, lens, window=200)
+
+
+# (B, S, Hq, Hkv, D, lengths) of the LM families' decode steps, cut in
+# length: qwen3-moe's rep 8 (32/4), llama4-maverick's rep 5 (40/8) and
+# llava-next's rep 7 (56/8) at D 128; seamless-m4t's cross-attention
+# step over all of its 1024 encoder rows (len = S) at D 64, no window.
+FAMILY_STEPS = {"qwen3_rep8": (4, 700, 32, 4, 128, (1, 300, 699, 700)),
+                "llama4_rep5": (1, 700, 40, 8, 128, (651,)),
+                "llava_rep7": (2, 700, 56, 8, 128, (640, 700)),
+                "seamless_cross_len_S1024": (4, 1024, 16, 16, 64,
+                                             (1024,) * 4)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FAMILY_STEPS))
+def test_lm_family_steps_on_the_card(cuda_device, case):
+    B, S, Hq, Hkv, D, lens = FAMILY_STEPS[case]
+    q, kc, vc = _on(cuda_device, len(case), B, S, Hq, Hkv, D)
+    got, ln = _launch(q, kc, vc, lens)
+    _check(got, q, kc, vc, ln, lens)

@@ -1,7 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package,
 its entry points refuse to fall back to the CPU, and what is not ported
-yet (the double-buffered K sweep, tensor parallelism, the moe, vlm and
-encdec LM families) raises ``NotImplementedError``."""
+yet (tensor parallelism) raises ``NotImplementedError``."""
 import ast
 import subprocess
 import sys
@@ -33,7 +32,8 @@ def test_no_file_imports_jax_or_the_jax_package():
     assert {"kernels/qmatmul.py", "serve/detection.py",
             "check/__main__.py", "models/lm.py", "nn/attention.py",
             "serve/engine.py", "configs/registry.py", "nn/ssm.py",
-            "kernels/ssd_scan.py", "loadgen/harness.py"} <= names
+            "kernels/ssd_scan.py", "loadgen/harness.py", "nn/flash.py",
+            "nn/moe.py"} <= names
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
@@ -126,5 +126,3 @@ def test_entry_points_refuse_silent_cpu(monkeypatch, cpu_acc):
 def test_unported_paths_raise(cpu_acc):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Deployment(cpu_acc, devices=["cpu"], tensor_parallel=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LmReplica(registry.reduced("qwen3-moe-30b-a3b"), {}, device="cpu")

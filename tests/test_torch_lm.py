@@ -221,26 +221,34 @@ def test_replica_frees_slots_and_counts():
 
 
 def test_unported_lm_paths_raise():
-    tc = treg.reduced("granite-3-8b")
-    tp = tlm.init_params(tc, torch.Generator().manual_seed(1), device="cpu")
-    q8 = dataclasses.replace(tc, kv_bits=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.prefill(tp, q8, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                    8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.init_cache(q8, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LmReplica(q8, tp, device="cpu")
-    for name in ("qwen3-moe-30b-a3b", "llava-next-34b",
-                 "seamless-m4t-medium"):
-        cfg = treg.reduced(name)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.init_params(cfg, torch.Generator(), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.forward(tp, cfg, {"tokens": torch.zeros((1, 4),
-                                                        dtype=torch.int32)})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TEngine(cfg, tp, device="cpu")
+    """Nothing of the LM is left unported: every registry config, and
+    granite-3-8b with the int8 KV cache, runs ``init_params``,
+    ``prefill`` and a ``decode_step`` at its reduced size (with patch
+    embeddings for vlm, source frames for encdec), finite logits of the
+    vocabulary's width."""
+    names = list(treg.ARCHS) + ["granite-3-8b@kv8"]
+    for name in names:
+        cfg = treg.reduced(name.split("@")[0])
+        if name.endswith("@kv8"):
+            cfg = dataclasses.replace(cfg, kv_bits=8)
+        params = tlm.init_params(cfg, torch.Generator().manual_seed(1),
+                                 device="cpu")
+        gen = torch.Generator().manual_seed(2)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 6),
+                                         generator=gen, dtype=torch.int32)}
+        if cfg.family == "vlm":
+            batch["embeds"] = torch.randn(2, cfg.n_frontend_tokens,
+                                          cfg.d_model, generator=gen)
+        if cfg.is_encdec:
+            batch["src_embeds"] = torch.randn(2, 5, cfg.d_model,
+                                              generator=gen)
+        logits, cache = tlm.prefill(params, cfg, batch, 24)
+        logits, cache = tlm.decode_step(params, cfg, logits.argmax(-1)
+                                        .to(torch.int32), cache)
+        assert logits.shape == (2, cfg.vocab), name
+        assert bool(torch.isfinite(logits).all()), name
+        if name.endswith("@kv8"):
+            assert cache["k"].dtype == torch.int8
 
 
 def test_entry_points_refuse_silent_cpu(monkeypatch):

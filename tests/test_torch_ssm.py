@@ -240,10 +240,9 @@ def test_kv_bits_is_not_read_by_ssm_caches(model):
     """``kv_bits=8`` names the attention families' int8 KV cache; the
     SSM and hybrid caches ignore it, as in the JAX package
     (``models/lm.py:init_cache``), so the port serves such a config as
-    the float one (and still refuses it on a dense model)."""
+    the float one (and gives a dense model its int8 cache)."""
     _, tc, _, tp = model
     q8 = dataclasses.replace(tc, kv_bits=8)
-    tlm.check_supported(q8)
     toks = {"tokens": torch.from_numpy(_tokens(tc, (1, 8), seed=5))}
     tl, tcache = tlm.prefill(tp, q8, toks, 12)
     wl, wcache = tlm.prefill(tp, tc, toks, 12)
@@ -251,9 +250,11 @@ def test_kv_bits_is_not_read_by_ssm_caches(model):
     assert {k: (v.dtype, v.shape) for k, v in tcache.items()} == \
         {k: (v.dtype, v.shape) for k, v in wcache.items()}
     LmReplica(q8, tp, max_batch=1, cache_size=12, device="cpu")
-    with pytest.raises(NotImplementedError, match="kv_bits"):
-        tlm.check_supported(dataclasses.replace(treg.reduced("granite-3-8b"),
-                                                kv_bits=8))
+    dense = tlm.init_cache(dataclasses.replace(treg.reduced("granite-3-8b"),
+                                               kv_bits=8), 1, 12,
+                           device="cpu")
+    assert dense["k"].dtype == dense["v"].dtype == torch.int8
+    assert dense["k_s"].dtype == torch.float32
 
 
 def test_cpu_run_counts_no_kernel_launch(model):
