@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out FILE.json]
                           [--only stream|a8|conv|attn|ssd|dec|pool|load|
-                                  decwin|moe]
+                                  decwin|moe|train]
 
 Phases, each printed as it runs; any failure raises and the script exits
 non-zero:
@@ -245,6 +245,21 @@ non-zero:
    grouped expert contractions' (``moe.experts``) and the int8 decode
    attention's (``flash.decode_grouped_q8``) device time in a step is
    read under ``torch.profiler`` (``profile_call`` labels).
+6c. ``train`` (``run_train``): gradient steps through the forward kernels
+   under autograd (``kernels/autograd.py``: #6, #11, #13 launched
+   forward, the plain version recomputed for backward). granite-3-8b
+   at full width, TRAIN_LAYERS of 40, TRAIN_ROWS x TRAIN_SEQ tokens in
+   TRAIN_MB microbatches, adamw, remat "full": step 0 through the
+   kernels and all plain (``train_route_check``: launches asserted,
+   2 (4L+1) rmsnorm and 2 (2L) mha; the loss and each gradient leaf
+   within TRAIN_TOL), one forward + backward per remat mode (peak,
+   losses equal), TRAIN_STEPS adamw steps (ms, tokens/s, peak), one
+   step under ``torch.profiler`` split by part (``train_split``), one
+   int8_adamw step (state bytes a parameter); mamba2-130m whole at
+   TRAIN_SSM (#13 under autograd, the same check, a profiled step);
+   ``examples/train_lm.py``'s granite-100m through ``train.loop.train``
+   (SMALL_STEPS steps, the example's loss drop, a restart from the
+   step-SMALL_CKPT checkpoint within RESTART_TOL).
 7. A JSON line listing all 13 kernels (``launches`` is the count on
    the path that runs it: ``main`` for conv, maxpool and resize,
    ``fusion_off`` for pointwise, ``quant_w8a16`` for qmatmul,
@@ -299,7 +314,8 @@ llama4-maverick-400b-a17b at full width, one group of its grouped
 layout (a dense and an MoE layer with all 128 experts: 69.1 GiB of
 float32 weights), at the model level: one row of LLAMA4_PROMPT tokens
 and FAMILY_NEW greedy steps, checked as ``moe``, its peak memory
-printed (kept out of the full run, which must not fail on memory).
+printed (kept out of the full run, which must not fail on memory);
+``--only train`` for path ``train`` alone.
 
 Needs one CUDA card; exits non-zero without one, and in a directory that
 does not hold the repository's ``src/repro_torch``.
@@ -437,6 +453,26 @@ VLM_LAYERS = 8                   # of llava-next-34b's 60: 20.0 GiB
 VLM_ROWS, VLM_PROMPT = 2, 128    # after its 2880 patch embeddings
 ENCDEC_ROWS, ENCDEC_SRC, ENCDEC_PROMPT = 4, 1024, 64
 LLAMA4_PROMPT = 2048             # one group (2 of 48 layers): 69.1 GiB
+# Path train (``run_train``): (a) granite-3-8b at full width, TRAIN_LAYERS
+# of its 40 layers, TRAIN_ROWS rows of TRAIN_SEQ tokens in TRAIN_MB
+# microbatches, adamw, remat "full" (1.20 B float32 parameters: 19.2 GB of
+# parameters, gradients and two moments at 16 B a parameter); (b)
+# mamba2-130m whole, TRAIN_SSM = (rows, tokens), one microbatch; (c)
+# examples/train_lm.py's granite-100m through the train loop: SMALL_STEPS
+# steps of SMALL_TC, a checkpoint every SMALL_CKPT steps, restarted from
+# the first. Step 0 through the kernels against all plain: the loss within
+# TRAIN_TOL relative, each gradient leaf's max |difference| within
+# TRAIN_TOL x its max |value|; the restart's losses within RESTART_TOL
+# relative of the uninterrupted run's.
+TRAIN_LAYERS = 4
+TRAIN_ROWS, TRAIN_SEQ, TRAIN_MB = 4, 2048, 2
+TRAIN_STEPS = 4
+TRAIN_LR = 3e-4
+TRAIN_TOL = 1e-4
+TRAIN_SSM = (2, 512)
+SMALL_STEPS, SMALL_CKPT = 200, 100
+SMALL_TC = dict(batch=8, seq_len=256, microbatches=2, lr=1e-3, warmup=20)
+RESTART_TOL = 1e-6
 # kv8's decode steps against the plain kv_bits=8 replay: mean relative
 # logit difference below the JAX package's own bound for the int8 cache
 # (tests/test_quantized_serving.py:46-48).
@@ -3050,8 +3086,9 @@ def replay_plain(torch, np, lm, ops, cfg, params, dev, prompts, done,
 
 
 def profile_call(torch, fn, top: int = 6, match: str | None = None,
-                 labels: dict | None = None) -> dict:
-    """Three calls of ``fn`` (after a warm-up call) on the host clock,
+                 labels: dict | None = None, reps: int = 3) -> dict:
+    """``reps`` calls of ``fn`` (after a warm-up call; neither with
+    ``reps=0``) on the host clock,
     then one under ``torch.profiler``: ``issue`` (the host's time to
     return from ``fn``, the queue empty at its start, median), ``wall``
     (to the end of a synchronise after it, median), and from the
@@ -3065,13 +3102,15 @@ def profile_call(torch, fn, top: int = 6, match: str | None = None,
     runs under ``torch.profiler.record_function(label)`` in the profiled
     call only, and ``label_ms`` has, for each label, the summed time of
     the kernels inside its ranges on the device's timeline, its ranges
-    and those kernels; the device numbers are None where the profiler
-    records no kernel."""
+    and those kernels, and ``outside`` each kernel name's ms and count
+    outside every label's ranges; the device numbers are None where the
+    profiler records no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    fn()
+    if reps:
+        fn()
     issue, wall = [], []
-    for _ in range(3):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -3079,7 +3118,8 @@ def profile_call(torch, fn, top: int = 6, match: str | None = None,
         torch.cuda.synchronize()
         issue.append((t1 - t0) * 1e3)
         wall.append((time.perf_counter() - t0) * 1e3)
-    out = {"issue": sorted(issue)[1], "wall": sorted(wall)[1], "busy": None,
+    out = {"issue": sorted(issue)[reps // 2] if reps else None,
+           "wall": sorted(wall)[reps // 2] if reps else None, "busy": None,
            "span": None, "kernels": 0, "top": []}
     saved = {}
     for label, (mod, name) in (labels or {}).items():
@@ -3099,16 +3139,23 @@ def profile_call(torch, fn, top: int = 6, match: str | None = None,
     gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     ks = [e for e in gpu if e.name not in (labels or {})]   # not ranges
     if labels:
-        out["label_ms"] = {}
+        out["label_ms"], out["outside"] = {}, {}
+        labelled = set()
         for label in labels:
             spans = [(e.time_range.start, e.time_range.end) for e in gpu
                      if e.name == label]
             inside = [k for k in ks if any(
                 a <= k.time_range.start and k.time_range.end <= b
                 for a, b in spans)]
+            labelled.update(id(k) for k in inside)
             out["label_ms"][label] = [
                 sum(k.time_range.elapsed_us() for k in inside) / 1e3,
                 len(spans), len(inside)]
+        for k in ks:
+            if id(k) not in labelled:
+                ms, n = out["outside"].get(k.name, (0.0, 0))
+                out["outside"][k.name] = (
+                    ms + k.time_range.elapsed_us() / 1e3, n + 1)
     if ks:
         by_name: dict = {}
         counts: dict = {}
@@ -3793,6 +3840,339 @@ def run_llama4(torch, np, lm, ops, registry, counters, dev) -> tuple:
     return counts, run
 
 
+def train_launches(cfg, microbatches: int, recompute: bool) -> dict:
+    """The forward kernels' launches of one train step: per microbatch
+    the forward's (``lm_launches`` of one prefill) and, with remat, the
+    checkpointed layers' again (all of it but the final norm)."""
+    out = {}
+    for k, v in lm_launches(cfg, 1, 0).items():
+        again = (v - 1 if k == "rmsnorm" else v) if recompute and v else 0
+        out[k] = microbatches * (v + again)
+    return out
+
+
+def _counts(counters) -> dict:
+    return {k: c.value for k, c in counters.items()}
+
+
+def _zero(counters) -> None:
+    for c in counters.values():
+        c.reset()
+
+
+def _timed(torch, fn):
+    """(fn's result, its wall ms to a synchronise)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def train_route_check(torch, ops, steps, tree, counters, tag: str, cfg,
+                      params, batch, n_mb: int) -> dict:
+    """Step 0's loss and gradients twice on one weight set and batch:
+    through the kernels (the launch counters set to 0 just before and
+    read just after, held to ``train_launches``), then with every op on
+    its plain version (``ops.set_default_backend("ref")``, no launch);
+    the loss held within TRAIN_TOL relative, each gradient leaf's max
+    |difference| within TRAIN_TOL x its max |value|."""
+    _zero(counters)
+    (g_k, m_k), k_ms = _timed(torch, lambda: steps.accumulate_grads(
+        params, cfg, batch, n_mb))
+    counts = _counts(counters)
+    want = {k: 0 for k in counters}
+    want.update(train_launches(cfg, n_mb, cfg.remat != "none"))
+    if counts != want:
+        raise AssertionError(f"{tag} launches {counts}, expected {want}")
+    ops.set_default_backend("ref")
+    try:
+        (g_r, m_r), r_ms = _timed(torch, lambda: steps.accumulate_grads(
+            params, cfg, batch, n_mb))
+    finally:
+        ops.set_default_backend("auto")
+    if _counts(counters) != counts:
+        raise AssertionError(f"{tag} the plain route launched a kernel")
+    loss_k, loss_r = float(m_k["loss"]), float(m_r["loss"])
+    loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+    flat_r = dict(tree.flatten_with_path(g_r))
+    worst, worst_leaf, finite = 0.0, None, True
+    for path, gk in tree.flatten_with_path(g_k):
+        gr = flat_r[path]
+        finite &= bool(torch.isfinite(gk).all())
+        ratio = float((gk - gr).abs().max()
+                      / gr.abs().max().clamp(min=1e-30))
+        if ratio >= worst:
+            worst, worst_leaf = ratio, "|".join(map(str, path))
+    gn_k = float(steps.opt_lib.global_norm(g_k))
+    gn_r = float(steps.opt_lib.global_norm(g_r))
+    del g_k, g_r
+    print(f"{tag} step 0, {batch['tokens'].shape[0]} x "
+          f"{tuple(batch['tokens'].shape[1:])} tokens: loss {loss_k!r} "
+          f"through the kernels ({k_ms:.0f} ms, a first call; launches "
+          f"{_nonzero(counts)}), {loss_r!r} all plain ({r_ms:.0f} ms): "
+          f"relative {loss_rel:.3e}; worst gradient leaf {worst_leaf} "
+          f"max|diff| / max|leaf| {worst:.3e} (tolerance {TRAIN_TOL}); "
+          f"grad norm {gn_k!r} vs {gn_r!r}", flush=True)
+    if not (finite and loss_rel <= TRAIN_TOL and worst <= TRAIN_TOL):
+        raise AssertionError(f"{tag} step 0 differs from the plain route")
+    return {"launches": counts, "kernel_ms": k_ms, "plain_ms": r_ms,
+            "loss": loss_k, "loss_plain": loss_r, "loss_rel": loss_rel,
+            "grad_worst_ratio": worst, "grad_worst_leaf": worst_leaf,
+            "grad_norm": gn_k, "grad_norm_plain": gn_r,
+            "tolerance": TRAIN_TOL}
+
+
+def train_split(prof: dict) -> dict:
+    """A profiled train step's device time by part: the plain backward
+    recompute of each kernel and the optimizer (their labels' ranges),
+    then, outside those ranges, the forward kernels #6, #11, #13 (first
+    calls and remat recomputes), cuBLAS (names with "gemm") and the
+    rest; each with its share of the kernels' summed time."""
+    parts = {k: v[0] for k, v in prof["label_ms"].items()}
+    fwd = {"#6 forward": "rmsnorm_kernel", "#11 forward": "mha_",
+           "#13 forward": "ssd_"}
+    for k in list(fwd) + ["cublas", "rest"]:
+        parts[k] = 0.0
+    for name, (ms, _) in prof["outside"].items():
+        key = next((k for k, m in fwd.items() if m in name), None)
+        if key is None:
+            key = "cublas" if "gemm" in name.lower() else "rest"
+        parts[key] += ms
+    busy = prof["busy"] or float("nan")
+    return {k: [v, v / busy] for k, v in parts.items()}
+
+
+def train_profile(torch, tag: str, what: str, fn, labels: dict) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (``profile_call``,
+    no timed calls before it), split by ``train_split``."""
+    prof = profile_call(torch, fn, top=8, reps=0, labels=labels)
+    out = {"busy_ms": prof["busy"], "span_ms": prof["span"],
+           "kernels": prof["kernels"], "top": prof["top"],
+           "label_ms": prof.get("label_ms"),
+           "split": train_split(prof) if prof["busy"] else None}
+    if out["split"]:
+        print(f"{tag} {what} under torch.profiler: kernels "
+              f"{prof['busy']:.1f} ms busy over a {prof['span']:.1f} ms "
+              f"span, {prof['kernels']} launches; by part (ms, share) "
+              + ", ".join(f"{k} {v[0]:.1f} ({v[1]:.1%})"
+                          for k, v in out["split"].items()), flush=True)
+    else:
+        print(f"{tag} torch.profiler recorded no kernel", flush=True)
+    return out
+
+
+def run_train(torch, np, lm, ops, registry, counters, dev) -> tuple:
+    """Path train: a gradient step through the forward kernels under
+    autograd (``kernels/autograd.py``), at full width.
+
+    (a) granite-3-8b, TRAIN_LAYERS of 40 layers, remat "full":
+    ``train_route_check`` on TokenStream's batch 0; TRAIN_STEPS adamw
+    steps (``launch.steps.make_train_step``; step ms, tokens/s, peak);
+    one gradient computation in each remat mode (peak, losses equal);
+    one step under ``torch.profiler`` (``train_split``); one int8_adamw
+    step (its state's bytes a parameter). (b) mamba2-130m whole at
+    TRAIN_SSM: ``train_route_check`` (#13 under autograd). (c) granite-
+    100m through ``train.loop.train``: SMALL_STEPS steps (the loss must
+    drop by more than 0.5, the example's assertion), then a restart from
+    the step-SMALL_CKPT checkpoint in a fresh state, its losses within
+    RESTART_TOL relative of the uninterrupted run's. Each run's launches
+    are held to ``train_launches``. Returns (the launches of (a)'s steps,
+    (b)'s kernel route and (c)'s uninterrupted run, the run dict)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch import tree
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import autograd as kgrad
+    from repro_torch.launch import steps
+    from repro_torch.optim import optimizers
+    from repro_torch.train.loop import TrainConfig, train
+    tag = "[train]"
+    t_path = time.perf_counter()
+    run: dict = {}
+    total = {k: 0 for k in counters}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    def batch_of(cfg, rows, seq, n_mb, index):
+        b = TokenStream(vocab=cfg.vocab, seq_len=seq, batch=rows, seed=0,
+                        microbatches=n_mb).batch_at(index)
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    # (a) granite-3-8b at full width
+    cfg, params = make_lm(torch, lm, registry, dev, tag, "granite-3-8b",
+                          TRAIN_LAYERS, remat="full")
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{tag} reckoning: {n_params / 1e9:.3f} B parameters x 16 B "
+          f"(float32 weights, gradients, adamw's two moments) = "
+          f"{n_params * 16 / 1e9:.1f} GB, plus activations; batch "
+          f"{TRAIN_ROWS} x {TRAIN_SEQ} tokens in {TRAIN_MB} microbatches",
+          flush=True)
+    a = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+         "rows": TRAIN_ROWS, "seq": TRAIN_SEQ, "microbatches": TRAIN_MB}
+    b0 = batch_of(cfg, TRAIN_ROWS, TRAIN_SEQ, TRAIN_MB, 0)
+    a["step0"] = train_route_check(torch, ops, steps, tree, counters, tag,
+                                   cfg, params, b0, TRAIN_MB)
+    modes = {}
+    for mode in ("none", "full", "dots", "group"):
+        free_card(torch)
+        torch.cuda.reset_peak_memory_stats()
+        _zero(counters)
+        (g, m), ms = _timed(torch, lambda: steps.accumulate_grads(
+            params, dataclasses.replace(cfg, remat=mode), b0, TRAIN_MB))
+        modes[mode] = {"loss": float(m["loss"]), "ms": ms,
+                       "peak_gib": peak_gib(torch),
+                       "launches": _counts(counters)}
+        del g
+        print(f"{tag} remat {mode}: forward + backward of both "
+              f"microbatches {ms:.0f} ms, peak {modes[mode]['peak_gib']:.2f}"
+              f" GiB, loss {modes[mode]['loss']!r}, launches "
+              f"{_nonzero(modes[mode]['launches'])}", flush=True)
+    if len({v["loss"] for v in modes.values()}) != 1:
+        raise AssertionError(f"{tag} remat modes' losses differ: {modes}")
+    a["remat"] = modes
+    free_card(torch)
+    opt = optimizers.adamw(lr=TRAIN_LR)
+    step_fn = steps.make_train_step(cfg, opt, TRAIN_MB)
+    state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    step_ms, losses = [], []
+    for i in range(TRAIN_STEPS):
+        b = batch_of(cfg, TRAIN_ROWS, TRAIN_SEQ, TRAIN_MB, i)
+        (params, state, m), ms = _timed(
+            torch, lambda: step_fn(params, state, i, b))
+        step_ms.append(ms)
+        losses.append(float(m["loss"]))
+    counts = _counts(counters)
+    want = {k: 0 for k in counters}
+    want.update({k: TRAIN_STEPS * v for k, v in train_launches(
+        cfg, TRAIN_MB, True).items()})
+    if counts != want or not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag} steps: launches {counts}, expected "
+                             f"{want}; losses {losses}")
+    add(counts)
+    med = statistics.median(step_ms[1:])
+    a.update(step_ms=step_ms, step_ms_median=med, losses=losses,
+             tokens_per_s=TRAIN_ROWS * TRAIN_SEQ / med * 1e3,
+             peak_gib=peak_gib(torch), launches=counts)
+    print(f"{tag} {TRAIN_STEPS} adamw steps (lr {TRAIN_LR}): ms "
+          f"{[round(x, 1) for x in step_ms]}, median after the first "
+          f"{med:.1f} ms, {a['tokens_per_s']:.0f} tokens/s; losses "
+          f"{losses}; peak {a['peak_gib']:.2f} GiB; launches "
+          f"{_nonzero(counts)} = {TRAIN_STEPS} x "
+          f"{_nonzero(train_launches(cfg, TRAIN_MB, True))}", flush=True)
+    holder = [params, state]
+
+    def one_step():
+        holder[0], holder[1], m = step_fn(holder[0], holder[1], TRAIN_STEPS,
+                                          b0)
+        float(m["loss"])
+    # each kernel's plain backward recompute and the optimizer, labelled
+    labels = {"#6 backward (plain)": (kgrad, "rmsnorm_backward"),
+              "#11 backward (plain)": (kgrad, "mha_backward"),
+              "#13 backward (plain)": (kgrad, "ssd_scan_backward"),
+              "optimizer": (steps, "apply_optimizer")}
+
+    def labelled(*names):
+        return {k: labels[k] for k in names}
+    a["profile"] = train_profile(
+        torch, tag, "one adamw step", one_step,
+        labelled("#6 backward (plain)", "#11 backward (plain)", "optimizer"))
+    params, state = holder
+    del holder, state
+    free_card(torch)
+    opt8 = optimizers.int8_adamw(lr=TRAIN_LR)
+    state8 = opt8.init(params)
+    bpp = sum(t.numel() * t.element_size()
+              for t in tree.leaves(state8)) / n_params
+    (params, state8, m8), ms8 = _timed(torch, lambda: steps.make_train_step(
+        cfg, opt8, TRAIN_MB)(params, state8, 0, b0))
+    a["int8_adamw"] = {"state_bytes_per_param": bpp, "step_ms": ms8,
+                       "loss": float(m8["loss"])}
+    print(f"{tag} int8_adamw: state {bpp:.4f} bytes a parameter (adamw 8), "
+          f"one step {ms8:.0f} ms, loss {a['int8_adamw']['loss']!r}",
+          flush=True)
+    if not np.isfinite(a["int8_adamw"]["loss"]):
+        raise AssertionError(f"{tag} int8_adamw step: {a['int8_adamw']}")
+    del params, state8, b0
+    free_card(torch)
+    run["granite"] = a
+
+    # (b) mamba2-130m whole: #13 under autograd
+    cfg, params = make_lm(torch, lm, registry, dev, tag, "mamba2-130m")
+    rows, seq = TRAIN_SSM
+    bm = batch_of(cfg, rows, seq, 1, 0)
+    chk = train_route_check(torch, ops, steps, tree, counters, tag, cfg,
+                            params, bm, 1)
+    add(chk["launches"])
+    run["mamba2"] = {"arch": cfg.name, "rows": rows, "seq": seq,
+                     "remat": cfg.remat, "step0": chk,
+                     "peak_gib": peak_gib(torch)}
+    run["mamba2"]["profile"] = train_profile(
+        torch, tag, f"{cfg.name}'s forward + backward",
+        lambda: float(steps.accumulate_grads(params, cfg, bm, 1)[1]["loss"]),
+        labelled("#6 backward (plain)", "#13 backward (plain)"))
+    del params, bm
+    free_card(torch)
+
+    # (c) granite-100m: examples/train_lm.py's run, then a restart
+    cfg = dataclasses.replace(
+        registry.GRANITE_3_8B, name="granite-100m", n_layers=6, d_model=512,
+        n_heads=8, n_kv_heads=4, head_dim=64, d_ff=1536, vocab=8192,
+        remat="none", attn_chunk=256)
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        tc = TrainConfig(steps=SMALL_STEPS, ckpt_dir=str(d / "full"),
+                         ckpt_every=SMALL_CKPT, log_every=50, **SMALL_TC)
+        _zero(counters)
+        full, full_ms = _timed(torch, lambda: train(cfg, tc, device=dev))
+        counts = _counts(counters)
+        want = {k: 0 for k in counters}
+        want.update({k: SMALL_STEPS * v for k, v in train_launches(
+            cfg, tc.microbatches, False).items()})
+        if counts != want:
+            raise AssertionError(f"{tag} granite-100m launches {counts}, "
+                                 f"expected {want}")
+        add(counts)
+        restart = d / "restart"
+        shutil.copytree(d / "full" / f"step_{SMALL_CKPT:08d}",
+                        restart / f"step_{SMALL_CKPT:08d}")
+        tc2 = dataclasses.replace(tc, ckpt_dir=str(restart))
+        again, again_ms = _timed(torch, lambda: train(cfg, tc2, device=dev))
+    hist, hist2 = full["loss_history"], again["loss_history"]
+    tail = hist[SMALL_CKPT:]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(hist2, tail))
+    tokens = SMALL_STEPS * tc.batch * tc.seq_len
+    c = {"arch": cfg.name, "params": sum(
+        t.numel() for t in _leaves(full["final_state"].params)),
+        "steps": SMALL_STEPS, **SMALL_TC, "first_loss": hist[0],
+        "last_loss": hist[-1], "seconds": full_ms / 1e3,
+        "tokens_per_s": tokens / full_ms * 1e3, "launches": counts,
+        "restart_from": SMALL_CKPT, "restart_seconds": again_ms / 1e3,
+        "restart_max_rel": rel, "restart_bit_equal": hist2 == tail}
+    print(f"{tag} {cfg.name} ({c['params'] / 1e6:.1f} M parameters): "
+          f"{SMALL_STEPS} steps of {tc.batch} x {tc.seq_len} in "
+          f"{c['seconds']:.1f} s ({c['tokens_per_s']:.0f} tokens/s), loss "
+          f"{hist[0]!r} -> {hist[-1]!r} (uniform {np.log(cfg.vocab):.3f}); "
+          f"launches {_nonzero(counts)}; restarted from step {SMALL_CKPT} "
+          f"in a fresh state: {len(hist2)} losses, max relative "
+          f"difference {rel:.3e} (tolerance {RESTART_TOL}), bit-equal "
+          f"{c['restart_bit_equal']}", flush=True)
+    if not (hist[-1] < hist[0] - 0.5 and len(hist2) == len(tail)
+            and rel <= RESTART_TOL):
+        raise AssertionError(f"{tag} granite-100m: {c}")
+    run["granite_100m"] = c
+    del full, again
+    free_card(torch)
+    run["seconds"] = time.perf_counter() - t_path
+    print(f"{tag} path train took {run['seconds']:.1f}s", flush=True)
+    return total, run
+
+
 def long_gaps(proc, duration_s: float, step_s: float) -> int:
     """Gaps of ``proc``'s schedule (from 0) longer than half a round:
     the wall loop (``OpenLoopHarness._run_wall``) starts a round only
@@ -4041,7 +4421,7 @@ def main() -> int:
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--only", choices=("stream", "a8", "conv", "attn",
                                        "ssd", "dec", "pool", "load",
-                                       "decwin", "moe"),
+                                       "decwin", "moe", "train"),
                     help="only one slice's reading, for a before/after "
                     "(copied into an older checkout, it reads that "
                     "checkout's kernels): stream, #4 and #5's cases and the "
@@ -4063,7 +4443,8 @@ def main() -> int:
                     "the arrival shapes and a replica crash; decwin, #12 "
                     "past S with a window (reported, not enforced); moe, "
                     "path moe and llama4-maverick's one full-width group "
-                    "(69.1 GiB of weights). Prints no result line")
+                    "(69.1 GiB of weights); train, path train. Prints no "
+                    "result line")
     args = ap.parse_args()
 
     T0 = time.perf_counter()
@@ -4161,6 +4542,11 @@ def main() -> int:
         _, lm_runs["llama4"] = run_llama4(torch, np, lm, ops, registry,
                                           counters, dev0)
         write_out({}, **lm_runs)
+        print(f"[card] {smi()}")
+        return 0
+    if args.only == "train":
+        _, run = run_train(torch, np, lm, ops, registry, counters, dev0)
+        write_out({}, train=run)
         print(f"[card] {smi()}")
         return 0
     if args.only == "attn":
@@ -4672,6 +5058,9 @@ def main() -> int:
     paths["vlm"], lm_runs["vlm"] = run_vlm(torch, np, lm, ops, registry,
                                            counters, dev0)
     paths["encdec"], lm_runs["encdec"] = run_encdec(
+        torch, np, lm, ops, registry, counters, dev0)
+    # train: gradient steps through the forward kernels under autograd
+    paths["train"], lm_runs["train"] = run_train(
         torch, np, lm, ops, registry, counters, dev0)
     for kname, path in KERNEL_PATH.items():
         if paths[path][kname] <= 0:

@@ -7,14 +7,16 @@ paths; the *largest* ones should live in the big-but-slower memory tier
 (paper Eq. 4–5 + objective) is: minimise off-chip bandwidth plus
 λ·(number of off-chip buffers) subject to the on-chip memory budget.
 
-A copy of the JAX package's ``core/buffers.py`` planner. Its
-``SoftwareFifo`` (a JAX pytree used by the training path) is not part
-of this package yet.
+A copy of the JAX package's ``core/buffers.py`` planner and its
+``SoftwareFifo`` (over a torch tensor; not a pytree).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
+from ..device import resolve_device
 from .ir import Graph, SkipBuffer
 
 
@@ -94,3 +96,47 @@ def allocate_buffers(graph: Graph, avail_bytes: int, a_bits: int = 16,
                       n_offchip=n_off, trace=trace,
                       depths={b.edge: b.depth_words for b in bufs},
                       bits={b.edge: bits_of(b) for b in bufs})
+
+
+# --------------------------------------------------------------------------
+# Software FIFO (paper Listing 1) — functional model over a tensor.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SoftwareFifo:
+    """Chunked circular FIFO over a (capacity_chunks, chunk) buffer.
+
+    The paper's Listing 1 is a host-side (PYNQ) FIFO moving DMA-burst-
+    sized chunks: ``push``/``pop`` move whole chunks and return a new
+    FIFO (the old one is left as it was). The JAX package's semantics,
+    kept: a push when full overwrites the slot at ``tail`` and leaves
+    ``size`` at capacity; a pop when empty returns the slot at ``head``
+    and leaves ``size`` at 0; both indices advance modulo capacity.
+    """
+    buf: torch.Tensor           # (capacity_chunks, chunk)
+    head: int                   # next pop index
+    tail: int                   # next push index
+    size: int                   # chunks stored
+
+    @classmethod
+    def create(cls, capacity_chunks: int, chunk: int,
+               dtype=torch.float32, device=None) -> "SoftwareFifo":
+        """An empty FIFO on ``device`` (default ``cuda:0``; raises
+        without CUDA)."""
+        buf = torch.zeros((capacity_chunks, chunk), dtype=dtype,
+                          device=resolve_device(device))
+        return cls(buf=buf, head=0, tail=0, size=0)
+
+    def push(self, chunk_data: torch.Tensor) -> "SoftwareFifo":
+        cap = self.buf.shape[0]
+        buf = self.buf.clone()
+        buf[self.tail] = chunk_data
+        return SoftwareFifo(buf=buf, head=self.head,
+                            tail=(self.tail + 1) % cap,
+                            size=min(self.size + 1, cap))
+
+    def pop(self) -> tuple[torch.Tensor, "SoftwareFifo"]:
+        cap = self.buf.shape[0]
+        out = self.buf[self.head].clone()
+        return out, SoftwareFifo(buf=self.buf, head=(self.head + 1) % cap,
+                                 tail=self.tail, size=max(self.size - 1, 0))

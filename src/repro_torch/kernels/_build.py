@@ -332,14 +332,19 @@ def grown_scratch(slot: list, floats: int,
 
 
 def check_no_grad(*tensors: torch.Tensor) -> None:
-    """Raise if any operand requires grad: the kernels have no backward
-    yet, and a silent fall back to the plain version would hide that."""
+    """Raise if any operand requires grad: a wrapper launches the forward
+    kernel only, and a silent fall back to the plain version would hide
+    that. Training goes through ``ops`` (``ops.rmsnorm``/``mha``/
+    ``ssd_scan``), whose autograd Functions (``kernels/autograd.py``)
+    launch the kernel on detached operands."""
     for t in tensors:
         if isinstance(t, torch.Tensor) and t.requires_grad:
             raise RuntimeError(
-                "the CUDA kernel has no backward yet (ROADMAP.md, modules "
-                "to port: training); run under torch.inference_mode() or "
-                "torch.no_grad(), or on the plain versions (backend='ref')")
+                "a kernel wrapper takes no operand that requires grad: its "
+                "backward is the plain version's, reached through ops."
+                "rmsnorm/mha/ssd_scan and kernels/autograd.py (ROADMAP.md, "
+                "training); call ops, or run under torch.inference_mode() "
+                "or torch.no_grad()")
 
 
 def check_aligned(name: str, t: torch.Tensor) -> None:

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from . import attention as _attn
+from . import autograd as _grad
 from . import conv2d as _conv
 from . import decode_attention as _dec
 from . import maxpool as _pool
@@ -338,6 +339,8 @@ def mha(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
     if be == "ref":
         return ref.mha(q, k, v, causal=causal, window=window,
                        softcap=softcap, scale=scale)
+    if q.is_cuda and _grad.wants_grad(q, k, v):
+        return _grad.Mha.apply(q, k, v, causal, window, softcap, scale)
     return _attn.mha(q, k, v, causal=causal, window=window,
                      softcap=softcap, scale=scale)
 
@@ -360,6 +363,8 @@ def rmsnorm(x, g, *, eps=1e-6, backend=None) -> torch.Tensor:
     be = _resolve(backend, x)
     if be == "ref":
         return ref.rmsnorm(x, g, eps)
+    if x.is_cuda and _grad.wants_grad(x, g):
+        return _grad.RmsNorm.apply(x, g, eps)
     return _pw.rmsnorm(x, g, eps)
 
 
@@ -374,4 +379,6 @@ def ssd_scan(x, dt, A, B, C, *, h0=None, backend=None) -> tuple:
     h0 = h0.contiguous() if h0 is not None else None
     if be == "ref":
         return ref.ssd_chunked(x, dt, A, B, C, h0=h0)
+    if x.is_cuda and _grad.wants_grad(x, dt, A, B, C, h0):
+        return _grad.SsdScan.apply(x, dt, A, B, C, h0)
     return _ssd.ssd_scan(x, dt, A, B, C, h0=h0)

@@ -44,14 +44,32 @@ plain tensor code, as the JAX package does); each call of zamba2's
 shared block, two RMSNorm launches and one attention launch. The
 projections are ``torch.matmul`` (``ops.qmatmul`` for a quantized
 weight); one more RMSNorm for the final norm.
+
+Training: :func:`loss_fn` (next-token cross-entropy, the JAX package's)
+and ``cfg.remat`` in :func:`forward` where grad is enabled (the JAX
+package's ``_remat``, ``_auto_group`` and group branch): ``none``;
+``full``, ``torch.utils.checkpoint`` (non-reentrant) once a layer (a
+group of ``moe_every`` layers in the grouped layout; the encoder's
+layers and the Mamba layers too, not zamba2's shared block); ``dots``,
+the same with a selective-checkpoint policy that saves the outputs of
+the 2-D matmuls (the projections, ``aten.mm``) and recomputes the rest;
+``group``, groups of g layers (``remat_group``, or the divisor of the
+layer count nearest below its square root) checkpointed with each layer
+checkpointed inside its group, for the attention families' plain stack
+with ``scan_layers`` (elsewhere ``group`` is ``full``, as in the JAX
+package). A recomputed layer launches its forward kernels again. Under
+``torch.no_grad()`` and ``torch.inference_mode()`` the forward is the
+same as without remat.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from ..configs.base import ModelCfg
 from ..core.quant import QTensor
@@ -88,6 +106,82 @@ def layer_windows(cfg: ModelCfg) -> list:
 def _grouped(cfg: ModelCfg) -> bool:
     """The grouped layout: an MoE layer every ``moe_every`` layers."""
     return cfg.family == "moe" and cfg.moe_every > 1
+
+
+# ---------------------------------------------------------------------------
+# remat
+# ---------------------------------------------------------------------------
+
+def _auto_group(n_layers: int) -> int:
+    """Largest divisor of n_layers closest to √n_layers."""
+    root = max(int(math.isqrt(n_layers)), 1)
+    for d in range(root, 0, -1):
+        if n_layers % d == 0:
+            return d
+    return 1
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs
+    of the 2-D matmuls (the projections; the JAX package's
+    ``checkpoint_dots_with_no_batch_dims``), recompute the rest."""
+    return (_ckpt.CheckpointPolicy.MUST_SAVE
+            if op is torch.ops.aten.mm.default
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return _ckpt.create_selective_checkpoint_contexts(_save_dots)
+
+
+def _remat(fn: Callable, mode: str) -> Callable:
+    """``fn`` checkpointed by ``mode``: as is for ``none``; once a call
+    for ``full`` (and ``group``); with the ``dots`` policy."""
+    if mode == "none":
+        return fn
+    context = _dots_context if mode == "dots" else _ckpt.noop_context_fn
+    return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False,
+                             context_fn=context, preserve_rng_state=False)
+
+
+def _remat_mode(cfg: ModelCfg) -> str:
+    """``cfg.remat`` where grad is enabled, else ``none``."""
+    if cfg.remat not in ("none", "full", "dots", "group"):
+        raise ValueError(f"remat={cfg.remat!r}: expected none, full, dots "
+                         f"or group")
+    return cfg.remat if torch.is_grad_enabled() else "none"
+
+
+def _run_stack(cfg: ModelCfg, steps: list, h, groupable: bool = False):
+    """``h`` through ``steps`` (``step(h) → (h, aux)``, aux a tensor or
+    None), each step checkpointed by ``cfg.remat`` where grad is
+    enabled; with ``groupable`` and ``remat="group"``, groups of g steps
+    checkpointed with each step checkpointed inside. Returns (h, the
+    steps' auxes that are not None, in order)."""
+    mode = _remat_mode(cfg)
+    if mode == "group" and groupable:
+        g = cfg.remat_group or _auto_group(len(steps))
+        units = [_remat(functools.partial(_run_steps, [
+            _remat(s, "full") for s in steps[i:i + g]]), "full")
+            for i in range(0, len(steps), g)]
+    else:
+        units = [_remat(functools.partial(_run_steps, [s]),
+                        "full" if mode == "group" else mode)
+                 for s in steps]
+    auxes = []
+    for unit in units:
+        h, a = unit(h)
+        auxes += a
+    return h, auxes
+
+
+def _run_steps(steps: list, h):
+    auxes = []
+    for step in steps:
+        h, a = step(h)
+        if a is not None:
+            auxes.append(a)
+    return h, auxes
 
 
 # ---------------------------------------------------------------------------
@@ -298,15 +392,20 @@ def _run_encoder(cfg: ModelCfg, params, src_embeds):
     over the source positions, no windows and no post norms, then
     ``enc_norm`` (the JAX package's ``_run_encoder``)."""
     acfg = attn_cfg(cfg, causal=False)
-    h = src_embeds
-    rope = _rope(cfg, torch.arange(h.shape[1], device=h.device)[None, :])
-    for i in range(cfg.n_enc_layers):
-        pl = layer(params["enc_layers"], i)
+    rope = _rope(cfg, torch.arange(src_embeds.shape[1],
+                                   device=src_embeds.device)[None, :])
+
+    def step(pl, h):
         h = h + A.forward(pl["attn"], acfg,
                           L.rmsnorm(pl["ln1"], h, cfg.norm_eps),
                           window=None, rope=rope)
         h = h + L.mlp(pl["mlp"], L.rmsnorm(pl["ln2"], h, cfg.norm_eps),
                       act=cfg.act)
+        return h, None
+
+    h, _ = _run_stack(cfg, [functools.partial(
+        step, layer(params["enc_layers"], i))
+        for i in range(cfg.n_enc_layers)], src_embeds)
     return L.rmsnorm(params["enc_norm"], h, cfg.norm_eps)
 
 
@@ -322,12 +421,23 @@ def forward(params: dict, cfg: ModelCfg, batch: dict) -> tuple:
     if cfg.family in ATTN_FAMILIES:
         enc_out = _run_encoder(cfg, params, batch["src_embeds"]) \
             if cfg.is_encdec else None
-        lb: list = []
-        for i, w in enumerate(layer_windows(cfg)):
-            h = _dense_layer_fwd(cfg, layer(params["layers"], i, cfg), h,
-                                 pos, w, rope, enc_out, lb)
+        wins = layer_windows(cfg)
+        # one step a layer; in the grouped layout one a group of
+        # moe_every layers (the JAX package's scan body, remat'd whole)
+        per = cfg.moe_every if _grouped(cfg) else 1
+
+        def step(j, h):
+            lb: list = []
+            for i in range(j, j + per):
+                h = _dense_layer_fwd(cfg, layer(params["layers"], i, cfg),
+                                     h, pos, wins[i], rope, enc_out, lb)
+            return h, (lb[0] if lb else None)
+
+        h, lbs = _run_stack(cfg, [functools.partial(step, j) for j in
+                                  range(0, cfg.n_layers, per)], h,
+                            groupable=not _grouped(cfg) and cfg.scan_layers)
         if cfg.family == "moe":
-            aux["load_balance"] = sum(lb) / len(lb)
+            aux["load_balance"] = sum(lbs) / len(lbs)
     else:
         acfg = attn_cfg(cfg)
         h = _ssm_stack(
@@ -337,6 +447,27 @@ def forward(params: dict, cfg: ModelCfg, batch: dict) -> tuple:
                                          a_in, positions=pos, window=None,
                                          rope=rope))
     return _readout(cfg, params, h), aux
+
+
+def loss_fn(params: dict, cfg: ModelCfg, batch: dict):
+    """Next-token cross-entropy; labels < 0 are masked. A vlm's logits
+    cover [patches; text] and are sliced to the text; a moe model adds
+    0.01 · its load-balance loss. Returns (loss, {"loss", "tokens"}),
+    0-d float32 tensors."""
+    logits, aux = forward(params, cfg, batch)
+    labels = batch["labels"]
+    if cfg.family == "vlm":                    # logits cover [img; text]
+        logits = logits[:, -labels.shape[1]:]
+    lw = (labels >= 0).to(torch.float32)
+    lab = torch.clamp(labels, min=0).long()
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, lab[..., None])[..., 0]
+    nll = (lse - gold) * lw
+    loss = torch.sum(nll) / torch.clamp(torch.sum(lw), min=1.0)
+    if "load_balance" in aux:
+        loss = loss + 0.01 * aux["load_balance"]
+    return loss, {"loss": loss, "tokens": torch.sum(lw)}
 
 
 # ---------------------------------------------------------------------------
@@ -366,16 +497,24 @@ def _ssm_stack(params, cfg: ModelCfg, h, mix, attend):
     before every segment of ``shared_attn_every`` layers, as the JAX
     package's ``_hybrid_forward/_prefill/_decode`` run them. ``h0`` is
     the embedding ``h`` at entry: per position in forward and prefill,
-    the current token's in a decode step (the same quantity)."""
+    the current token's in a decode step (the same quantity). Each
+    Mamba layer is checkpointed by ``cfg.remat`` where grad is enabled
+    (the shared block is not, as in the JAX package)."""
     h0 = h
     every = _shared_every(cfg) or cfg.n_layers
+    mode = _remat_mode(cfg)
+
+    def step(i, h):
+        pl = layer(params["layers"], i)
+        return h + mix(i, pl["mixer"], L.rmsnorm(pl["ln"], h, cfg.norm_eps))
+
     for call, start in enumerate(range(0, cfg.n_layers, every)):
         if _shared_every(cfg):
             h = _shared_block(cfg, params["shared"], h, h0,
                               lambda a_in, call=call: attend(call, a_in))
         for i in range(start, min(start + every, cfg.n_layers)):
-            pl = layer(params["layers"], i)
-            h = h + mix(i, pl["mixer"], L.rmsnorm(pl["ln"], h, cfg.norm_eps))
+            h = _remat(functools.partial(step, i),
+                       "full" if mode == "group" else mode)(h)
     return h
 
 

@@ -1,6 +1,8 @@
-"""The port stands alone: it imports neither JAX nor the JAX package,
-its entry points refuse to fall back to the CPU, and what is not ported
-yet (tensor parallelism) raises ``NotImplementedError``."""
+"""The port stands alone: it imports neither JAX nor the JAX package
+(the training modules included: a short CPU training run with a
+checkpoint imports neither), its entry points refuse to fall back to the
+CPU (the train loop's too), and what is not ported yet (tensor
+parallelism) raises ``NotImplementedError``."""
 import ast
 import subprocess
 import sys
@@ -12,10 +14,12 @@ import torch
 
 import repro_torch.core as tcore
 from repro_torch.configs import registry
+from repro_torch.core.buffers import SoftwareFifo
 from repro_torch.loadgen import OpenLoopHarness, PoissonArrivals
 from repro_torch.models import lm, yolo
 from repro_torch.serve import Deployment, LmReplica
 from repro_torch.serve.engine import Engine
+from repro_torch.train.loop import TrainConfig, init_state, train
 
 PKG = Path(__file__).resolve().parent.parent / "src" / "repro_torch"
 
@@ -33,7 +37,9 @@ def test_no_file_imports_jax_or_the_jax_package():
             "check/__main__.py", "models/lm.py", "nn/attention.py",
             "serve/engine.py", "configs/registry.py", "nn/ssm.py",
             "kernels/ssd_scan.py", "loadgen/harness.py", "nn/flash.py",
-            "nn/moe.py"} <= names
+            "nn/moe.py", "kernels/autograd.py", "optim/optimizers.py",
+            "launch/steps.py", "ckpt/checkpoint.py", "train/loop.py",
+            "train/remat.py", "tree.py"} <= names
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
@@ -84,6 +90,22 @@ def test_import_compile_and_run_load_no_jax():
                          device="cpu")
             eng.submit(Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2))
             assert len(eng.run()[0].out_tokens) == 2
+        import tempfile
+        from repro_torch.ckpt import checkpoint
+        from repro_torch.core.buffers import SoftwareFifo
+        from repro_torch.data.synthetic import TokenStream
+        from repro_torch.launch import steps
+        from repro_torch.optim import optimizers
+        from repro_torch.train import remat
+        from repro_torch.train.loop import TrainConfig, train
+        with tempfile.TemporaryDirectory() as d:
+            out = train(registry.reduced("granite-3-8b"),
+                        TrainConfig(steps=2, batch=2, seq_len=8,
+                                    microbatches=2, ckpt_dir=d,
+                                    ckpt_every=1, log_every=0),
+                        device="cpu")
+            assert len(out["loss_history"]) == 2
+            assert checkpoint.latest_step(d) == 2
         bad = sorted(m for m in sys.modules if m == "jax"
                      or m.startswith("jax") or m == "repro"
                      or m.startswith("repro."))
@@ -121,6 +143,13 @@ def test_entry_points_refuse_silent_cpu(monkeypatch, cpu_acc):
         LmReplica(cfg, params)
     with pytest.raises(RuntimeError, match="CPU"):
         Engine(cfg, params)
+    tc = TrainConfig(steps=1, batch=2, seq_len=8, log_every=0)
+    with pytest.raises(RuntimeError, match="CPU"):
+        train(cfg, tc)
+    with pytest.raises(RuntimeError, match="CPU"):
+        init_state(cfg, tc)
+    with pytest.raises(RuntimeError, match="CPU"):
+        SoftwareFifo.create(2, 4)
 
 
 def test_unported_paths_raise(cpu_acc):
