@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out FILE.json]
                           [--only stream|a8|conv|attn|ssd|dec|pool|load|
-                                  decwin|moe|train]
+                                  decwin|moe|train|tp|pipeline]
 
 Phases, each printed as it runs; any failure raises and the script exits
 non-zero:
@@ -17,8 +17,9 @@ non-zero:
    every conv case is checked to be a conv launch of that graph), with
    its time (CUDA events over back-to-back launches, after warm-up), the
    plain version's time, one PyTorch library call's time as a yardstick
-   (never called by the port), and the bound: max(FLOPs / 67 TFLOP/s
-   fp32, bytes / 3.35 TB/s), H100 SXM data-sheet peaks. #3
+   (never called by the port), and the bound from
+   ``repro_torch.roofline.analysis`` on its H100 SXM entry: max(FLOPs /
+   the peak of the route's math, times its passes, bytes / 3.35 TB/s). #3
    (``maxpool2d``, ``kernel_cases``) at the kernel table's three earlier
    cases (POOL_EARLIER: yolov8n's SPPF pool at 640 and two 2×2 pools) and
    at yolov3-tiny's six pool launches at 416 (V3T_POOLS, batch 8; each
@@ -29,8 +30,9 @@ non-zero:
    #3's NaN where its plain version has them, on both routes, and
    ``pointwise(relu)``'s likewise (``nan_probe``). #1 (``conv2d``)
    at CONV_CASES: the seven earlier cases (CONV_EARLIER) and two short-M
-   launches (M = 3200, K split); bound by its route, three TF32 passes at 495
-   TFLOP/s (``CONV_PASSES``), the fp32 bound printed beside; each case
+   launches (M = 3200, K split); bound by its route, three TF32 passes
+   at 495 TFLOP/s (``KERNEL_ROUTES`` of ``repro_torch.roofline.
+   analysis``), the fp32 bound printed beside; each case
    prints its plan, launches twice, bit-equal, and is read both ways
    (``conv_cases``, with #2's), and the sums over the seven earlier
    cases print apart (``conv_sums``).
@@ -51,7 +53,7 @@ non-zero:
    kernel) and unaligned (the float kernel, as the JAX package does);
    their bound uses the int8 tensor-core peak (1979 TOPS) for the A8
    kernels, and for #7 the dense TF32 peak (495 TFLOP/s) over its
-   passes (2 a product, 4 with int16 codes: ``QMM_PASSES``), the route
+   passes (2 a product, 4 with int16 codes: ``KERNEL_ROUTES``), the route
    its tensor-core kernel takes at fp32 accuracy; every #7, #8 and #10
    case prints its plan (BM, BN, splits; ``_plan`` / ``_plan_a8``),
    launches twice, bit-equal, and is read both ways: its device time and
@@ -138,7 +140,7 @@ non-zero:
    with a boolean mask ("n/a" with a softcap, which it lacks; the SDPA
    backend that ran each case is read from its kernel names,
    ``library_backend``). #11 (``attention.cu``, TF32 tensor cores) is
-   bound by its route, three TF32 passes (``MHA_PASSES``), the fp32 bound
+   bound by its route, three TF32 passes (``KERNEL_ROUTES``), the fp32 bound
    printed beside it; each case prints its tile, launches twice,
    bit-equal, and is read both ways with SDPA beside it (``BOTH_WAYS``);
    the sums print on lines of their own (``attn_sums``). #12
@@ -260,6 +262,25 @@ non-zero:
    ``examples/train_lm.py``'s granite-100m through ``train.loop.train``
    (SMALL_STEPS steps, the example's loss drop, a restart from the
    step-SMALL_CKPT checkpoint within RESTART_TOL).
+6d. Several positions in one process, over ``cuda_devices()`` (one card:
+   every position names cuda:0). ``tp`` (``run_tp``, after ``double``):
+   main's design served by TP_REPLICAS tensor-parallel replicas of
+   TP_WIDTH positions, N_REQ requests (each conv once a position on its
+   filter slice, then an all-gather; launches from the graph), within
+   MAIN_TOL of the plain executor and TP_TOL of the one-device forward,
+   one forward's all-gather bytes (``roofline.trace``) equal to the
+   graph's, its device and issue ms beside main's, a serving window's
+   frames/s. ``pipeline`` (``run_pipeline``, after ``train``):
+   granite-3-8b at full width, PIPE_LAYERS layers in PIPE_STAGES stages,
+   PIPE_MICRO microbatches of 1 x PIPE_SEQ embeddings through
+   ``core.pipeline.pipeline_infer``, within PIPE_TOL of the sequential
+   loop, 2 #6 and 1 #11 a layer a microbatch, the permute and
+   all-reduce bytes, ms a call, ``pipeline_latency_model`` of the
+   measured stage, and yolov8n's 4-stage ``partition_stages`` with
+   ``stage_latency`` (a model). Then ``[roofline]``
+   (``roofline_shares``): the analytic and model FLOPs of granite's
+   prefill at 2048, its train step and the pipelined call, as shares of
+   the fp32 peak.
 7. A JSON line listing all 13 kernels (``launches`` is the count on
    the path that runs it: ``main`` for conv, maxpool and resize,
    ``fusion_off`` for pointwise, ``quant_w8a16`` for qmatmul,
@@ -315,7 +336,9 @@ layout (a dense and an MoE layer with all 128 experts: 69.1 GiB of
 float32 weights), at the model level: one row of LLAMA4_PROMPT tokens
 and FAMILY_NEW greedy steps, checked as ``moe``, its peak memory
 printed (kept out of the full run, which must not fail on memory);
-``--only train`` for path ``train`` alone.
+``--only train`` for path ``train`` alone; ``--only tp`` and ``--only
+pipeline`` for those paths alone (``pipeline`` with its roofline
+share).
 
 Needs one CUDA card; exits non-zero without one, and in a directory that
 does not hold the repository's ``src/repro_torch``.
@@ -334,10 +357,6 @@ import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PEAK_FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
-PEAK_TF32_FLOPS = 495e12         # H100 SXM, TF32 tensor cores, dense
-PEAK_INT8_OPS = 1979e12          # H100 SXM, int8 tensor cores, dense
-PEAK_BYTES = 3.35e12             # H100 SXM HBM3
 IMG, BATCH, N_REQ = 640, 8, 32
 MAIN_TOL = 1e-3
 # Random weights are the He-scaled init times this gain: at the plain
@@ -357,16 +376,11 @@ KERNEL_TOL = {"conv2d": 1e-4, "conv2d_double": 1e-4, "pointwise": 1e-4,
 DOUBLE_CONV_TOL = 1e-5
 # 16·2^-8 of the output range: the JAX package's _quant_atol at 8 bits
 A8_TOL = 16 * 2.0 ** -8
-# #7's TF32 passes over each product, by int16 codes: x split in two
-# TF32 terms, and int16 codes in two exact planes (csrc/qmatmul.cu)
-QMM_PASSES = {False: 2, True: 4}
-# #1's and #2's: both operands split, three TF32 products (csrc/conv2d.cu);
-# their bound is by that route, the fp32 one printed beside it. #11's
-# likewise, for both of its products (csrc/attention.cu), and #13's for
-# its four (csrc/ssd_scan.cu).
-CONV_PASSES = 3
-MHA_PASSES = 3
-SSD_PASSES = 3
+# Every bound is ``repro_torch.roofline.analysis``'s on its H100 entry
+# (``bound``): a kernel's by its route's math and passes
+# (``KERNEL_ROUTES``: #1, #2, #11 and #13 three TF32 products, #7 two,
+# four with int16 codes, #8-#10 int8), the fp32 one printed beside the
+# tensor-core routes'.
 # Paths whose design quantizes activations to 8 bits are also read end
 # to end on three input batches (the first is the one served) and may
 # land up to this many times the plain path's own one-ulp spread from
@@ -464,6 +478,16 @@ LLAMA4_PROMPT = 2048             # one group (2 of 48 layers): 69.1 GiB
 # TRAIN_TOL relative, each gradient leaf's max |difference| within
 # TRAIN_TOL x its max |value|; the restart's losses within RESTART_TOL
 # relative of the uninterrupted run's.
+# Path tp: main's design served by tensor-parallel replicas (TP_WIDTH
+# positions a replica, TP_REPLICAS replicas over ``cuda_devices()``, one
+# card: every position names cuda:0), held within MAIN_TOL of the plain
+# executor and within TP_TOL of the one-device kernel forward.
+TP_WIDTH, TP_REPLICAS, TP_TOL = 2, 2, 1e-4
+# Path pipeline: granite-3-8b at full width, PIPE_LAYERS of its 40
+# layers stacked into PIPE_STAGES stages, PIPE_MICRO microbatches of
+# 1 x PIPE_SEQ tokens of embeddings, held to the sequential layer loop.
+PIPE_LAYERS, PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 8, 4, 8, 512
+PIPE_TOL = 1e-4
 TRAIN_LAYERS = 4
 TRAIN_ROWS, TRAIN_SEQ, TRAIN_MB = 4, 2048, 2
 TRAIN_STEPS = 4
@@ -759,9 +783,16 @@ def pool_plan(mod, dev, N: int, H: int, W: int, C: int, k: int,
             "tile": [p.th, p.tw, p.cs], "grid": [p.gx, p.gy, p.gz]}
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, float]:
-    """(ms bound by operations, ms bound by bytes)."""
-    return flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, route: str | None = None
+          ) -> tuple[float, float]:
+    """(ms bound by operations, ms bound by bytes) of ``flops`` and
+    ``nbytes`` on the H100, from ``repro_torch.roofline.analysis``: by
+    ``route``'s math and passes (a key of its ``KERNEL_ROUTES``), or at
+    the fp32 peak."""
+    from repro_torch.roofline import analysis
+    r = analysis.kernel_bound(route, flops, nbytes) if route \
+        else analysis.kernel_roofline(flops, nbytes)
+    return r["t_compute_s"] * 1e3, r["t_memory_s"] * 1e3
 
 
 def conv_launch_shapes(codegen, graph) -> set:
@@ -921,11 +952,6 @@ def tile_plan(mod, planner: str, dev, *shape):
     return {"BM": bm, "BN": bn, "splits": splits}
 
 
-def qmm_ops(M: int, Kf: int, N: int, int16: bool) -> int:
-    """#7's tensor-core operations: 2MKN a pass, QMM_PASSES passes."""
-    return QMM_PASSES[int16] * 2 * M * Kf * N
-
-
 def a8g_plan(Q, dev, M: int, Kf: int, N: int, tk: int) -> dict | None:
     """#9's plan (BM, BN, splits, slices a chunk; ``qmatmul._plan_a8g``)
     at a case's shape and block width on ``dev``'s card, or None in a
@@ -1016,8 +1042,9 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set, kinds=None,
             lambda x=x, c=codes, sc=sc, zr=zr, b=b, r=r, a=act:
                 ref.qmatmul(x, c, sc, zr, b, act=a, res=r),
             lambda x=x, wd=wd: torch.matmul(x, wd),
-            qmm_ops(M, Kf, N, bits == 16), nbytes,
-            PEAK_TF32_FLOPS, KERNEL_TOL["qmatmul"], Q.qmatmul.launches,
+            2 * M * Kf * N, nbytes,
+            "qmatmul_int16" if bits == 16 else "qmatmul",
+            KERNEL_TOL["qmatmul"], Q.qmatmul.launches,
             None, qmm_extra(Q, M, Kf, N, kind, dev)))
     # #8: int8 codes × int8 / packed-int4 codes, int32 accumulator
     for name, bits, pack, acc_only in (
@@ -1052,7 +1079,7 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set, kinds=None,
             2 * M * Kf * N,
             M * Kf + qbytes + 4 * (M * N * (2 if r is not None else 1)
                                    + 3 * N),
-            PEAK_INT8_OPS, tol, Q.qmatmul_a8.launches, None,
+            "qmatmul_a8", tol, Q.qmatmul_a8.launches, None,
             {"again": True, "both_ways": True,
              "plan": tile_plan(Q, "_plan_a8", dev, M, Kf, N)}))
     # #9: per-group activation scales aligned to groups of 16; and runs
@@ -1065,10 +1092,10 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set, kinds=None,
     x, w, b, _ = data(M, Kf, N, False)
     qt, codes, sc, zr = wq(w, 8, False)
     wd = qt.dequantize().reshape(Kf, N)
-    for run, kname, peak, moves, stays in (
-            (16, "qmatmul_a8_grouped", PEAK_INT8_OPS,
-             Q.qmatmul_a8_grouped.launches, Q.qmatmul.launches),
-            (6, "qmatmul", PEAK_TF32_FLOPS, Q.qmatmul.launches,
+    for run, kname, moves, stays in (
+            (16, "qmatmul_a8_grouped", Q.qmatmul_a8_grouped.launches,
+             Q.qmatmul.launches),
+            (6, "qmatmul", Q.qmatmul.launches,
              Q.qmatmul_a8_grouped.launches)):
         amax = x.abs().amax(dim=0).reshape(-1, run).amax(dim=1)
         sv = tuple(float(v) / 127 for v in amax.repeat_interleave(run))
@@ -1085,8 +1112,8 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set, kinds=None,
                 xq, qt.q, qt.scale, qt.zero, b, x_scale=sv, act=act),
             lambda xq=xq, svt=svt: ref.qmatmul_a8(
                 xq, codes, sc, zr, svt, b, act=act),
-            lib, qmm_ops(M, Kf, N, False) if float7 else 2 * M * Kf * N,
-            nbytes, peak, KERNEL_TOL[kname], moves, stays,
+            lib, 2 * M * Kf * N, nbytes, kname, KERNEL_TOL[kname], moves,
+            stays,
             qmm_extra(Q, M, Kf, N, Q._CODE_KIND[qt.q.dtype], dev)
             if float7 else {"again": True, "both_ways": True,
                             "plan": a8g_plan(Q, dev, M, Kf, N, run)}))
@@ -1122,7 +1149,7 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set, kinds=None,
             int_mm(xq, codes), 2 * M * Kf * N,
             M * Kf + qt.q.numel() + 4 * (
                 M * N * (2 if use_res else 1) + 3 * N + Kf),
-            PEAK_INT8_OPS, KERNEL_TOL["qmatmul_a8_grouped"],
+            "qmatmul_a8_grouped", KERNEL_TOL["qmatmul_a8_grouped"],
             Q.qmatmul_a8_grouped.launches, Q.qmatmul.launches,
             {"again": True, "both_ways": True,
              "plan": a8g_plan(Q, dev, M, Kf, N, tk)})
@@ -1156,7 +1183,7 @@ def qmm_cases(torch, K, quant, dev, mm_shapes: set, kinds=None,
             int_mm(xq, codes), 2 * M * Kf * N,
             M * Kf + qt.q.numel() + 4 * (
                 M * N * (2 if use_res else 1) + 3 * N),
-            PEAK_INT8_OPS, KERNEL_TOL["qmatmul_a8_double"],
+            "qmatmul_a8_double", KERNEL_TOL["qmatmul_a8_double"],
             Q.qmatmul_a8.launches_double, Q.qmatmul_a8.launches,
             {"grid": lambda: Q.qmatmul_a8(xq, qt.q, qt.scale, qt.zero, b,
                                           x_scale=xs, **kw),
@@ -1180,7 +1207,7 @@ def conv_cases(torch, F, K, dev, conv_shapes: set):
     each against ``ref.conv2d`` (KERNEL_TOL), launched twice bit-equal,
     its plan printed, read both ways (device time and host issue per
     call, the kernel's and cuDNN fp32's, TF32 off), and bound by its
-    route, three TF32 passes (CONV_PASSES at the TF32 peak), the fp32
+    route, three TF32 passes (``KERNEL_ROUTES``), the fp32
     bound beside it; #2 also against #1 (DOUBLE_CONV_TOL, bit-equality
     reported)."""
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1213,13 +1240,13 @@ def conv_cases(torch, F, K, dev, conv_shapes: set):
                   "plan": tile_plan(K.conv2d, "_plan", dev, BATCH * Ho * Ho,
                                     Kk * Kk * C, Fo)}
         cases.append((
-            "conv2d", name, grid, plain, cudnn, CONV_PASSES * flops, nbytes,
-            PEAK_TF32_FLOPS, KERNEL_TOL["conv2d"], K.conv2d.launches,
+            "conv2d", name, grid, plain, cudnn, flops, nbytes, "conv2d",
+            KERNEL_TOL["conv2d"], K.conv2d.launches,
             K.conv2d.launches_double, {**common, "again": True}))
         cases.append((
             "conv2d_double", name, functools.partial(
                 K.conv2d.conv2d, x, w, b, pipeline="double", **kw),
-            plain, cudnn, CONV_PASSES * flops, nbytes, PEAK_TF32_FLOPS,
+            plain, cudnn, flops, nbytes, "conv2d_double",
             KERNEL_TOL["conv2d_double"], K.conv2d.launches_double,
             K.conv2d.launches,
             {**common, "grid": grid, "grid_tol": DOUBLE_CONV_TOL}))
@@ -1257,7 +1284,7 @@ def lm_cases(torch, F, K, quant, dev):
     boolean mask (none where a softcap is set: it has no softcap; the
     backend it ran, read by ``library_backend``), ``torch.matmul`` on the
     dequantized weight. #11 is bound by its route, three TF32 products a
-    product (MHA_PASSES), the fp32 bound printed beside it; its plan is
+    product (``KERNEL_ROUTES``), the fp32 bound printed beside it; its plan is
     printed."""
     gen = torch.Generator(device=dev).manual_seed(2)
 
@@ -1273,7 +1300,7 @@ def lm_cases(torch, F, K, quant, dev):
             lambda x=x, g=g: K.pointwise.rmsnorm(x, g, 1e-6),
             lambda x=x, g=g: K.ref.rmsnorm(x, g, 1e-6),
             lambda x=x, w1=w1, D=D: F.rms_norm(x, (D,), w1, 1e-6),
-            5 * R * D, 4 * (2 * R * D + D), PEAK_FP32_FLOPS,
+            5 * R * D, 4 * (2 * R * D + D), "rmsnorm",
             KERNEL_TOL["rmsnorm"], K.pointwise.rmsnorm_launches, None))
     for name, (B, Tq, Tk, Hq, Hkv, D, causal, win, cap) in {
             **MHA_CASES, **MHA_FAMILY_CASES}.items():
@@ -1294,7 +1321,7 @@ def lm_cases(torch, F, K, quant, dev):
             "mha", name,
             lambda q=q, k=k, v=v, kw=kw: K.attention.mha(q, k, v, **kw),
             lambda q=q, k=k, v=v, kw=kw: K.ref.mha(q, k, v, **kw), lib,
-            MHA_PASSES * flops, nbytes, PEAK_TF32_FLOPS, KERNEL_TOL["mha"],
+            flops, nbytes, "mha", KERNEL_TOL["mha"],
             K.attention.launches, None,
             {"fp32_bound_ms": max(bound(flops, nbytes)),
              "plan": attn_plan(K.attention, dev, D, B, Tq, Tk, Hq),
@@ -1321,7 +1348,7 @@ def lm_cases(torch, F, K, quant, dev):
             lambda q=q, kc=kc, vc=vc, ln=ln, kw=kw:
                 K.ref.decode_attention(q, kc, vc, ln, **kw), lib,
             4 * Hq * D * live, 4 * (2 * live * Hkv * D + 2 * B * Hq * D + B),
-            PEAK_FP32_FLOPS, KERNEL_TOL["decode_attention"],
+            "decode_attention", KERNEL_TOL["decode_attention"],
             K.decode_attention.launches, None,
             {"plan": dec_plan(K.decode_attention, dev, S, win, D, Hq // Hkv,
                               B * Hkv, lens)}))
@@ -1335,8 +1362,8 @@ def lm_cases(torch, F, K, quant, dev):
         "qmatmul", "granite_decode_up_4x4096x12800_w8",
         lambda: K.qmatmul.qmatmul(x, qt.q, qt.scale, qt.zero),
         lambda: K.ref.qmatmul(x, qt.q, sc, zr),
-        lambda: torch.matmul(x, wd), qmm_ops(M, Kf, N, False), nbytes,
-        PEAK_TF32_FLOPS, KERNEL_TOL["qmatmul"], K.qmatmul.qmatmul.launches,
+        lambda: torch.matmul(x, wd), 2 * M * Kf * N, nbytes, "qmatmul",
+        KERNEL_TOL["qmatmul"], K.qmatmul.qmatmul.launches,
         None, qmm_extra(K.qmatmul, M, Kf, N, 0, dev)))
     return cases
 
@@ -1410,7 +1437,7 @@ def ssd_cases(torch, F, K, dev):
     """The SSD kernel's cases (SSD_CASES) in ``qmm_cases``' form, against
     ``ref.ssd_chunked`` (inputs from ``ssd_inputs``). The bound is the
     function's own: the chunked algorithm's least work
-    (``ssd_least_work``), three TF32 products (SSD_PASSES) a FLOP over
+    (``ssd_least_work``), three TF32 products (``KERNEL_ROUTES``) a FLOP over
     the TF32 peak, and its bytes. The fp32 bound of that work, the
     route's chunk-state bytes at the plan's chunk (``ssd_state_bytes``;
     64, the old kernel's chunk, where the checkout has no planner) and
@@ -1427,7 +1454,7 @@ def ssd_cases(torch, F, K, dev):
         states = ssd_state_bytes(Bt, T, H, N, P, chunk)
         at256 = ssd_work(Bt, T, H, P, G, N, with_h0, 256)[0]
         print(f"ssd_scan {name}: plan {plan}; least work at chunk {best}: "
-              f"{flops / 1e9:.4f} GFLOP ({SSD_PASSES} TF32 products a "
+              f"{flops / 1e9:.4f} GFLOP (3 TF32 products a "
               f"FLOP), {nbytes / 1e6:.3f} MB; the route's chunk states at "
               f"chunk {chunk}: {states / 1e6:.3f} MB more (not in the "
               f"bound); {at256 / 1e9:.4f} GFLOP at the configs' 256",
@@ -1436,7 +1463,7 @@ def ssd_cases(torch, F, K, dev):
             "ssd_scan", name,
             lambda a=(x, dt, A, B, C), h0=h0: K.ssd_scan.ssd_scan(*a, h0=h0),
             lambda a=(x, dt, A, B, C), h0=h0: K.ref.ssd_chunked(*a, h0=h0),
-            None, SSD_PASSES * flops, nbytes, PEAK_TF32_FLOPS,
+            None, flops, nbytes, "ssd_scan",
             KERNEL_TOL["ssd_scan"], K.ssd_scan.launches, None,
             {"fp32_bound_ms": max(bound(flops, nbytes)), "plan": plan,
              "state_mb": states / 1e6}))
@@ -1543,7 +1570,7 @@ def check_kernels(torch, cases: list) -> dict:
                                  f"plain version: max_abs_err={err}")
         t_k, t_p, t_l = (cuda_ms(torch, kfn), cuda_ms(torch, pfn),
                          cuda_ms(torch, lfn))
-        b_ops, b_bytes = bound(flops, nbytes)
+        b_ops, b_bytes = bound(flops, nbytes, kname)
         extra, note = {}, ""
         if plan:        # #3's, None in a checkout without its planner
             extra["plan"] = plan[0]
@@ -2271,7 +2298,7 @@ def check_cases(torch, cases: list, per_kernel: dict):
     printed; with ``both_ways`` the kernel's and the library call's
     device time and host issue per call (``per_call_ms``) are printed
     and kept beside the back-to-back times. Adds to ``per_kernel``."""
-    for (kname, case, kfn, pfn, lfn, ops, nbytes, peak, tol, moves,
+    for (kname, case, kfn, pfn, lfn, ops, nbytes, route, tol, moves,
          stays, *sib) in cases:
         n_moves = moves.value
         n_stays = stays.value if stays is not None else 0
@@ -2331,7 +2358,7 @@ def check_cases(torch, cases: list, per_kernel: dict):
         if sib and sib[0].get("library_backend") and lfn is not None:
             extra["library_backend"] = library_backend(torch, lfn)
             note += f"; library backend {extra['library_backend']['backend']}"
-        b_ops, b_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        b_ops, b_bytes = bound(ops, nbytes, route)
         lib = f"{t_l:.4f}ms" if t_l is not None else "n/a"
         grid = (f" grid={extra['grid_ms']:.4f}ms (double/grid "
                 f"{t_k / extra['grid_ms']:.3f}; vs grid max_abs_err "
@@ -2588,10 +2615,10 @@ def calib_drift(torch, core, codegen, yolo, ImageStream, place, dev) -> dict:
 
 
 def serve(Deployment, DetectRequest, ImageStream, acc, n_req, img, seed,
-          backend=None):
+          backend=None, **deploy):
     images = list(ImageStream(img, BATCH, seed=seed).frames(n_req))
     t0 = time.perf_counter()
-    with Deployment(acc, backend=backend) as dep:
+    with Deployment(acc, backend=backend, **deploy) as dep:
         for i, im in enumerate(images):
             if not dep.submit(DetectRequest(uid=i, image=im)):
                 raise AssertionError(f"request {i} rejected")
@@ -3414,6 +3441,312 @@ def run_lm(torch, np, lm, ops, registry, Engine, Request, counters, dev,
         params = None
         free_card(torch)
     return counts, run, params
+
+
+# --------------------------------------------------------------------------
+# multi-position paths: tensor-parallel replicas and the streaming pipeline
+# --------------------------------------------------------------------------
+
+def positions(n: int) -> list:
+    """``n`` positions over ``cuda_devices()``, wrapping: with one card
+    every position names cuda:0."""
+    from repro_torch.device import cuda_devices
+    devs = cuda_devices()
+    return [devs[i % len(devs)] for i in range(n)]
+
+
+def run_tp(torch, np, codegen, ImageStream, Deployment, DetectRequest,
+           counters, acc, xb) -> tuple:
+    """Path tp: ``acc`` (main's design) served by TP_REPLICAS
+    tensor-parallel replicas of TP_WIDTH positions
+    (``Deployment(tensor_parallel=...)`` over ``cuda_devices()``),
+    N_REQ requests: each sharded conv launches #1 once a position on its
+    filter slice, then an all-gather; maxpools and resizes launch once
+    on the replicated stream. Gates: the launches (from the graph), the
+    outputs within MAIN_TOL of the plain executor and within TP_TOL of
+    the one-device kernel forward on each batch, and one profiled
+    forward's all-gather bytes (``roofline.trace``) equal to the
+    sharded convs' outputs' bytes from the graph. Readings: frames/s of
+    a second window, the forward's device and issue ms beside main's
+    one-device forward. Returns (launches, run dict)."""
+    from repro_torch.device import cuda_devices
+    from repro_torch.dist import sharding
+    from repro_torch.roofline import trace
+    from repro_torch.serve.deployment import step_fn_for, tp_backend
+    tag = "[tp]"
+    t_path = time.perf_counter()
+    devs = positions(TP_WIDTH * TP_REPLICAS)
+    print(f"{tag} {TP_REPLICAS} replicas x {TP_WIDTH} positions over "
+          f"cuda_devices() = {sorted({str(d) for d in devs})}: "
+          + ("every position names cuda:0" if len(set(devs)) == 1 else
+             "positions on distinct cards"), flush=True)
+    g = acc.graph
+    convs = [g.nodes[n] for n in codegen.launch_nodes(g)
+             if g.nodes[n].op == "conv"]
+    sharded = [n for n in convs if n.geom("F") % TP_WIDTH == 0]
+    per_fwd = zero_counts(counters, conv2d=TP_WIDTH * len(sharded)
+                          + len(convs) - len(sharded), maxpool2d=3,
+                          resize_nearest=2)
+    gather_bytes = sum(BATCH * int(np.prod(g.streams[n.outputs[0]].shape))
+                       * 4 for n in sharded)
+    _zero(counters)
+    images, done, stats, wall = serve(
+        Deployment, DetectRequest, ImageStream, acc, N_REQ, IMG, 0,
+        replicas=TP_REPLICAS, tensor_parallel=TP_WIDTH,
+        devices=cuda_devices())
+    counts = _counts(counters)
+    batches = stats["batches"]
+    want = {k: v * batches for k, v in per_fwd.items()}
+    if batches != N_REQ // BATCH or counts != want:
+        raise AssertionError(f"{tag} launches {counts} over {batches} "
+                             f"batches, expected {want}")
+    err_ref, scale = check_outputs(
+        torch, np, acc, images, done,
+        [(IMG // s, IMG // s, 144) for s in (8, 16, 32)])
+    err_one = 0.0
+    for i in range(0, N_REQ, BATCH):
+        x = torch.from_numpy(np.stack(images[i:i + BATCH])).to(
+            acc.torch_device)
+        one = [o.cpu() for o in acc.forward(x)]
+        for j, req in enumerate(done[i:i + BATCH]):
+            for o, w in zip(req.outputs, one):
+                got = torch.from_numpy(o)
+                err_one = max(err_one, float((got - w[j]).abs().max()))
+                if not torch.allclose(got, w[j], atol=TP_TOL, rtol=TP_TOL):
+                    raise AssertionError(f"{tag} request {req.uid}: "
+                                         f"{float((got - w[j]).abs().max())}"
+                                         f" from the one-device forward")
+    print(f"{tag} served {stats['frames']} requests in {batches} batches; "
+          f"launches {_nonzero(counts)} = {batches} x {_nonzero(per_fwd)} "
+          f"({len(sharded)} of {len(convs)} convs sharded); outputs within "
+          f"{MAIN_TOL} of backend='ref' (max_abs_err {err_ref:.3e}, max "
+          f"|output| {scale:.3e}) and within {TP_TOL} of the one-device "
+          f"kernel forward (max_abs_err {err_one:.3e})", flush=True)
+    # one replica's forward, alone: the same step function and placement
+    step = step_fn_for(acc, tp_backend(None))
+    placed = sharding.place_sharded(acc.params, positions(TP_WIDTH))
+    fwd = functools.partial(step, placed, xb)
+    from torch.profiler import ProfilerActivity, profile
+    fwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fwd()
+        torch.cuda.synchronize()
+    got = trace.collective_bytes(prof)
+    n_gather = trace.collective_count(prof)
+    if got != {"all-gather": gather_bytes, "total": gather_bytes} \
+            or n_gather != len(sharded):
+        raise AssertionError(f"{tag} trace {got} in {n_gather} transfers, "
+                             f"the graph's {gather_bytes} in {len(sharded)}")
+    dev_tp, issue_tp = device_ms(torch, fwd, reps=5)
+    dev_one, issue_one = device_ms(torch, lambda: acc.forward(xb), reps=5)
+    b2b_tp = cuda_ms(torch, fwd, budget_ms=300)
+    b2b_one = cuda_ms(torch, lambda: acc.forward(xb), budget_ms=300)
+    _, _, stats2, wall2 = serve(
+        Deployment, DetectRequest, ImageStream, acc, 2 * N_REQ, IMG, 2,
+        replicas=TP_REPLICAS, tensor_parallel=TP_WIDTH,
+        devices=cuda_devices())
+    fps = stats2["frames"] / wall2
+    run = {"launches_per_forward": per_fwd, "sharded_convs": len(sharded),
+           "convs": len(convs), "max_abs_err_vs_ref": err_ref,
+           "max_abs_err_vs_one_device": err_one,
+           "trace_bytes": got, "trace_transfers": n_gather,
+           "graph_gather_bytes": gather_bytes,
+           "forward_device_ms": dev_tp, "forward_issue_ms": issue_tp,
+           "forward_back_to_back_ms": b2b_tp,
+           "main_forward_device_ms": dev_one,
+           "main_forward_issue_ms": issue_one,
+           "main_forward_back_to_back_ms": b2b_one,
+           "frames_per_s": fps, "ms_per_batch":
+           wall2 / stats2["batches"] * 1e3}
+    print(f"{tag} one forward: {n_gather} all-gathers of {got['total']} B "
+          f"(roofline.trace; the graph's sharded conv outputs "
+          f"{gather_bytes} B); device {dev_tp:.3f} ms, issue "
+          f"{issue_tp:.3f} ms, back to back {b2b_tp:.3f} ms; main's "
+          f"one-device forward device {dev_one:.3f} ms, issue "
+          f"{issue_one:.3f} ms, back to back {b2b_one:.3f} ms; serving "
+          f"window {fps:.1f} frames/s, {run['ms_per_batch']:.2f} ms/batch "
+          f"over {stats2['frames']} requests", flush=True)
+    run["seconds"] = time.perf_counter() - t_path
+    print(f"{tag} path tp took {run['seconds']:.1f}s", flush=True)
+    return counts, run
+
+
+def zero_counts(counters, **nonzero) -> dict:
+    """Every counter's name with 0, but ``nonzero``'s counts."""
+    return {k: nonzero.get(k, 0) for k in counters}
+
+
+def run_pipeline(torch, np, lm, registry, counters, dev, graph) -> tuple:
+    """Path pipeline: granite-3-8b at full width, PIPE_LAYERS of its
+    layers stacked into PIPE_STAGES stages (``core.pipeline.
+    stack_stages``) on a ``stage`` mesh over ``cuda_devices()``, fed
+    PIPE_MICRO microbatches of 1 x PIPE_SEQ tokens of embeddings; each
+    stage runs its dense layers with no cache and a causal mask
+    (``lm.dense_layers``). Gates: pipelined within PIPE_TOL of the
+    sequential layer loop; 2 #6 and 1 #11 a layer a microbatch (the
+    port skips a stage on a tick where it holds no microbatch); the
+    trace's permute and all-reduce bytes as the schedule moves them.
+    Readings: ms a pipelined call and a sequential loop (median of 5),
+    the modelled interval and fill (``pipeline_latency_model``) of the
+    measured stage time, and ``graph``'s 4-stage ``partition_stages``
+    with ``stage_latency`` (a model, not a measurement). Returns
+    (launches, run dict)."""
+    from repro_torch.core import dse, pipeline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.roofline import trace
+    from repro_torch.tree import tree_map
+    tag = "[pipeline]"
+    t_path = time.perf_counter()
+    cfg, params = make_lm(torch, lm, registry, dev, tag, "granite-3-8b",
+                          PIPE_LAYERS)
+    devs = positions(PIPE_STAGES)
+    mesh = mesh_lib.make_mesh((PIPE_STAGES,), ("stage",), devices=devs)
+    print(f"{tag} {PIPE_STAGES} stages of {PIPE_LAYERS // PIPE_STAGES} "
+          f"layers on {mesh}: "
+          + ("every position names cuda:0" if len(set(devs)) == 1 else
+             "stages on distinct cards"), flush=True)
+    stages = pipeline.stack_stages(params["layers"], PIPE_STAGES,
+                                   PIPE_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab, (PIPE_MICRO, 1, PIPE_SEQ),
+                         generator=gen, device=dev)
+    x = params["embed"]["table"][toks]
+
+    def stage_fn(p, h):
+        return lm.dense_layers(cfg, p, h)
+
+    def piped():
+        return pipeline.pipeline_infer(stage_fn, stages, x, mesh)
+
+    def sequential():
+        return torch.stack([lm.dense_layers(cfg, params["layers"], x[i])
+                            for i in range(PIPE_MICRO)])
+
+    with torch.inference_mode():
+        _zero(counters)
+        got = piped()
+        torch.cuda.synchronize()
+        counts = _counts(counters)
+        want_counts = zero_counts(
+            counters, rmsnorm=2 * PIPE_LAYERS * PIPE_MICRO,
+            mha=PIPE_LAYERS * PIPE_MICRO)
+        if counts != want_counts:
+            raise AssertionError(f"{tag} launches {counts}, expected "
+                                 f"{want_counts}")
+        want = sequential()
+        err = float((got - want).abs().max())
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()) \
+                or not torch.allclose(got, want, atol=PIPE_TOL,
+                                      rtol=PIPE_TOL):
+            raise AssertionError(f"{tag} pipelined vs sequential: "
+                                 f"max_abs_err {err}")
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            piped()
+            torch.cuda.synchronize()
+        got_bytes = trace.collective_bytes(prof)
+        mb = PIPE_SEQ * cfg.d_model * 4
+        want_bytes = {"collective-permute": PIPE_MICRO * (PIPE_STAGES - 1)
+                      * mb, "all-reduce": PIPE_MICRO * mb}
+        want_bytes["total"] = sum(want_bytes.values())
+        if got_bytes != want_bytes:
+            raise AssertionError(f"{tag} trace {got_bytes}, expected "
+                                 f"{want_bytes}")
+        pipe_ms = sorted(_timed(torch, piped)[1] for _ in range(5))[2]
+        seq_ms = sorted(_timed(torch, sequential)[1] for _ in range(5))[2]
+        first = tree_map(lambda a: a[0], stages)
+        stage_ms = cuda_ms(torch, lambda: stage_fn(first, x[0]),
+                           budget_ms=300)
+    model = pipeline.pipeline_latency_model([stage_ms / 1e3] * PIPE_STAGES,
+                                            PIPE_MICRO)
+    print(f"{tag} pipelined within {PIPE_TOL} of the sequential layer loop "
+          f"(max_abs_err {err:.3e}); launches {_nonzero(counts)} "
+          f"(= {PIPE_MICRO} microbatches x {PIPE_LAYERS} layers x 2 #6 and "
+          f"x 1 #11); trace {got_bytes} ({trace.collective_count(prof)} "
+          f"transfers); a pipelined call {pipe_ms:.1f} ms, the sequential "
+          f"loop {seq_ms:.1f} ms (median of 5; one card runs the stages "
+          f"one after another); one stage on one microbatch {stage_ms:.2f} "
+          f"ms: modelled interval {model['interval_s'] * 1e3:.2f} ms, fill "
+          f"{model['fill_s'] * 1e3:.2f} ms, total "
+          f"{model['total_s'] * 1e3:.2f} ms, bubble "
+          f"{model['bubble_frac']:.3f} (pipeline_latency_model: "
+          f"{PIPE_STAGES} cards)", flush=True)
+    plan = dse.partition_stages(graph, 4)
+    lat = dse.stage_latency(plan)
+    print(f"{tag} a model, not a measurement: yolov8n@{IMG}'s 4-stage "
+          f"partition_stages: {[len(b) for b in plan.boundaries]} nodes, "
+          f"stage MACs {plan.stage_flops} (imbalance "
+          f"{plan.imbalance:.4f}); stage_latency on the H100 entry at fp32: "
+          f"interval {lat['interval_s'] * 1e6:.2f} us, fill "
+          f"{lat['fill_s'] * 1e6:.2f} us a frame", flush=True)
+    run = {"stages": PIPE_STAGES, "layers": PIPE_LAYERS,
+           "microbatches": PIPE_MICRO, "seq": PIPE_SEQ,
+           "max_abs_err": err, "launches": counts, "trace_bytes": got_bytes,
+           "pipelined_ms": pipe_ms, "sequential_ms": seq_ms,
+           "stage_ms": stage_ms, "latency_model": model,
+           "yolov8n_partition": {"nodes": [len(b) for b in plan.boundaries],
+                                 "stage_macs": plan.stage_flops,
+                                 "imbalance": plan.imbalance,
+                                 "stage_latency": lat},
+           "peak_gib": peak_gib(torch)}
+    del params, stages, x, got, want
+    free_card(torch)
+    run["seconds"] = time.perf_counter() - t_path
+    print(f"{tag} path pipeline took {run['seconds']:.1f}s, peak "
+          f"{run['peak_gib']:.2f} GiB", flush=True)
+    return counts, run
+
+
+def roofline_shares(registry, lm_runs: dict) -> dict:
+    """The analytic work (``roofline.analysis.analytic_flops``, the
+    layers only for the pipeline call) and MODEL_FLOPS of three readings
+    of the full run, each over its measured ms as a share of the H100's
+    fp32 peak: granite-3-8b's prefill at 2048 (``lm``), the granite
+    train step (``train``) and the pipelined call (``pipeline``)."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.roofline import analysis
+    full = registry.get("granite-3-8b")
+    out = {}
+    readings = []
+    if "lm" in lm_runs:
+        cell = ShapeCell("prefill_2048", "prefill", 2048, 1)
+        readings.append(("granite prefill 2048", full, cell,
+                         lm_runs["lm"]["spans_ms"]["prefill_2048"]["wall"],
+                         None))
+    if "train" in lm_runs:
+        g = lm_runs["train"]["granite"]
+        cfg = dataclasses.replace(full, n_layers=g["layers"], remat="full")
+        cell = ShapeCell("train", "train", g["seq"], g["rows"])
+        readings.append(("granite train step", cfg, cell,
+                         g["step_ms_median"], None))
+    if "pipeline" in lm_runs:
+        p = lm_runs["pipeline"]
+        cfg = dataclasses.replace(full, n_layers=p["layers"])
+        cell = ShapeCell("pipeline", "prefill", p["seq"], p["microbatches"])
+        readout = 2.0 * cell.global_batch * cfg.d_model * cfg.vocab
+        n_layer = cfg.param_count() - dataclasses.replace(
+            cfg, n_layers=0).param_count()
+        readings.append(("pipeline call (layers)", cfg, cell,
+                         p["pipelined_ms"],
+                         (readout, 2.0 * n_layer * cell.tokens())))
+    for label, cfg, cell, ms, layers in readings:
+        af = analysis.analytic_flops(cfg, cell)
+        work = af["total"] if cell.kind == "train" else af["fwd"]
+        mf = analysis.model_flops(cfg, cell)
+        if layers is not None:          # no embedding, no readout
+            work, mf = work - layers[0], layers[1]
+        out[label] = {
+            "analytic_flops": work, "model_flops": mf, "ms": ms,
+            "analytic_share_fp32": analysis.peak_share(work, ms / 1e3),
+            "model_share_fp32": analysis.peak_share(mf, ms / 1e3)}
+        print(f"[roofline] {label}: analytic_flops {work / 1e12:.3f} TFLOP, "
+              f"model_flops {mf / 1e12:.3f} TFLOP in {ms:.1f} ms: "
+              f"{out[label]['analytic_share_fp32']:.3f} (analytic) and "
+              f"{out[label]['model_share_fp32']:.3f} (model) of the H100's "
+              f"fp32 peak", flush=True)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -4421,7 +4754,8 @@ def main() -> int:
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--only", choices=("stream", "a8", "conv", "attn",
                                        "ssd", "dec", "pool", "load",
-                                       "decwin", "moe", "train"),
+                                       "decwin", "moe", "train", "tp",
+                                       "pipeline"),
                     help="only one slice's reading, for a before/after "
                     "(copied into an older checkout, it reads that "
                     "checkout's kernels): stream, #4 and #5's cases and the "
@@ -4443,8 +4777,11 @@ def main() -> int:
                     "the arrival shapes and a replica crash; decwin, #12 "
                     "past S with a window (reported, not enforced); moe, "
                     "path moe and llama4-maverick's one full-width group "
-                    "(69.1 GiB of weights); train, path train. Prints no "
-                    "result line")
+                    "(69.1 GiB of weights); train, path train; tp, path tp "
+                    "(main's design by tensor-parallel replicas); "
+                    "pipeline, path pipeline (granite-3-8b's streaming "
+                    "pipeline) and its roofline share. Prints no result "
+                    "line")
     args = ap.parse_args()
 
     T0 = time.perf_counter()
@@ -4549,6 +4886,13 @@ def main() -> int:
         write_out({}, train=run)
         print(f"[card] {smi()}")
         return 0
+    if args.only == "pipeline":
+        _, run = run_pipeline(torch, np, lm, registry, counters, dev0,
+                              model.graph)
+        write_out({}, pipeline=run,
+                  roofline=roofline_shares(registry, {"pipeline": run}))
+        print(f"[card] {smi()}")
+        return 0
     if args.only == "attn":
         print("[kernels] #11 vs its plain version on the card", flush=True)
         per_kernel = {}
@@ -4647,8 +4991,7 @@ def main() -> int:
                     img, seed, backend)
         return run, {k: c.value for k, c in counters.items()}
 
-    def zero(**nonzero):
-        return {k: nonzero.get(k, 0) for k in counters}
+    zero = functools.partial(zero_counts, counters)
 
     def per_group_path():
         """Path quant_per_group: the design recalibrated with per-group
@@ -4722,6 +5065,12 @@ def main() -> int:
                           ).to(dev0)
     xb_off = torch.from_numpy(ImageStream(160, BATCH, seed=4).batch_at(0)
                               ).to(dev0)
+    if args.only == "tp":
+        _, run = run_tp(torch, np, codegen, ImageStream, Deployment,
+                        DetectRequest, counters, acc, xb)
+        write_out({}, tp=run)
+        print(f"[card] {smi()}")
+        return 0
     convs = conv_cases(torch, F, K, dev0,
                        conv_launch_shapes(codegen, acc.graph))
     if args.only == "conv":
@@ -4964,6 +5313,10 @@ def main() -> int:
              "quant_w8a16": q_counts, "quant_w4a8": c4,
              "quant_per_group": cg, "mixed": cm,
              "double": {k: c_df[k] + c_dq[k] for k in counters}}
+    # tp: main's design by tensor-parallel replicas
+    paths["tp"], tp_run = run_tp(torch, np, codegen, ImageStream,
+                                 Deployment, DetectRequest, counters, acc,
+                                 xb)
 
     # ---------------------------------------------------------------- 4
     # A short serving window after warm-up: a smoke reading of the
@@ -5062,6 +5415,10 @@ def main() -> int:
     # train: gradient steps through the forward kernels under autograd
     paths["train"], lm_runs["train"] = run_train(
         torch, np, lm, ops, registry, counters, dev0)
+    # pipeline: granite-3-8b's layers as a streaming pipeline
+    paths["pipeline"], lm_runs["pipeline"] = run_pipeline(
+        torch, np, lm, registry, counters, dev0, model.graph)
+    shares = roofline_shares(registry, lm_runs)
     for kname, path in KERNEL_PATH.items():
         if paths[path][kname] <= 0:
             raise AssertionError(f"{kname} never launched on {path}")
@@ -5111,15 +5468,15 @@ def main() -> int:
             "conv": {"sums": sums_conv, "float_forward": fwd_split},
             "pool": {"sums": sums_pool, "nan": nan},
             "attn": {"sums": sums_attn}, "ssd": {"sums": sums_ssd},
-            "dec_window": dec_window, "load": load,
-            **lm_runs, "build_s": info["seconds"]}, indent=1))
+            "dec_window": dec_window, "load": load, "tp": tp_run,
+            "roofline": shares, **lm_runs, "build_s": info["seconds"]},
+            indent=1))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T0:.0f}s")
     print(f"[card] {smi()}")
     print(json.dumps({"kernels": kernels}))
-    # every phase ran on cuda:0: the run used one card
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -46,6 +46,7 @@ import torch
 from .ir import Graph, Node
 from .quant import QTensor, QuantConfig, dequantize, quantize
 from ..kernels import ops
+from ..roofline import trace
 
 # activation node ops (subset of POINTWISE_OPS that are unary funcs);
 # ``sigmoid`` is admitted here but has no ref.ACTIVATIONS entry, so a
@@ -207,6 +208,75 @@ class QuantBackend(KernelBackend):
                            stride=node.geom("stride"),
                            act=node.attrs.get("act", "identity"), res=res,
                            w_packed=w_packed, pool=pool, backend=self._be)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """The lowering table of a tensor-parallel replica: ``inner`` (a
+    float ``KernelBackend``) over parameters laid out by
+    ``dist.sharding.place_sharded`` under ``conv_tp_plan``.
+
+    A conv whose filters are sharded (its ``w`` split on the trailing
+    axis over the positions of a ``model`` mesh) runs ``inner.conv``
+    once per position, on that position's device, with the filter slice,
+    the bias slice and the matching channel slice of ``res``; the input
+    is replicated (position 0's stream copied to every other device).
+    The slices are then gathered onto position 0 in position order, one
+    ``all-gather`` labelled for ``roofline.trace`` with the gathered
+    tensor's bytes. Every other node — and a conv whose out-channels do
+    not divide the mesh, so its weights stayed whole — runs once on the
+    replicated activations on position 0. The quantized backends are
+    not served this way (``NotImplementedError`` at the replica)."""
+    inner: KernelBackend
+
+    @property
+    def name(self) -> str:
+        return f"tp:{self.inner.name}"
+
+    def fuses_pool(self, node: Node) -> bool:
+        return False
+
+    def conv(self, x, p, node, res=None, pool=None):
+        w, b = p["w"], p["b"]
+        spec = w.spec
+        if len(spec) < w.ndim or spec[-1] is None:
+            return self.inner.conv(x, {"w": w.shard(0), "b": b.shard(0)},
+                                   node, res)
+        devs = w.mesh.device_list()
+        xd = ops.channel_concat(x).contiguous()
+        rd = None if res is None else ops.channel_concat(res)
+        local = {xd.device: xd}
+        fs = w.shape[-1] // len(devs)
+        parts = []
+        for i, dev in enumerate(devs):
+            if dev not in local:
+                local[dev] = xd.to(dev)
+            ri = None if rd is None else \
+                rd[..., i * fs:(i + 1) * fs].to(dev).contiguous()
+            parts.append(self.inner.conv(
+                local[dev], {"w": w.shard(i), "b": b.shard(i)}, node, ri))
+        shape = parts[0].shape[:-1] + (w.shape[-1],)
+        nbytes = math.prod(shape) * parts[0].element_size()
+        with trace.transfer("all-gather", nbytes):
+            return torch.cat([y.to(xd.device) for y in parts], dim=-1)
+
+    def maxpool(self, x, node):
+        return self.inner.maxpool(x, node)
+
+    def pointwise(self, x, op):
+        return self.inner.pointwise(x, op)
+
+    def resize(self, x, node):
+        return self.inner.resize(x, node)
+
+    def concat(self, parts):
+        return self.inner.concat(parts)
+
+    def split(self, x, sizes):
+        return self.inner.split(x, sizes)
+
+    def add(self, a, b):
+        return self.inner.add(a, b)
 
 
 BACKENDS: dict[str, Backend] = {}

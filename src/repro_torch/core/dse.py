@@ -3,10 +3,11 @@
 Implements the paper's analytic latency/resource models and the greedy
 DSP-allocation loop (Algorithm 1).
 
-A copy of the JAX package's ``core/dse.py`` up to the mixed-precision
-search (``mixed_precision_search``, whose accuracy metric
-``quant_accuracy_delta`` is computed with torch). ``partition_stages``/
-``tpu_stage_latency`` wait for the multi-GPU slice of the port.
+A copy of the JAX package's ``core/dse.py`` (the mixed-precision
+search's accuracy metric ``quant_accuracy_delta`` is computed with
+torch). Its stage partitioner for the streaming pipeline
+(``partition_stages``) is copied verbatim; ``stage_latency`` is the
+counterpart of its ``tpu_stage_latency``, on a GPU's peaks.
 
 The DSE is fusion- and batch-aware: nodes ``absorbed`` into a host
 engine's epilogue by the fusion passes (core/passes.py — residual adds,
@@ -32,7 +33,7 @@ import dataclasses
 from typing import Callable
 
 from .ir import Graph, Node
-from ..roofline.hw import FpgaDevice
+from ..roofline.hw import H100_SXM, FpgaDevice, GpuChip
 
 
 # --------------------------------------------------------------------------
@@ -498,3 +499,89 @@ def mixed_precision_search(graph: Graph, params: dict, calib_x, *,
                                 trajectory=trajectory,
                                 sensitivity=sens, ranges=ranges,
                                 evals=evals)
+
+
+# --------------------------------------------------------------------------
+# Stage partitioning for the streaming pipeline
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StagePlan:
+    """Assignment of graph nodes to pipeline stages (mesh positions)."""
+    boundaries: list[list[str]]      # node names per stage, topo order
+    stage_flops: list[int]
+    imbalance: float                 # max/mean stage flops
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.boundaries)
+
+
+def partition_stages(graph: Graph, num_stages: int,
+                     cost: Callable[[Node], float] | None = None) -> StagePlan:
+    """Split the (topologically ordered) graph into ``num_stages`` with
+    min-max stage cost — the paper's "slowest node dictates latency"
+    objective lifted to stage granularity. Exact DP over prefix sums.
+    """
+    cost = cost or (lambda n: 0.0 if n.attrs.get("absorbed")
+                    else float(max(n.macs, n.workload)))
+    order = graph.topo_order()
+    w = [cost(n) for n in order]
+    N = len(order)
+    num_stages = min(num_stages, N)
+    prefix = [0.0]
+    for x in w:
+        prefix.append(prefix[-1] + x)
+
+    # dp[k][i] = minimal max-stage-cost splitting first i nodes into k stages
+    INF = float("inf")
+    dp = [[INF] * (N + 1) for _ in range(num_stages + 1)]
+    cut = [[0] * (N + 1) for _ in range(num_stages + 1)]
+    dp[0][0] = 0.0
+    for k in range(1, num_stages + 1):
+        for i in range(k, N + 1):
+            # last stage covers (j, i]
+            for j in range(k - 1, i):
+                c = max(dp[k - 1][j], prefix[i] - prefix[j])
+                if c < dp[k][i]:
+                    dp[k][i] = c
+                    cut[k][i] = j
+    bounds: list[list[str]] = []
+    i = N
+    for k in range(num_stages, 0, -1):
+        j = cut[k][i]
+        bounds.append([n.name for n in order[j:i]])
+        i = j
+    bounds.reverse()
+    flops = [int(sum(cost(graph.nodes[n]) for n in names)) for names in bounds]
+    mean = sum(flops) / max(len(flops), 1)
+    return StagePlan(boundaries=bounds, stage_flops=flops,
+                     imbalance=max(flops) / max(mean, 1e-9))
+
+
+def stage_latency(plan: StagePlan, chip: GpuChip = H100_SXM,
+                  bytes_per_stage: list[int] | None = None,
+                  math: str = "fp32") -> dict:
+    """Roofline-term latency of the pipelined design on a GPU (the
+    counterpart of the JAX package's ``tpu_stage_latency``).
+
+    The paper's f_clk-cycle model becomes a two-term max(compute, memory)
+    per stage; steady-state interval = slowest stage. ``stage_flops``
+    counts multiply-accumulates, so a stage does 2× that many FLOPs.
+    The default peak is fp32 (67 TFLOP/s on the H100) because the port
+    computes every layer to float32 precision: its plain layers are
+    float32 GEMMs with TF32 off, which run on the fp32 units, so the
+    fp32 peak holds for any stage whatever route its kernels take. A
+    caller modelling a tensor-core route names its ``math`` (and counts
+    its passes into ``stage_flops``).
+    """
+    per_stage = []
+    for i, f in enumerate(plan.stage_flops):
+        t_c = 2 * f / chip.peak(math)
+        t_m = (bytes_per_stage[i] / chip.hbm_bw) if bytes_per_stage else 0.0
+        per_stage.append(max(t_c, t_m))
+    return {
+        "interval_s": max(per_stage) if per_stage else 0.0,
+        "fill_s": sum(per_stage),
+        "stage_s": per_stage,
+    }

@@ -1,1 +1,1 @@
-"""Step builders (``launch.steps``)."""
+"""Step builders (``launch.steps``) and meshes (``launch.mesh``)."""

@@ -80,6 +80,7 @@ from ..nn import flash
 from ..nn import layers as L
 from ..nn import moe as M
 from ..nn import ssm as S
+from ..tree import leaves
 
 # the families whose layers are transformer blocks with a KV cache
 ATTN_FAMILIES = ("dense", "moe", "vlm", "encdec")
@@ -352,6 +353,21 @@ def _dense_layer_fwd(cfg: ModelCfg, pl, h, pos, window, rope,
                           L.rmsnorm(pl["ln_x"], h, cfg.norm_eps),
                           kv_x=enc_out, window=None)
     return _mlp_block(cfg, pl, h, lb)
+
+
+def dense_layers(cfg: ModelCfg, layers, h, first: int = 0):
+    """``h`` (B, T, d) through the layer-stacked dense ``layers`` (each
+    leaf's leading axis counts them; layer ``first`` of ``cfg`` first, for
+    its window): causal, no cache, positions 0..T-1 — the body of a
+    pipeline stage (``core.pipeline``)."""
+    pos = torch.arange(h.shape[1], device=h.device)[None, :]
+    rope = _rope(cfg, pos)
+    wins = layer_windows(cfg)
+    n = leaves(layers)[0].shape[0]
+    for i in range(n):
+        h = _dense_layer_fwd(cfg, layer(layers, i), h, pos, wins[first + i],
+                             rope)
+    return h
 
 
 def _rope(cfg: ModelCfg, pos):

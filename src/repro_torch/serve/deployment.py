@@ -31,10 +31,10 @@ roles that every workload (vision detection, LM decoding) shares:
   every step runs inline and blocks — the old synchronous engine path,
   kept as the ablation baseline.
 
-A torch port of the JAX package's ``serve/deployment.py``. Not ported
-yet: tensor-parallel replicas (the multi-GPU slice), which raise
-``NotImplementedError``; ``LmReplica`` serves the dense, ssm and
-hybrid LM families.
+A torch port of the JAX package's ``serve/deployment.py``. A
+tensor-parallel replica (``AcceleratorReplica(device=[d0, d1])``,
+``Deployment(tensor_parallel=k)``) serves the float backends; the
+quantized ones raise ``NotImplementedError`` there.
 
 Rejections are counted ONCE per request: a request that bounces off a
 full queue, drains under back-pressure, and is resubmitted is one
@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from ..core import codegen
-from ..core.toolflow import place
+from ..dist import sharding as sharding_lib
 from ..device import cuda_devices, resolve_device
 from .autoscale import Autoscaler
 from .dispatch import make_dispatch
@@ -315,7 +315,20 @@ class Replica(Protocol):
 
 class AcceleratorReplica:
     """A compiled ``Accelerator`` pinned to one torch device and one
-    executor backend, with its parameters copied onto that device.
+    executor backend. Parameters are placed through
+    ``dist/sharding.tree_specs`` on a degenerate one-position mesh
+    (``sharding.place_replicated``) — the same divisibility-guarded plan
+    machinery the launchers use.
+
+    ``device`` may also be a SEQUENCE of devices: the replica then
+    spans a tensor-parallel mesh of that many positions (``positions``,
+    which may name one device more than once) — parameters are placed
+    under ``sharding.conv_tp_plan`` (conv out-channels sharded on the
+    ``model`` axis, divisibility-guarded, ``sharding.place_sharded``),
+    inputs land on position 0's device, and the executor runs through
+    ``codegen.TensorParallel``: each sharded conv once per position,
+    then an all-gather. Float backends only: a quantized backend raises
+    ``NotImplementedError``.
 
     On a CUDA device each replica owns a CUDA stream: ``assemble`` copies
     the batch into a pinned host tensor and issues a ``non_blocking``
@@ -326,34 +339,50 @@ class AcceleratorReplica:
 
     def __init__(self, acc, *, batch_size: int | None = None,
                  device=None, backend: str | None = None, index: int = 0,
-                 prefetch: bool = True, step_fn=None, params=None):
+                 prefetch: bool = True, step_fn=None, params=None,
+                 positions: tuple | None = None):
         self.acc = acc
         self.index = index
         self.batch_size = batch_size or getattr(
             getattr(acc, "cfg", None), "batch_size", None) or 1
-        if isinstance(device, (list, tuple)):
-            if len(device) > 1:
-                raise NotImplementedError(
-                    "a replica spanning several devices (tensor "
-                    "parallelism) is not ported yet (ROADMAP.md, modules "
-                    "to port: multi-GPU)")
-            device = device[0] if device else None
-        self.device = resolve_device(
-            device if device is not None
-            else getattr(acc, "torch_device", None))
         self.backend = backend if backend is not None else getattr(
             getattr(acc, "cfg", None), "backend", None)
+        if isinstance(device, (list, tuple)) and len(device) > 1:
+            self.devices: list | None = [resolve_device(d) for d in device]
+            self.positions = tuple(positions) if positions is not None \
+                else tuple(range(len(self.devices)))
+            self.device = self.devices[0]   # inputs, replicated streams
+            be = codegen.get_backend(self.backend)
+            if not isinstance(be, codegen.KernelBackend) \
+                    or isinstance(be, codegen.QuantBackend):
+                raise NotImplementedError(
+                    "a tensor-parallel replica serves the float backends "
+                    "only (ROADMAP.md, cuts: quantized tensor parallelism)")
+        else:
+            if isinstance(device, (list, tuple)):
+                device = device[0] if device else None
+            self.devices = None
+            self.positions = (0,)
+            self.device = resolve_device(
+                device if device is not None
+                else getattr(acc, "torch_device", None))
         if params is None:              # placed copies are shareable per
-            params = place(acc.params, self.device)   # device
+            params = acc.params         # device — Deployment passes them in
+            if self.devices is not None:
+                params = sharding_lib.place_sharded(params, self.devices)
+            else:
+                params = sharding_lib.place_replicated(params, self.device)
         self.params = params
         self._stream = None
         if self.device.type == "cuda":
             # the placement copies ran on the default stream; the
             # replica's stream must not read the params before they land
-            torch.cuda.synchronize(self.device)
+            for d in self.devices or [self.device]:
+                torch.cuda.synchronize(d)
             self._stream = torch.cuda.Stream(self.device)
         if step_fn is None:
-            step_fn = step_fn_for(acc, self.backend)
+            step_fn = step_fn_for(acc, tp_backend(self.backend)
+                                  if self.devices else self.backend)
         self._step = step_fn
         self.max_inflight = 2 if prefetch else 1
         self.stats = {"frames": 0, "batches": 0, "padded_slots": 0,
@@ -432,6 +461,12 @@ def make_step_fn(graph, backend=None):
         with torch.inference_mode():
             return executor(p, x)
     return step
+
+
+def tp_backend(backend=None):
+    """The tensor-parallel lowering table over ``backend`` (a name or a
+    float ``KernelBackend``; None is ``auto``)."""
+    return codegen.TensorParallel(codegen.get_backend(backend))
 
 
 def step_fn_for(acc, backend=None):
@@ -657,7 +692,10 @@ class Deployment:
     device; ``RuntimeError`` without one — pass ``devices=["cpu"]`` for
     the CPU); more replicas than devices is a supported
     fallback — they share devices and still overlap host work with
-    device work.
+    device work. With ``tensor_parallel=k`` each replica spans a group
+    of k consecutive positions of ``devices`` (groups wrap past its
+    end; ``AcceleratorReplica``'s tensor-parallel mesh), and each group
+    holds one placed copy of the parameters.
 
     ``run`` keeps up to ``max_inflight`` steps in flight per replica
     (double-buffered prefetch): every replica owns ONE dispatch-worker
@@ -716,26 +754,31 @@ class Deployment:
             n = int(replicas or getattr(cfg, "replicas", None) or 1)
             self.batch_size = batch_size or getattr(
                 cfg, "batch_size", None) or 1
-            if int(tensor_parallel) > 1:
-                raise NotImplementedError(
-                    "tensor_parallel > 1 is not ported yet (ROADMAP.md, "
-                    "modules to port: multi-GPU)")
             devs = [resolve_device(d) for d in devices] \
                 if devices is not None else cuda_devices()
-            step_fn = step_fn_for(
-                acc, backend if backend is not None
-                else getattr(cfg, "backend", None))
-            placed: dict = {}           # one placed param copy per device
+            be = backend if backend is not None \
+                else getattr(cfg, "backend", None)
+            tp = max(int(tensor_parallel), 1)
+            step_fn = step_fn_for(acc, tp_backend(be) if tp > 1 else be)
+            placed: dict = {}           # one placed param copy per group
             deploy_batch = self.batch_size
 
             def _make_replica(i: int):
-                d = devs[i % len(devs)]
-                if d not in placed:
-                    placed[d] = place(acc.params, d)
+                # replica i spans positions i·tp .. i·tp + tp - 1 of
+                # ``devs`` (conv out-channels sharded over the 'model'
+                # axis where tp > 1), wrapping past its end
+                g = tuple((i * tp + j) % len(devs) for j in range(tp))
+                gd = tuple(devs[j] for j in g)
+                if gd not in placed:
+                    placed[gd] = (
+                        sharding_lib.place_sharded(acc.params, list(gd))
+                        if len(gd) > 1 else
+                        sharding_lib.place_replicated(acc.params, gd[0]))
                 return AcceleratorReplica(
-                    acc, batch_size=deploy_batch, device=d,
+                    acc, batch_size=deploy_batch,
+                    device=list(gd) if len(gd) > 1 else gd[0],
                     backend=backend, index=i, prefetch=prefetch,
-                    step_fn=step_fn, params=placed[d])
+                    step_fn=step_fn, params=placed[gd], positions=g)
 
             self.replicas = [_make_replica(i) for i in range(n)]
             self._replica_factory = replica_factory or _make_replica

@@ -42,6 +42,8 @@ from repro_torch.kernels import qmatmul as tqmm
 from repro_torch.kernels import ref as tref
 from repro_torch.models import yolo
 
+from _port_memory import release_memory  # noqa: F401
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 BATCH = 8
 SLOTS = tqmm._RESIDENT * tqmm._H100_SMS

@@ -36,6 +36,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import attention as tattn
 from repro_torch.kernels import ref as tref
 
+from _port_memory import release_memory  # noqa: F401
+
 TOL = 2e-5
 HEAD_DIMS = tattn.HEAD_DIMS
 SMEM_LIMIT = 232448             # bytes of shared memory an H100 block may take

@@ -25,6 +25,8 @@ from repro_torch.train import loop
 from repro_torch.train.loop import TrainConfig, train
 from repro_torch.tree import flatten_with_path, tree_map
 
+from _port_memory import release_memory  # noqa: F401
+
 
 def _flat(tree) -> dict:
     return {"|".join(map(str, path)): leaf

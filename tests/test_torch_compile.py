@@ -26,6 +26,8 @@ from repro_torch.core import codegen as tcg
 from repro_torch.core import passes as tpasses
 from repro_torch.models import yolo as tyolo
 
+from _port_memory import release_memory  # noqa: F401
+
 MODELS = ["yolov3-tiny", "yolov5n", "yolov8n"]
 IMG = 64
 TOL = dict(atol=1e-4, rtol=1e-4)

@@ -33,6 +33,8 @@ from repro_torch.kernels import conv2d as tconv
 from repro_torch.kernels import ref as tref
 from repro_torch.models import yolo
 
+from _port_memory import release_memory  # noqa: F401
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 ACTS = sorted(tref.ACTIVATIONS)
 BATCH = 8

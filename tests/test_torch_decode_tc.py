@@ -45,6 +45,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import ref as tref
 
+from _port_memory import release_memory  # noqa: F401
+
 TOL = 2e-5
 SMEM_LIMIT = 232448             # bytes of shared memory an H100 block may take
 NEG_INF = np.float32(-1e30)

@@ -33,6 +33,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import qmatmul as tqmm
 from repro_torch.kernels import ref as tref
 
+from _port_memory import release_memory  # noqa: F401
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 PALLAS_ACTS = ("hardswish", "leaky_relu", "silu", "relu", "identity")
 

@@ -1,8 +1,10 @@
 """The port stands alone: it imports neither JAX nor the JAX package
 (the training modules included: a short CPU training run with a
-checkpoint imports neither), its entry points refuse to fall back to the
-CPU (the train loop's too), and what is not ported yet (tensor
-parallelism) raises ``NotImplementedError``."""
+checkpoint, a tensor-parallel forward and a pipelined call import
+neither), its entry points refuse to fall back to the CPU (the train
+loop's and the mesh's too), and what is not ported yet (a quantized
+tensor-parallel replica, a checkpoint restored onto shardings) raises
+``NotImplementedError``."""
 import ast
 import subprocess
 import sys
@@ -14,12 +16,16 @@ import torch
 
 import repro_torch.core as tcore
 from repro_torch.configs import registry
+from repro_torch.ckpt import checkpoint
 from repro_torch.core.buffers import SoftwareFifo
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.loadgen import OpenLoopHarness, PoissonArrivals
 from repro_torch.models import lm, yolo
 from repro_torch.serve import Deployment, LmReplica
 from repro_torch.serve.engine import Engine
 from repro_torch.train.loop import TrainConfig, init_state, train
+
+from _port_memory import release_memory  # noqa: F401
 
 PKG = Path(__file__).resolve().parent.parent / "src" / "repro_torch"
 
@@ -39,7 +45,9 @@ def test_no_file_imports_jax_or_the_jax_package():
             "kernels/ssd_scan.py", "loadgen/harness.py", "nn/flash.py",
             "nn/moe.py", "kernels/autograd.py", "optim/optimizers.py",
             "launch/steps.py", "ckpt/checkpoint.py", "train/loop.py",
-            "train/remat.py", "tree.py"} <= names
+            "train/remat.py", "tree.py", "roofline/analysis.py",
+            "roofline/trace.py", "roofline/hw.py", "launch/mesh.py",
+            "dist/sharding.py", "core/pipeline.py"} <= names
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
@@ -106,6 +114,25 @@ def test_import_compile_and_run_load_no_jax():
                         device="cpu")
             assert len(out["loss_history"]) == 2
             assert checkpoint.latest_step(d) == 2
+        from repro_torch.core import dse, pipeline
+        from repro_torch.dist import sharding
+        from repro_torch.launch import mesh
+        from repro_torch.roofline import analysis, trace
+        with Deployment(acc, replicas=1, tensor_parallel=2,
+                        devices=["cpu", "cpu"], prefetch=False) as dep:
+            dep.submit(DetectRequest(uid=0, image=torch.zeros(32, 32, 3)
+                                     .numpy()))
+            assert dep.run()[0].done
+        m = mesh.make_mesh((2,), ("stage",), devices=["cpu", "cpu"])
+        y = pipeline.pipeline_infer(lambda p, x: x @ p, torch.ones(2, 4, 4),
+                                    torch.ones(3, 1, 4), m)
+        assert y.shape == (3, 1, 4)
+        plan = dse.partition_stages(acc.graph, 2)
+        assert dse.stage_latency(plan)["interval_s"] > 0
+        cfg = registry.get("granite-3-8b")
+        from repro_torch.configs.base import SHAPES
+        assert analysis.model_flops(cfg, SHAPES["train_4k"]) > 0
+        assert steps.param_shardings(cfg, mesh.make_production_mesh())
         bad = sorted(m for m in sys.modules if m == "jax"
                      or m.startswith("jax") or m == "repro"
                      or m.startswith("repro."))
@@ -152,6 +179,15 @@ def test_entry_points_refuse_silent_cpu(monkeypatch, cpu_acc):
         SoftwareFifo.create(2, 4)
 
 
-def test_unported_paths_raise(cpu_acc):
+def test_unported_paths_raise(cpu_acc, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Deployment(cpu_acc, devices=["cpu"], tensor_parallel=2)
+        Deployment(cpu_acc, devices=["cpu"], tensor_parallel=2,
+                   backend="quant")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        checkpoint.restore(tmp_path, {}, shardings={})
+
+
+def test_mesh_refuses_silent_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CPU"):
+        make_mesh((1,), ("model",))

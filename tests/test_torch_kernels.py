@@ -32,6 +32,8 @@ from repro_torch.kernels import pointwise as tpw
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import resize as tresize
 
+from _port_memory import release_memory  # noqa: F401
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 # Activations the Pallas conv epilogue implements (its _act returns the
 # identity for gelu; only the oracle is compared there).

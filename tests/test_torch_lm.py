@@ -31,6 +31,8 @@ from repro_torch.serve import ContinuousBatch, Deployment, LmReplica
 from repro_torch.serve.engine import Engine as TEngine
 from repro_torch.serve.engine import Request as TRequest
 
+from _port_memory import release_memory  # noqa: F401
+
 ARCHS = ("granite-3-8b", "gemma2-2b", "starcoder2-7b")
 TOL = dict(atol=1e-4, rtol=0)
 

@@ -36,6 +36,8 @@ from repro_torch.nn import flash as tflash
 from repro_torch.serve.engine import Engine as TEngine
 from repro_torch.serve.engine import Request as TRequest
 
+from _port_memory import release_memory  # noqa: F401
+
 TOL = dict(atol=1e-4, rtol=0)
 # the JAX package's bound for the int8 cache's decode logits
 Q8_MEAN_REL = 0.05

@@ -34,6 +34,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import pointwise as tpw
 from repro_torch.kernels import ref as tref
 
+from _port_memory import release_memory  # noqa: F401
+
 ATTN_TOL = 2e-5
 NORM_TOL = 1e-5
 

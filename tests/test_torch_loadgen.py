@@ -26,6 +26,8 @@ from repro.core import codegen as jcg
 from repro.models import yolo as jyolo
 from repro_torch.models import yolo as tyolo
 
+from _port_memory import release_memory  # noqa: F401
+
 IMG, BATCH, SLO_STEPS, SEEDS = 64, 4, 6, (0, 1, 2)
 LEVELS = (0.5, 0.75, 1.0, 1.5, 2.0)
 KNEE_RPS = 5704.059151093396            # BENCH_load.json knee

@@ -38,6 +38,8 @@ from repro_torch.nn import moe as tmoe
 from repro_torch.serve.engine import Engine as TEngine
 from repro_torch.serve.engine import Request as TRequest
 
+from _port_memory import release_memory  # noqa: F401
+
 ARCHS = ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b")
 TOL = dict(atol=1e-4, rtol=0)
 

@@ -21,6 +21,8 @@ from repro.optim import optimizers as jopt
 from repro_torch.optim import optimizers as topt
 from repro_torch.tree import flatten_with_path, leaves, tree_map
 
+from _port_memory import release_memory  # noqa: F401
+
 SHAPES = {"w": (16, 256), "stack": (8, 4, 128), "b": (7,), "m": (3, 5)}
 B1, B2 = 0.9, 0.95
 

@@ -42,6 +42,8 @@ from repro_torch.kernels import maxpool as tpool
 from repro_torch.kernels import ref as tref
 from repro_torch.models import yolo
 
+from _port_memory import release_memory  # noqa: F401
+
 ACTS = sorted(tref.ACTIVATIONS)
 KS = (1, 2, 3, 5, 7, 13)
 STRIDES = (1, 2, 3)

@@ -13,6 +13,8 @@ from repro.core import quant as jq
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import quant as tq
 
+from _port_memory import release_memory  # noqa: F401
+
 
 def _w(seed, shape):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)

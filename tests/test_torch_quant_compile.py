@@ -49,6 +49,8 @@ from repro_torch.roofline import hw as thw
 from repro_torch.serve import Deployment, DetectRequest
 from repro_torch.serve.detection import DetectionEngine
 
+from _port_memory import release_memory  # noqa: F401
+
 MODELS = ["yolov3-tiny", "yolov5n", "yolov8n"]
 MODES = {"w8a16": (8, 16), "w8a8": (8, 8), "w4a8": (4, 8)}
 IMG = 64

@@ -31,6 +31,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import qmatmul as tqmm
 from repro_torch.kernels import ref as tref
 
+from _port_memory import release_memory  # noqa: F401
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 ACTS = sorted(tref.ACTIVATIONS)
 # the Pallas epilogue returns the identity for gelu; compare it to the

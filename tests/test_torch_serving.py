@@ -20,6 +20,8 @@ from repro_torch.data.synthetic import ImageStream
 from repro_torch.models import yolo as tyolo
 from repro_torch.serve import Deployment, DetectRequest
 
+from _port_memory import release_memory  # noqa: F401
+
 IMG, N_REQ, BATCH = 64, 10, 4
 
 

@@ -38,6 +38,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tssd
 
+from _port_memory import release_memory  # noqa: F401
+
 ROUTE_TOL = 2e-5                # the emulated route against float64
 TOL = 1e-3                      # against the JAX oracle and Pallas kernel
 SMEM_LIMIT = 232448             # bytes of shared memory an H100 block may take

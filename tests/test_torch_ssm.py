@@ -36,6 +36,8 @@ from repro_torch.serve import LmReplica
 from repro_torch.serve.engine import Engine as TEngine
 from repro_torch.serve.engine import Request as TRequest
 
+from _port_memory import release_memory  # noqa: F401
+
 TOL = dict(atol=1e-4, rtol=0)
 VARIANTS = ("mamba2-130m", "zamba2-1.2b", "mamba2-130m-G2")
 

@@ -27,6 +27,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tssd
 
+from _port_memory import release_memory  # noqa: F401
+
 CHUNK_TOL = 1e-4
 ORACLE_TOL = 1e-3
 

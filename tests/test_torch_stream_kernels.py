@@ -37,6 +37,8 @@ from repro_torch.kernels import pointwise as tpw
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import resize as tresize
 
+from _port_memory import release_memory  # noqa: F401
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 ACTS = sorted(tref.ACTIVATIONS)
 # Activations the Pallas kernel implements as the oracle does (its _act

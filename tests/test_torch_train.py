@@ -44,6 +44,8 @@ from repro_torch.optim import optimizers as topt
 from repro_torch.train import remat as tremat
 from repro_torch.tree import flatten_with_path
 
+from _port_memory import release_memory  # noqa: F401
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 FAMILIES = {"dense": "granite-3-8b", "moe": "qwen3-moe-30b-a3b",
             "ssm": "mamba2-130m", "hybrid": "zamba2-1.2b",

@@ -27,6 +27,8 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.models import lm
 from repro_torch.tree import flatten_with_path
 
+from _port_memory import release_memory  # noqa: F401
+
 
 @pytest.fixture
 def cuda_device():
