@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out FILE.json]
                           [--only stream|a8|conv|attn|ssd|dec|pool|load|
-                                  decwin|moe|train|tp|pipeline]
+                                  decwin|moe|train|tp|pipeline|sharded]
 
 Phases, each printed as it runs; any failure raises and the script exits
 non-zero:
@@ -280,7 +280,20 @@ non-zero:
    ``stage_latency`` (a model). Then ``[roofline]``
    (``roofline_shares``): the analytic and model FLOPs of granite's
    prefill at 2048, its train step and the pipelined call, as shares of
-   the fp32 peak.
+   the fp32 peak. ``sharded`` (``run_sharded``, after ``pipeline``): the
+   LM steps over a (data, model) mesh (``dist/spmd.py`` through
+   ``launch.steps``): granite-3-8b at full width, TRAIN_LAYERS layers,
+   on SHARD_MESH (data 2, model 4) — one adamw train step (TRAIN_ROWS x
+   TRAIN_SEQ, TRAIN_MB microbatches, remat full), one prefill of
+   SHARD_PREFILL x TRAIN_SEQ, SHARD_DECODE decode steps — and one
+   mamba2-130m adamw step of TRAIN_SSM on SHARD_SSM_MESH (#13 a
+   position); each held to the unsharded step and to the same sharded
+   call on the plain versions on the same inputs (SHARD_TOL), its
+   #6/#11/#12/#13 launches and its labelled transfers
+   (kind, count, bytes; ``roofline.trace``) equal to the counts derived
+   from the plan (``sharded_launches``, ``sharded_transfers``), with
+   each step's ms beside the unsharded step's, the peak memory and the
+   step's share of the fp32 peak (``analysis.peak_share``).
 7. A JSON line listing all 13 kernels (``launches`` is the count on
    the path that runs it: ``main`` for conv, maxpool and resize,
    ``fusion_off`` for pointwise, ``quant_w8a16`` for qmatmul,
@@ -336,9 +349,9 @@ layout (a dense and an MoE layer with all 128 experts: 69.1 GiB of
 float32 weights), at the model level: one row of LLAMA4_PROMPT tokens
 and FAMILY_NEW greedy steps, checked as ``moe``, its peak memory
 printed (kept out of the full run, which must not fail on memory);
-``--only train`` for path ``train`` alone; ``--only tp`` and ``--only
-pipeline`` for those paths alone (``pipeline`` with its roofline
-share).
+``--only train`` for path ``train`` alone; ``--only tp``, ``--only
+pipeline`` and ``--only sharded`` for those paths alone (``pipeline``
+with its roofline share).
 
 Needs one CUDA card; exits non-zero without one, and in a directory that
 does not hold the repository's ``src/repro_torch``.
@@ -349,6 +362,7 @@ import argparse
 import ctypes
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -497,6 +511,23 @@ TRAIN_SSM = (2, 512)
 SMALL_STEPS, SMALL_CKPT = 200, 100
 SMALL_TC = dict(batch=8, seq_len=256, microbatches=2, lr=1e-3, warmup=20)
 RESTART_TOL = 1e-6
+# Path sharded: granite-3-8b at full width (TRAIN_LAYERS of 40 layers) on
+# a (data, model) mesh of SHARD_MESH positions over ``cuda_devices()``
+# (one card: every position names cuda:0): one adamw train step of
+# TRAIN_ROWS x TRAIN_SEQ in TRAIN_MB microbatches (remat full), one
+# prefill of SHARD_PREFILL rows x TRAIN_SEQ (cache TRAIN_SEQ +
+# SHARD_DECODE), SHARD_DECODE decode steps; mamba2-130m whole, one adamw
+# step of TRAIN_SSM on SHARD_SSM_MESH. Each sharded call through the
+# kernels is held to the unsharded step and to the same sharded call on
+# the plain versions, on the same inputs: logits, caches, loss, grad norm
+# and the adamw moments (m and sqrt(v)) within SHARD_TOL of the largest
+# |value| (mamba2's moments within SSM_TOL, as its other paths); each
+# parameter's update within SHARD_TOL x lr (plus one float32 rounding of
+# the parameter) of the one its own gathered moments give (SHARD_ADAMW).
+SHARD_MESH, SHARD_SSM_MESH = (2, 4), (2, 2)
+SHARD_PREFILL, SHARD_DECODE = 2, 8
+SHARD_TOL = 1e-4
+SHARD_ADAMW = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
 # kv8's decode steps against the plain kv_bits=8 replay: mean relative
 # logit difference below the JAX package's own bound for the int8 cache
 # (tests/test_quantized_serving.py:46-48).
@@ -4506,6 +4537,540 @@ def run_train(torch, np, lm, ops, registry, counters, dev) -> tuple:
     return total, run
 
 
+def _held(st) -> int:
+    """The positions that hold one block of a ``ShardedTensor`` (its
+    spec's cut axes divide the mesh)."""
+    from repro_torch.dist import sharding
+    n = len(st.shards)
+    cut = 1
+    for ax in st.spec:
+        if ax is not None:
+            for a in sharding._axes(ax):
+                cut *= st.mesh.shape[a]
+    return n // cut
+
+
+def _on_model(st) -> bool:
+    from repro_torch.dist import sharding
+    return any(ax is not None and "model" in sharding._axes(ax)
+               for ax in st.spec)
+
+
+def sharded_launches(cfg, sp, kind: str, n_mb: int = 1,
+                     steps: int = 1) -> dict:
+    """#6, #11, #12 and #13 launches of one sharded call, from the mesh
+    and the plan: every position runs its layers' norms (2 a layer;
+    post-norms 4 more; an SSM layer's ``ln`` and mixer norm) and its
+    attention (or mixer) on its heads or data shard, a train step's
+    checkpointed layers (remat) twice; the final norm at every position
+    where the head is vocab-sharded, else once a data group."""
+    n = len(sp["embed"]["table"].shards)
+    tp = sp["embed"]["table"].mesh.shape.get("model", 1)
+    dp = n // tp
+    head = sp["embed"]["table"] if cfg.tie_embeddings else sp["lm_head"]["w"]
+    final = n if (tp > 1 and _on_model(head)) else dp
+    L = cfg.n_layers
+    ssm = cfg.family == "ssm"
+    norms = 2 + (4 if cfg.post_norm else 0)
+    again = 2 if kind == "train" and cfg.remat != "none" else 1
+    out = {"rmsnorm": 0, "mha": 0, "decode_attention": 0, "ssd_scan": 0}
+    reps = n_mb if kind == "train" else steps if kind == "decode" else 1
+    out["rmsnorm"] = reps * (n * L * norms * again + final)
+    if ssm:
+        out["ssd_scan"] = 0 if kind == "decode" else reps * n * L * again
+    elif kind == "decode":
+        out["decode_attention"] = reps * n * L
+    else:
+        out["mha"] = reps * n * L * again
+    return out
+
+
+def sharded_transfers(cfg, sp, kind: str, rows: int, T: int,
+                      n_mb: int = 1, steps: int = 1) -> dict:
+    """The labelled transfers of one sharded call, (kind, bytes) → count,
+    derived from the plan's specs: the embedding's all-reduce where the
+    table is vocab-sharded; a layer's all-reduce where ``wo`` is cut
+    over ``model`` and where ``down`` is; an all-gather of each kv
+    projection where it is cut within heads; the logits' all-gather over
+    ``model`` where the head is vocab-sharded; the loss's all-reduce (8
+    bytes) and the whole logits' all-gather over the data groups where
+    there are several. A train step also runs the layers' collectives
+    again under remat, every forward collective's adjoint (an all-gather
+    a reduce-scatter), one gradient all-reduce a leaf held by more than
+    one position and the global norm's (4 bytes)."""
+    from collections import Counter
+    from repro_torch.tree import leaves
+    first = sp["embed"]["table"]
+    n = len(first.shards)
+    tp = first.mesh.shape.get("model", 1)
+    dp = n // tp
+    d, V = cfg.d_model, cfg.vocab
+    head = sp["embed"]["table"] if cfg.tie_embeddings else sp["lm_head"]["w"]
+    r = rows // dp
+    t_out = T if kind == "train" else 1            # logits a row
+
+    def once(t):                # (outer, layers) of one forward pass
+        outer, layer = Counter(), Counter()
+        act = r * t * d * 4
+        if tp > 1 and _on_model(sp["embed"]["table"]):
+            outer[("all-reduce", act)] += 1
+        if cfg.family != "ssm" and tp > 1:
+            at = sp["layers"]["attn"]
+            if _on_model(at["wk"]["w"]) and cfg.n_kv_heads % tp:
+                layer[("all-gather", r * t * cfg.n_kv_heads
+                       * cfg.head_dim * 4)] += 2
+            if _on_model(at["wo"]["w"]):
+                layer[("all-reduce", act)] += 1
+            if _on_model(sp["layers"]["mlp"]["down"]["w"]):
+                layer[("all-reduce", act)] += 1
+        layer = Counter({k: v * cfg.n_layers for k, v in layer.items()})
+        if tp > 1 and _on_model(head):
+            outer[("all-gather", r * (t if kind == "train" else 1)
+                   * V * 4)] += 1
+        return outer, layer
+
+    out = Counter()
+    if kind == "train":
+        outer, layer = once(T)
+        again = 2 if cfg.remat != "none" else 1
+        adj = Counter()
+        for (k, b), c in (outer + layer).items():
+            adj[("reduce-scatter", b // tp) if k == "all-gather"
+                else (k, b)] += c
+        per_mb = outer + Counter({k: v * again for k, v in layer.items()}) \
+            + adj
+        if dp > 1:
+            per_mb[("all-reduce", 8)] += 2
+        for k, v in per_mb.items():
+            out[k] += n_mb * v
+        for st in leaves(sp):
+            if _held(st) > 1:
+                out[("all-reduce", st.shards[0].numel() * 4)] += 1
+        if n > 1:
+            out[("all-reduce", 4)] += 1
+        return dict(out)
+    for _ in range(steps):
+        outer, layer = once(T if kind == "prefill" else 1)
+        out += outer + layer
+        if dp > 1:
+            out[("all-gather", rows * V * 4)] += 1
+    return dict(out)
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _whole(st):
+    from repro_torch.dist.sharding import ShardedTensor
+    return st.gather() if isinstance(st, ShardedTensor) else st
+
+
+def _moments_check(torch, s_a, s_b) -> dict:
+    """The worst leaf of optimizer state ``s_a`` (gathered where sharded)
+    against ``s_b``'s, max |difference| over max |value|, as (ratio,
+    leaf): the first moment (a tenth of the clipped gradient after one
+    step) and the second moment's square root (the gradient's magnitude:
+    ``v`` itself doubles the gradient's relative difference)."""
+    from repro_torch.tree import flatten_with_path
+    out = {}
+    for k, f in (("m", lambda t: t), ("v", torch.sqrt)):
+        flat = dict(flatten_with_path(s_b[k]))
+        out[k] = max((_rel(f(_whole(st)), f(_whole(flat[path]))),
+                      "|".join(map(str, path)))
+                     for path, st in flatten_with_path(s_a[k]))
+    return out
+
+
+def _split_sums_check(torch, lm, cfg, params, mb, groups: int,
+                      parts: int) -> tuple:
+    """The sums of the sharded step where the ``model`` positions each
+    run a replicated stack and read one vocab block of the head (the SSM
+    family), taken in unsharded code: the unsharded loss's gradients of
+    microbatch ``mb`` as the sum over ``groups`` row blocks (the data
+    groups) of ``parts`` backward passes each, one from the logits'
+    cotangent on each vocab block, against one backward pass of the
+    whole microbatch. (the worst leaf's max |difference| / max |value|,
+    the leaf)."""
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
+    pg = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    flat = leaves(pg)
+
+    def grads(batch, split: bool, tokens):
+        logits, _ = lm.forward(pg, cfg, batch)
+        nll, _ = lm._nll_sums(cfg, logits, batch["labels"])
+        (cot,) = torch.autograd.grad(nll / tokens, logits,
+                                     retain_graph=True)
+        n = logits.shape[-1] // parts
+        cuts = [(j * n, (j + 1) * n) for j in range(parts)] if split \
+            else [(0, logits.shape[-1])]
+        out = []
+        for j, (lo, hi) in enumerate(cuts):
+            part = torch.zeros_like(cot)
+            part[..., lo:hi] = cot[..., lo:hi]
+            out.append(torch.autograd.grad(
+                logits, flat, grad_outputs=part,
+                retain_graph=j < len(cuts) - 1, allow_unused=True))
+        return out
+
+    def total(gs):
+        return [sum(g[i] for g in gs if g[i] is not None)
+                if any(g[i] is not None for g in gs) else None
+                for i in range(len(flat))]
+    tokens = float((mb["labels"] >= 0).sum())
+    whole = total(grads(mb, False, tokens))
+    r = mb["tokens"].shape[0] // groups
+    split = total([g for k in range(groups) for g in grads(
+        {key: v[k * r:(k + 1) * r] for key, v in mb.items()}, True,
+        tokens)])
+    paths = [path for path, _ in flatten_with_path(pg)]
+    return max((_rel(a, b), "|".join(map(str, path)))
+               for path, a, b in zip(paths, split, whole) if b is not None)
+
+
+def _update_check(torch, p_old, p_new, state, step: int) -> tuple:
+    """Each gathered parameter of a sharded adamw step (SHARD_ADAMW, lr
+    TRAIN_LR) against p_old + the update its own gathered moments give,
+    in the optimizer's float32 arithmetic: (the worst max |difference| /
+    (SHARD_TOL x lr + float32 eps x |parameter|), its leaf, its max
+    |difference|). A block skipped, updated twice or by another
+    position's moments is off by about lr x |update| (> 1e-4 x lr
+    wherever weight decay acts)."""
+    from repro_torch.tree import flatten_with_path
+    a = SHARD_ADAMW
+    old = dict(flatten_with_path(p_old))
+    ms, vs = (dict(flatten_with_path(state[k])) for k in ("m", "v"))
+    worst = (0.0, None, 0.0)
+    for path, st in flatten_with_path(p_new):
+        p = old[path]
+        t = torch.tensor(step, device=p.device).to(torch.float32) + 1.0
+        c1, c2 = 1 - a["b1"] ** t, 1 - a["b2"] ** t
+        u = (ms[path].gather() / c1) / (torch.sqrt(vs[path].gather() / c2)
+                                        + a["eps"]) + a["weight_decay"] * p
+        want = p + (-TRAIN_LR * u)
+        diff = (st.gather() - want).abs()
+        ratio = float((diff / (SHARD_TOL * TRAIN_LR + torch.finfo(
+            torch.float32).eps * want.abs())).max())
+        if ratio >= worst[0]:
+            worst = (ratio, "|".join(map(str, path)), float(diff.max()))
+    return worst
+
+
+def _trace_of(torch, fn) -> tuple:
+    """(fn's result, its labelled transfers (kind, bytes) → count) under
+    ``torch.profiler`` (CPU activity only)."""
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.roofline import trace
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    got = Counter(trace._parse(e.name) for e in prof.events()
+                  if trace._parse(e.name))
+    return out, dict(got)
+
+
+def _fmt(transfers: dict) -> str:
+    return ", ".join(f"{k} {b} B x {c}" for (k, b), c in
+                     sorted(transfers.items()))
+
+
+def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
+    """Path sharded: the LM train, prefill and decode steps over a
+    (data, model) mesh of positions on ``cuda_devices()`` (one card:
+    every position names cuda:0), through ``launch.steps`` on
+    ``place_params`` trees (``dist/spmd.py``). (a) granite-3-8b at full
+    width, TRAIN_LAYERS layers, on SHARD_MESH: one adamw step of
+    TRAIN_ROWS x TRAIN_SEQ in TRAIN_MB microbatches (remat full), one
+    prefill of SHARD_PREFILL x TRAIN_SEQ, SHARD_DECODE decode steps;
+    (b) mamba2-130m whole on SHARD_SSM_MESH, one adamw step of TRAIN_SSM.
+    Each sharded call runs under ``torch.profiler`` with the launch
+    counters set to 0 just before it: its launches and transfers are
+    held to ``sharded_launches``/``sharded_transfers``, its outputs to
+    the unsharded step's and to the same sharded call on the plain
+    versions (``ops.set_default_backend("ref")``, no launch) on the same
+    inputs (loss and grad norm relative, the moments, logits and caches
+    max |diff| / max |value|, within SHARD_TOL, mamba2's moments within
+    SSM_TOL), each parameter's update to the one its gathered moments
+    give (``_update_check``). The unsharded step is also run with its
+    microbatches cut into the data groups' rows and on the plain
+    versions, and mamba2's gradients are also summed as the sharded step
+    sums them (``_split_sums_check``): each against the
+    unsharded step is printed as the spread of a summation order with no
+    sharding code in it. A second call
+    of each is timed beside the unsharded one's second call; peak
+    memory; the step's analytic FLOPs as a share of the fp32 peak.
+    Returns (launches, run dict)."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.optim import optimizers
+    from repro_torch.roofline import analysis
+    tag = "[sharded]"
+    t_path = time.perf_counter()
+    run: dict = {}
+    total = {k: 0 for k in counters}
+    card = smi()
+
+    def batch_of(cfg, rows, seq, n_mb, index):
+        b = TokenStream(vocab=cfg.vocab, seq_len=seq, batch=rows, seed=0,
+                        microbatches=n_mb).batch_at(index)
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    def counted(what, fn, want_launches, want_transfers):
+        _zero(counters)
+        out, got = _trace_of(torch, fn)
+        counts = _counts(counters)
+        want = {k: 0 for k in counters}
+        want.update(want_launches)
+        if counts != want:
+            raise AssertionError(f"{tag} {what}: launches {counts}, "
+                                 f"expected {want}")
+        if got != want_transfers:
+            raise AssertionError(f"{tag} {what}: transfers {_fmt(got)}, "
+                                 f"expected {_fmt(want_transfers)}")
+        for k, v in counts.items():
+            total[k] += v
+        return out, counts, got
+
+    def plain(what, fn):
+        """fn with every op on its plain version: no launch."""
+        _zero(counters)
+        ops.set_default_backend("ref")
+        try:
+            out = fn()
+        finally:
+            ops.set_default_backend("auto")
+        if any(_counts(counters).values()):
+            raise AssertionError(f"{tag} {what} on the plain versions "
+                                 f"launched {_counts(counters)}")
+        return out
+
+    def train_case(label, cfg, params, shape, rows, seq, n_mb, tol):
+        mesh = mesh_lib.make_mesh(shape, ("data", "model"),
+                                  devices=positions(math.prod(shape)))
+        sp = steps.place_params(params, mesh, cfg=cfg)
+        opt = optimizers.adamw(lr=TRAIN_LR, **SHARD_ADAMW)
+        step = steps.make_train_step(cfg, opt, n_mb)
+        b = batch_of(cfg, rows, seq, n_mb, 0)
+        state = opt.init(params)
+        p_un, s_un, m_un = step(params, state, 0, b)
+        del p_un
+        un_ms = _timed(torch, lambda: step(params, state, 0, b)[2])[1]
+        # two summation orders with no sharding code in them: the
+        # unsharded step with its microbatches cut into the data groups'
+        # rows (the data-parallel split of the sums), and on the plain
+        # versions
+        split = {k: v.reshape((n_mb * shape[0], -1) + tuple(v.shape[2:]))
+                 for k, v in b.items()}
+        s_rs = steps.make_train_step(cfg, opt, n_mb * shape[0])(
+            params, state, 0, split)[1]
+        row_split = _moments_check(torch, s_un, s_rs)
+        del s_rs, split
+        cot_split = _split_sums_check(
+            torch, lm, cfg, params, {k: v[0] for k, v in b.items()},
+            shape[0], shape[1]) if cfg.family == "ssm" and n_mb == 1 \
+            else None
+        free_card(torch)
+        s_up, m_up = plain(f"{label} unsharded step",
+                           lambda: step(params, state, 0, b)[1:])
+        witness = _moments_check(torch, s_un, s_up)
+        del state, s_up
+        free_card(torch)
+        ss = steps.init_opt_state(opt, sp, cfg)
+        (p_sh, s_sh, m_sh), counts, got = counted(
+            f"{label} train step", lambda: step(sp, ss, 0, b),
+            sharded_launches(cfg, sp, "train", n_mb),
+            sharded_transfers(cfg, sp, "train", rows // n_mb, seq, n_mb))
+
+        def rel(m, k):
+            return abs(float(m_sh[k]) - float(m[k])) / abs(float(m[k]))
+        loss_rel, gn_rel = rel(m_un, "loss"), rel(m_un, "grad_norm")
+        mom = _moments_check(torch, s_sh, s_un)
+        upd = _update_check(torch, params, p_sh, s_sh, 0)
+        finite = bool(torch.isfinite(m_sh["loss"])) and \
+            bool(torch.isfinite(m_sh["grad_norm"]))
+        del p_sh, s_un
+        free_card(torch)
+        # the same sharded step on the plain versions
+        s_pl, m_pl = plain(f"{label} train step",
+                           lambda: step(sp, ss, 0, b)[1:])
+        vs_plain = {"loss_rel": rel(m_pl, "loss"),
+                    "grad_norm_rel": rel(m_pl, "grad_norm"),
+                    "moments": _moments_check(torch, s_sh, s_pl)}
+        del s_sh, s_pl
+        free_card(torch)
+        torch.cuda.reset_peak_memory_stats()
+        sh_ms = _timed(torch, lambda: step(sp, ss, 0, b)[2])[1]
+        peak = peak_gib(torch)
+        cell = ShapeCell("train", "train", seq, rows)
+        work = analysis.analytic_flops(cfg, cell)["total"]
+        out = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": shape,
+               "rows": rows, "seq": seq, "microbatches": n_mb,
+               "loss": float(m_sh["loss"]), "loss_unsharded":
+               float(m_un["loss"]), "loss_rel": loss_rel,
+               "grad_norm": float(m_sh["grad_norm"]), "grad_norm_rel":
+               gn_rel, "moments_worst": mom, "tolerance": tol,
+               "vs_plain": vs_plain, "unsharded_row_split": row_split,
+               "unsharded_split_sums": cot_split,
+               "unsharded_kernels_vs_plain": {
+                   "loss_rel": abs(float(m_un["loss"]) - float(m_up["loss"]))
+                   / abs(float(m_up["loss"])), "moments": witness},
+               "update_worst": upd,
+               "launches": counts, "transfers": _fmt(got),
+               "transfer_count": sum(got.values()),
+               "transfer_bytes": sum(b * c for (_, b), c in got.items()),
+               "ms": sh_ms, "unsharded_ms": un_ms, "peak_gib": peak,
+               "analytic_flops": work,
+               "fp32_peak_share": analysis.peak_share(work, sh_ms / 1e3)}
+
+        def worst(mo):
+            return (f"m {mo['m'][0]:.3e} ({mo['m'][1]}), sqrt(v) "
+                    f"{mo['v'][0]:.3e} ({mo['v'][1]})")
+        print(f"{tag} {label} train step on {mesh}: loss {out['loss']!r} "
+              f"(unsharded {out['loss_unsharded']!r}, relative "
+              f"{loss_rel:.3e}), grad norm relative {gn_rel:.3e}, adamw "
+              f"moments' worst leaf {worst(mom)} (tolerance {tol}); "
+              f"against the same sharded step on the plain versions (no "
+              f"launch): loss {vs_plain['loss_rel']:.3e}, grad norm "
+              f"{vs_plain['grad_norm_rel']:.3e}, moments "
+              f"{worst(vs_plain['moments'])}; with no sharding, the "
+              f"unsharded step against itself with its microbatches cut "
+              f"into the data groups' rows: moments {worst(row_split)}, "
+              + ("" if cot_split is None else
+                 f"its gradients summed as the sharded step sums them "
+                 f"({shape[0]} row blocks x {shape[1]} backward passes, "
+                 f"one a vocab block): {cot_split[0]:.3e} "
+                 f"({cot_split[1]}), ")
+              + f"and through the kernels against plain: moments "
+              f"{worst(witness)}; "
+              f"each parameter's update against its gathered moments' "
+              f"worst {upd[0]:.3e} of SHARD_TOL x lr + one rounding "
+              f"({upd[1]}, max |diff| {upd[2]:.3e}); "
+              f"launches {_nonzero(counts)} = sharded_launches; "
+              f"transfers ({out['transfer_count']}, "
+              f"{out['transfer_bytes']} B) {out['transfers']} = "
+              f"sharded_transfers; {sh_ms:.1f} ms a step (unsharded "
+              f"{un_ms:.1f} ms; each a second call) on {card}; peak "
+              f"{peak:.2f} GiB; {work:.4e} analytic FLOPs, "
+              f"{out['fp32_peak_share']:.4f} of the fp32 peak", flush=True)
+        ok = finite and max(loss_rel, gn_rel, vs_plain["loss_rel"],
+                            vs_plain["grad_norm_rel"]) <= tol \
+            and max(mom["m"][0], mom["v"][0], vs_plain["moments"]["m"][0],
+                    vs_plain["moments"]["v"][0]) <= tol and upd[0] <= 1.0
+        if not ok:
+            raise AssertionError(f"{tag} {label} train step: {out}")
+        del sp, ss
+        free_card(torch)
+        return out
+
+    # (a) granite-3-8b
+    cfg, params = make_lm(torch, lm, registry, dev, tag, "granite-3-8b",
+                          TRAIN_LAYERS, remat="full")
+    run["train"] = train_case("granite-3-8b", cfg, params, SHARD_MESH,
+                              TRAIN_ROWS, TRAIN_SEQ, TRAIN_MB, SHARD_TOL)
+    mesh = mesh_lib.make_mesh(SHARD_MESH, ("data", "model"),
+                              devices=positions(math.prod(SHARD_MESH)))
+    sp = steps.place_params(params, mesh, cfg=cfg)
+    S = TRAIN_SEQ + SHARD_DECODE
+    prefill = steps.make_prefill_step(cfg, S)
+    decode = steps.make_decode_step(cfg)
+    b = batch_of(cfg, SHARD_PREFILL, TRAIN_SEQ, 1, 1)
+    pb = {"tokens": b["tokens"][0]}
+    l_un, c_un = prefill(params, pb)
+    (_, _), un_ms = _timed(torch, lambda: prefill(params, pb))
+    (l_sh, c_sh), counts, got = counted(
+        "prefill", lambda: prefill(sp, pb),
+        sharded_launches(cfg, sp, "prefill"),
+        sharded_transfers(cfg, sp, "prefill", SHARD_PREFILL, TRAIN_SEQ))
+    l_pl, c_pl = plain("prefill", lambda: prefill(sp, pb))
+    errs = {"prefill": _rel(l_sh, l_un), "prefill_vs_plain": _rel(l_sh, l_pl)}
+    for k in ("k", "v"):
+        errs[f"prefill_cache_{k}_vs_plain"] = _rel(c_sh[k].gather(),
+                                                   c_pl[k].gather())
+    (_, _), sh_ms = _timed(torch, lambda: prefill(sp, pb))
+    cell = ShapeCell("prefill", "prefill", TRAIN_SEQ, SHARD_PREFILL)
+    work = analysis.analytic_flops(cfg, cell)["fwd"]
+    pre = {"launches": counts, "transfers": _fmt(got), "ms": sh_ms,
+           "unsharded_ms": un_ms, "analytic_flops": work,
+           "fp32_peak_share": analysis.peak_share(work, sh_ms / 1e3)}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dec_ms, dec_un_ms = [], []
+    d_counts, d_got = None, None
+    for i in range(SHARD_DECODE):
+        tok = torch.randint(0, cfg.vocab, (SHARD_PREFILL,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        (l_un, c_un), ms_u = _timed(torch, lambda: decode(params, tok,
+                                                          c_un))
+        if i == 0:
+            (l_sh, c_sh), d_counts, d_got = counted(
+                "decode step", lambda: decode(sp, tok, c_sh),
+                sharded_launches(cfg, sp, "decode"),
+                sharded_transfers(cfg, sp, "decode", SHARD_PREFILL, 1))
+            l_pl, c_pl = plain("decode step", lambda: decode(sp, tok, c_pl))
+            errs["decode_0_vs_plain"] = _rel(l_sh, l_pl)
+            for k in ("k", "v"):
+                errs[f"decode_0_cache_{k}_vs_plain"] = _rel(
+                    c_sh[k].gather(), c_pl[k].gather())
+            del l_pl, c_pl
+        else:
+            (l_sh, c_sh), ms_s = _timed(torch, lambda: decode(sp, tok, c_sh))
+            dec_ms.append(ms_s)
+            dec_un_ms.append(ms_u)
+        errs[f"decode_{i}"] = _rel(l_sh, l_un)
+    for k in ("k", "v"):
+        errs[f"cache_{k}"] = _rel(c_sh[k].gather(), c_un[k])
+    if not all(bool(torch.isfinite(x).all()) for x in (l_sh, l_un)):
+        raise AssertionError(f"{tag} non-finite logits")
+    cell = ShapeCell("decode", "decode", S, SHARD_PREFILL)
+    dwork = analysis.analytic_flops(cfg, cell)["fwd"]
+    dmed = statistics.median(dec_ms)
+    run["infer"] = {
+        "prefill": pre, "rows": SHARD_PREFILL, "seq": TRAIN_SEQ,
+        "cache": S, "decode_steps": SHARD_DECODE,
+        "decode_launches": d_counts, "decode_transfers": _fmt(d_got),
+        "decode_ms_median": dmed,
+        "decode_unsharded_ms_median": statistics.median(dec_un_ms),
+        "decode_fp32_peak_share": analysis.peak_share(dwork, dmed / 1e3),
+        "rel_errs": errs, "peak_gib": peak_gib(torch)}
+    worst = max(errs.values())
+    print(f"{tag} prefill {SHARD_PREFILL} x {TRAIN_SEQ} (cache {S}): "
+          f"launches {_nonzero(counts)}, transfers {_fmt(got)} (= "
+          f"sharded_launches, sharded_transfers); {sh_ms:.1f} ms (unsharded "
+          f"{un_ms:.1f} ms), {pre['fp32_peak_share']:.4f} of the fp32 peak; "
+          f"{SHARD_DECODE} decode steps: the first's launches "
+          f"{_nonzero(d_counts)}, transfers {_fmt(d_got)}; median "
+          f"{dmed:.2f} ms a step after it (unsharded "
+          f"{run['infer']['decode_unsharded_ms_median']:.2f} ms), "
+          f"{run['infer']['decode_fp32_peak_share']:.5f} of the fp32 "
+          f"peak; logits and cache max |diff| / max |value| worst "
+          f"{worst:.3e} (tolerance {SHARD_TOL}; against the unsharded "
+          f"steps, and the prefill and first decode step against the same "
+          f"sharded calls on the plain versions, no launch: "
+          f"{max(v for k, v in errs.items() if 'plain' in k):.3e}) on "
+          f"{card}", flush=True)
+    if worst > SHARD_TOL:
+        raise AssertionError(f"{tag} inference: {errs}")
+    del params, sp, c_un, c_sh, l_un, l_sh
+    free_card(torch)
+
+    # (b) mamba2-130m: #13 a position on its data shard
+    cfg, params = make_lm(torch, lm, registry, dev, tag, "mamba2-130m")
+    rows, seq = TRAIN_SSM
+    run["ssm"] = train_case("mamba2-130m", cfg, params, SHARD_SSM_MESH,
+                            rows, seq, 1, SSM_TOL)
+    del params
+    free_card(torch)
+    run["launches"] = total
+    run["seconds"] = time.perf_counter() - t_path
+    print(f"{tag} launches {_nonzero(total)}; path sharded took "
+          f"{run['seconds']:.1f}s", flush=True)
+    return total, run
+
+
 def long_gaps(proc, duration_s: float, step_s: float) -> int:
     """Gaps of ``proc``'s schedule (from 0) longer than half a round:
     the wall loop (``OpenLoopHarness._run_wall``) starts a round only
@@ -4755,7 +5320,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("stream", "a8", "conv", "attn",
                                        "ssd", "dec", "pool", "load",
                                        "decwin", "moe", "train", "tp",
-                                       "pipeline"),
+                                       "pipeline", "sharded"),
                     help="only one slice's reading, for a before/after "
                     "(copied into an older checkout, it reads that "
                     "checkout's kernels): stream, #4 and #5's cases and the "
@@ -4780,8 +5345,9 @@ def main() -> int:
                     "(69.1 GiB of weights); train, path train; tp, path tp "
                     "(main's design by tensor-parallel replicas); "
                     "pipeline, path pipeline (granite-3-8b's streaming "
-                    "pipeline) and its roofline share. Prints no result "
-                    "line")
+                    "pipeline) and its roofline share; sharded, path "
+                    "sharded (the LM steps over a (data, model) mesh). "
+                    "Prints no result line")
     args = ap.parse_args()
 
     T0 = time.perf_counter()
@@ -4884,6 +5450,11 @@ def main() -> int:
     if args.only == "train":
         _, run = run_train(torch, np, lm, ops, registry, counters, dev0)
         write_out({}, train=run)
+        print(f"[card] {smi()}")
+        return 0
+    if args.only == "sharded":
+        _, run = run_sharded(torch, np, lm, registry, counters, dev0)
+        write_out({}, sharded=run)
         print(f"[card] {smi()}")
         return 0
     if args.only == "pipeline":
@@ -5418,6 +5989,9 @@ def main() -> int:
     # pipeline: granite-3-8b's layers as a streaming pipeline
     paths["pipeline"], lm_runs["pipeline"] = run_pipeline(
         torch, np, lm, registry, counters, dev0, model.graph)
+    # sharded: the LM steps over a (data, model) mesh of positions
+    paths["sharded"], lm_runs["sharded"] = run_sharded(
+        torch, np, lm, registry, counters, dev0)
     shares = roofline_shares(registry, lm_runs)
     for kname, path in KERNEL_PATH.items():
         if paths[path][kname] <= 0:

@@ -16,8 +16,11 @@ Layout per step, the JAX package's::
   the data-loader cursor all live in one manifest, so kill → restart
   resumes bit-exact.
 
-The JAX package's ``restore(..., shardings=...)`` (elastic relayout
-onto a mesh) waits for sharded training (ROADMAP.md §1, item 3).
+* **Elastic restore** — ``restore(..., shardings=...)`` lays every
+  saved array out over a mesh (``tree_specs`` output, e.g. another mesh
+  than the one it was saved from); ``save`` of a tree of
+  ``ShardedTensor`` leaves writes the gathered arrays, so either
+  package reads them.
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ def _key(path: tuple) -> str:
 
 
 def _numpy(leaf) -> np.ndarray:
+    if hasattr(leaf, "shards"):             # a ShardedTensor: whole
+        leaf = leaf.gather()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
@@ -108,16 +113,24 @@ def _numpy_dtype(dtype) -> np.dtype:
     return np.dtype(dtype)
 
 
+def _at(tree: Any, path: tuple) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def restore(ckpt_dir: str | Path, template: Any, step: int | None = None,
             shardings: Any = None) -> tuple[Any, dict]:
     """Restore into ``template``'s tree structure: each leaf (a tensor, or
-    anything with ``shape`` and ``dtype``) is replaced by the saved array
-    of its path, cast to its dtype, on its device (a tensor's; the CPU
-    otherwise). Returns (tree, the manifest's extras and ``step``)."""
+    anything with ``shape`` and ``dtype``, ``meta`` stand-ins included)
+    is replaced by the saved array of its path, cast to its dtype, on its
+    device (a tensor's; the CPU otherwise). With ``shardings`` (a tree of
+    ``NamedSharding`` of the template's structure, ``tree_specs``'
+    output), each array is instead laid out over its mesh's positions by
+    ``sharding.shard_tensor``: a ``ShardedTensor``. Returns (tree, the
+    manifest's extras and ``step``)."""
     if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) (elastic relayout) waits for sharded "
-            "training (ROADMAP.md §1, item 3)")
+        from ..dist.sharding import shard_tensor
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -134,10 +147,12 @@ def restore(ckpt_dir: str | Path, template: Any, step: int | None = None,
             if tuple(arr.shape) != tuple(tmpl.shape):
                 raise ValueError(f"{key}: shape {arr.shape} != "
                                  f"{tuple(tmpl.shape)}")
-            arr = arr.astype(_numpy_dtype(tmpl.dtype))
+            arr = torch.from_numpy(arr.astype(_numpy_dtype(tmpl.dtype)))
+            if shardings is not None:
+                return shard_tensor(arr, _at(shardings, path))
             device = tmpl.device if isinstance(tmpl, torch.Tensor) \
                 else "cpu"
-            return torch.from_numpy(arr).to(device)
+            return arr.to(device)
 
         tree = map_with_path(leaf, template)
     return tree, manifest["extras"] | {"step": manifest["step"]}

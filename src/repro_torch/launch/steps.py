@@ -16,9 +16,15 @@ come from ``torch.autograd.grad`` of ``models.lm.loss_fn`` and are
 summed in ``accum_dtype`` (float32), then divided by n_mb; the global
 norm is clipped to ``clip_norm``; the optimizer runs once; the
 parameters are updated in float32 and cast back. Metrics are the means
-over the microbatches, plus ``grad_norm`` (before clipping). A train
-step over sharded parameters waits for the multi-process slice
-(ROADMAP.md §1).
+over the microbatches, plus ``grad_norm`` (before clipping).
+
+Each step also takes a tree of ``ShardedTensor`` leaves (``place_params``
+over a ``(data, model)`` mesh) and then runs through ``dist/spmd.py``,
+tensor- and data-parallel over the mesh's positions: parameters,
+optimizer state and the KV cache come back as ``ShardedTensor`` trees
+(``spmd.gather`` makes them whole), logits and metrics whole on position
+0's device. ``init_opt_state`` lays a sharded tree's optimizer state out
+by ``tree_specs`` of its own tree.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch
 
 from ..configs.base import ModelCfg, ShapeCell
 from ..dist import sharding as sharding_lib
+from ..dist import spmd
 from ..models import lm
 from ..optim import optimizers as opt_lib
 from ..tree import leaves, tree_map, unflatten
@@ -124,11 +131,12 @@ def cache_specs_shapes(cfg: ModelCfg, cell: ShapeCell, dtype=ACT_DTYPE):
                          dtype, device=META, src_len=src)
 
 
-def grads_of(params: dict, cfg: ModelCfg, mb: dict):
-    """(grads, metrics) of ``lm.loss_fn`` on one microbatch; a parameter
-    the loss does not reach has a zero gradient, as under JAX."""
+def grads_of(params: dict, cfg: ModelCfg, mb: dict, loss_fn=lm.loss_fn):
+    """(grads, metrics) of ``loss_fn`` (``lm.loss_fn``) on one
+    microbatch; a parameter the loss does not reach has a zero gradient,
+    as under JAX."""
     pg = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    _, metrics = lm.loss_fn(pg, cfg, mb)
+    _, metrics = loss_fn(pg, cfg, mb)
     flat = leaves(pg)
     got = torch.autograd.grad(metrics["loss"], flat, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
@@ -137,19 +145,22 @@ def grads_of(params: dict, cfg: ModelCfg, mb: dict):
 
 
 def accumulate_grads(params: dict, cfg: ModelCfg, batch: dict,
-                     n_microbatches: int = 1, accum_dtype=F32):
+                     n_microbatches: int = 1, accum_dtype=F32,
+                     loss_fn=lm.loss_fn):
     """The float32 gradients and the metrics of a microbatch-shaped
     ``batch``: one microbatch's as they are; over several, the sum in
     ``accum_dtype`` divided by their count, and the metrics' means."""
     if n_microbatches == 1:
         grads, metrics = grads_of(params, cfg,
-                                  {k: v[0] for k, v in batch.items()})
+                                  {k: v[0] for k, v in batch.items()},
+                                  loss_fn)
         return tree_map(lambda g: g.to(F32), grads), metrics
     acc = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
                                          device=p.device), params)
     ms = []
     for i in range(n_microbatches):
-        g, m = grads_of(params, cfg, {k: v[i] for k, v in batch.items()})
+        g, m = grads_of(params, cfg, {k: v[i] for k, v in batch.items()},
+                        loss_fn)
         tree_map(lambda a, b: a.add_(b.to(accum_dtype)), acc, g)
         del g
         ms.append(m)
@@ -160,16 +171,25 @@ def accumulate_grads(params: dict, cfg: ModelCfg, batch: dict,
 
 
 def apply_optimizer(optimizer: opt_lib.Optimizer, grads, opt_state,
-                    params, step, clip_norm: float):
-    """Clip ``grads`` to ``clip_norm``, run ``optimizer`` once and add its
-    updates to ``params`` in float32. Returns (new params, new state,
-    the global norm before clipping)."""
-    grads, gnorm = opt_lib.clip_by_global_norm(grads, clip_norm)
+                    params, step, clip_norm: float, norm=None):
+    """Clip ``grads`` to ``clip_norm`` (their global norm, or ``norm``),
+    run ``optimizer`` once and add its updates to ``params`` in float32.
+    Returns (new params, new state, the global norm before clipping)."""
+    grads, gnorm = opt_lib.clip_by_global_norm(grads, clip_norm, norm)
     updates, new_state = optimizer.update(grads, opt_state, params, step)
     del grads
     new_params = tree_map(
         lambda p, u: (p.to(F32) + u.to(F32)).to(p.dtype), params, updates)
     return new_params, new_state, gnorm
+
+
+def init_opt_state(optimizer: opt_lib.Optimizer, params, cfg: ModelCfg):
+    """``optimizer.init(params)``; over sharded ``params``, the state laid
+    out by ``tree_specs`` of its own tree, each block made in place
+    (``spmd.init_opt_state``)."""
+    if spmd.is_sharded(params):
+        return spmd.init_opt_state(optimizer, params, cfg)
+    return optimizer.init(params)
 
 
 def make_train_step(cfg: ModelCfg, optimizer: opt_lib.Optimizer,
@@ -179,11 +199,40 @@ def make_train_step(cfg: ModelCfg, optimizer: opt_lib.Optimizer,
     new trees; the arguments are left as they were (so a failed step can
     be retried from them)."""
     def train_step(params, opt_state, step, batch):
+        if spmd.is_sharded(params):
+            return _sharded_train_step(params, opt_state, step, batch)
         grads, metrics = accumulate_grads(params, cfg, batch,
                                           n_microbatches, accum_dtype)
         new_params, new_state, gnorm = apply_optimizer(
             optimizer, grads, opt_state, params, step, clip_norm)
         return new_params, new_state, dict(metrics, grad_norm=gnorm)
+
+    def _sharded_train_step(params, opt_state, step, batch):
+        # the same step over the sharded tree's distinct tensors
+        spmd.check_supported(cfg, optimizer)
+        if not spmd.is_sharded(opt_state):
+            raise ValueError("sharded parameters take a sharded optimizer "
+                             "state (init_opt_state)")
+        dt = spmd.Distinct(params)
+        grads, metrics = accumulate_grads(dt.tensors, cfg, batch,
+                                          n_microbatches, accum_dtype,
+                                          dt.loss_fn)
+        grads = dt.sum_blocks(grads)
+        gnorm = dt.norm(grads)
+        state = {k: dt.flat(v) for k, v in opt_state.items()}
+        new_params, new_state = {}, {k: {} for k in state}
+        for keys in dt.by_device():         # the optimizer's scalars
+            def pick(flat):
+                return {k: flat[k] for k in keys}
+            p, st, _ = apply_optimizer(
+                optimizer, pick(grads), {k: pick(v) for k, v in state.items()},
+                pick(dt.tensors), step, clip_norm, gnorm)
+            new_params.update(p)
+            for k, v in st.items():
+                new_state[k].update(v)
+        return (dt.sharded(new_params),
+                {k: dt.sharded(v) for k, v in new_state.items()},
+                dict(metrics, grad_norm=gnorm))
 
     return train_step
 
@@ -191,6 +240,8 @@ def make_train_step(cfg: ModelCfg, optimizer: opt_lib.Optimizer,
 def make_eval_step(cfg: ModelCfg):
     """(params, batch) → metrics of ``lm.loss_fn``, without grad."""
     def eval_step(params, batch):
+        if spmd.is_sharded(params):
+            return spmd.eval_loss(params, cfg, batch)
         with torch.no_grad():
             _, metrics = lm.loss_fn(params, cfg, batch)
         return metrics
@@ -201,6 +252,8 @@ def make_prefill_step(cfg: ModelCfg, cache_size: int):
     """(params, batch) → ``lm.prefill``'s (logits, cache), without grad."""
     def prefill_step(params, batch):
         with torch.no_grad():
+            if spmd.is_sharded(params):
+                return spmd.prefill(params, cfg, batch, cache_size)
             return lm.prefill(params, cfg, batch, cache_size)
     return prefill_step
 
@@ -210,5 +263,7 @@ def make_decode_step(cfg: ModelCfg):
     without grad; the cache is updated in place."""
     def decode_step(params, tokens, cache):
         with torch.no_grad():
+            if spmd.is_sharded(params):
+                return spmd.decode_step(params, cfg, tokens, cache)
             return lm.decode_step(params, cfg, tokens, cache)
     return decode_step

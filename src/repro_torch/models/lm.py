@@ -332,13 +332,15 @@ def _mlp_block(cfg: ModelCfg, pl, h, lb: list | None = None):
             lb.append(aux["load_balance"])
     else:
         m = L.mlp(pl["mlp"], m_in, act=cfg.act)
-    if cfg.post_norm:
-        m = L.rmsnorm(pl["ln2p"], m, cfg.norm_eps)
-    return h + m
+    return h + _mlp_out(cfg, pl, m)
 
 
 def _attn_out(cfg: ModelCfg, pl, a):
     return L.rmsnorm(pl["ln1p"], a, cfg.norm_eps) if cfg.post_norm else a
+
+
+def _mlp_out(cfg: ModelCfg, pl, m):
+    return L.rmsnorm(pl["ln2p"], m, cfg.norm_eps) if cfg.post_norm else m
 
 
 def _dense_layer_fwd(cfg: ModelCfg, pl, h, pos, window, rope,
@@ -471,7 +473,16 @@ def loss_fn(params: dict, cfg: ModelCfg, batch: dict):
     0.01 · its load-balance loss. Returns (loss, {"loss", "tokens"}),
     0-d float32 tensors."""
     logits, aux = forward(params, cfg, batch)
-    labels = batch["labels"]
+    nll, tokens = _nll_sums(cfg, logits, batch["labels"])
+    loss = nll / torch.clamp(tokens, min=1.0)
+    if "load_balance" in aux:
+        loss = loss + 0.01 * aux["load_balance"]
+    return loss, {"loss": loss, "tokens": tokens}
+
+
+def _nll_sums(cfg: ModelCfg, logits, labels):
+    """(the summed next-token NLL, the count of labels ≥ 0), float32: a
+    vlm's logits cover [patches; text] and are sliced to the text."""
     if cfg.family == "vlm":                    # logits cover [img; text]
         logits = logits[:, -labels.shape[1]:]
     lw = (labels >= 0).to(torch.float32)
@@ -479,11 +490,7 @@ def loss_fn(params: dict, cfg: ModelCfg, batch: dict):
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, lab[..., None])[..., 0]
-    nll = (lse - gold) * lw
-    loss = torch.sum(nll) / torch.clamp(torch.sum(lw), min=1.0)
-    if "load_balance" in aux:
-        loss = loss + 0.01 * aux["load_balance"]
-    return loss, {"loss": loss, "tokens": torch.sum(lw)}
+    return torch.sum((lse - gold) * lw), torch.sum(lw)
 
 
 # ---------------------------------------------------------------------------

@@ -59,12 +59,15 @@ def init(gen: torch.Generator, cfg: AttnCfg, lead=(), device=None,
 def _project_qkv(p, cfg: AttnCfg, x, kv_x=None):
     """q from ``x``; k and v from ``kv_x`` (cross-attention), else from
     ``x``."""
-    B, T = x.shape[:2]
     kv_x = x if kv_x is None else kv_x
-    Tk = kv_x.shape[1]
-    q = L.linear(p["wq"], x).reshape(B, T, cfg.n_heads, cfg.head_dim)
-    k = L.linear(p["wk"], kv_x).reshape(B, Tk, cfg.n_kv_heads, cfg.head_dim)
-    v = L.linear(p["wv"], kv_x).reshape(B, Tk, cfg.n_kv_heads, cfg.head_dim)
+    return _heads(p, cfg, L.linear(p["wq"], x), L.linear(p["wk"], kv_x),
+                  L.linear(p["wv"], kv_x))
+
+
+def _heads(p, cfg: AttnCfg, q, k, v):
+    """Projections (B, T, n · head_dim) as heads (B, T, n, head_dim), q
+    and k normed where ``cfg.qk_norm``."""
+    q, k, v = (t.reshape(*t.shape[:2], -1, cfg.head_dim) for t in (q, k, v))
     if cfg.qk_norm:
         q = L.rmsnorm(p["qnorm"], q)
         k = L.rmsnorm(p["knorm"], k)

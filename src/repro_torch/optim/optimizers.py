@@ -50,10 +50,13 @@ def global_norm(tree) -> torch.Tensor:
                           for x in leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    n = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """``grads`` scaled to a global norm of at most ``max_norm``, and the
+    norm before clipping: ``global_norm(grads)``, or ``norm`` where the
+    caller computed it (a sharded tree's, each block counted once)."""
+    n = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
-    return tree_map(lambda g: g * scale.to(g.dtype), grads), n
+    return tree_map(lambda g: g * scale.to(g.device, g.dtype), grads), n
 
 
 # ---------------------------------------------------------------- schedules

@@ -77,7 +77,15 @@ def test_restore_validates(tmp_path):
         ck.restore(tmp_path, {"b": torch.zeros((4,))})
     with pytest.raises(FileNotFoundError):
         ck.restore(tmp_path / "none", {"a": torch.zeros((4,))})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # onto shardings: each leaf laid out by its NamedSharding, one missing
+    # from the shardings tree a KeyError
+    from repro_torch.dist.sharding import NamedSharding, PartitionSpec
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2,), ("model",), devices=["cpu", "cpu"])
+    tree, _ = ck.restore(tmp_path, {"a": torch.zeros((4,))}, shardings={
+        "a": NamedSharding(mesh, PartitionSpec("model"))})
+    assert [tuple(s.shape) for s in tree["a"].shards] == [(2,), (2,)]
+    with pytest.raises(KeyError):
         ck.restore(tmp_path, {"a": torch.zeros((4,))}, shardings={})
 
 

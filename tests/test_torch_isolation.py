@@ -1,10 +1,10 @@
 """The port stands alone: it imports neither JAX nor the JAX package
 (the training modules included: a short CPU training run with a
-checkpoint, a tensor-parallel forward and a pipelined call import
-neither), its entry points refuse to fall back to the CPU (the train
-loop's and the mesh's too), and what is not ported yet (a quantized
-tensor-parallel replica, a checkpoint restored onto shardings) raises
-``NotImplementedError``."""
+checkpoint, a tensor-parallel forward, a pipelined call, a sharded LM
+train step and the dry run import neither), its entry points refuse to
+fall back to the CPU (the train loop's and the mesh's too), and what is
+not ported yet (a quantized tensor-parallel replica, a sharded moe
+model) raises ``NotImplementedError``."""
 import ast
 import subprocess
 import sys
@@ -18,6 +18,7 @@ import repro_torch.core as tcore
 from repro_torch.configs import registry
 from repro_torch.ckpt import checkpoint
 from repro_torch.core.buffers import SoftwareFifo
+from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.loadgen import OpenLoopHarness, PoissonArrivals
 from repro_torch.models import lm, yolo
@@ -47,7 +48,8 @@ def test_no_file_imports_jax_or_the_jax_package():
             "launch/steps.py", "ckpt/checkpoint.py", "train/loop.py",
             "train/remat.py", "tree.py", "roofline/analysis.py",
             "roofline/trace.py", "roofline/hw.py", "launch/mesh.py",
-            "dist/sharding.py", "core/pipeline.py"} <= names
+            "dist/sharding.py", "core/pipeline.py", "dist/spmd.py",
+            "launch/dryrun.py"} <= names
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
@@ -133,6 +135,22 @@ def test_import_compile_and_run_load_no_jax():
         from repro_torch.configs.base import SHAPES
         assert analysis.model_flops(cfg, SHAPES["train_4k"]) > 0
         assert steps.param_shardings(cfg, mesh.make_production_mesh())
+        from repro_torch.dist import spmd
+        from repro_torch.launch import dryrun
+        cfg = registry.reduced("granite-3-8b")
+        params = lm.init_params(cfg, torch.Generator(), device="cpu")
+        m = mesh.make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+        sp = steps.place_params(params, m, cfg=cfg)
+        opt = optimizers.adamw()
+        toks = torch.ones((1, 2, 8), dtype=torch.int32)
+        sp, st, met = steps.make_train_step(cfg, opt, 1)(
+            sp, steps.init_opt_state(opt, sp, cfg), 0,
+            {"tokens": toks, "labels": toks})
+        assert spmd.is_sharded(sp) and float(met["loss"]) > 0
+        rec = dryrun.lower_cell(registry.get("granite-3-8b"),
+                                SHAPES["decode_32k"],
+                                mesh.make_production_mesh())
+        assert rec["memory"]["per_position"]["total"] > 0
         bad = sorted(m for m in sys.modules if m == "jax"
                      or m.startswith("jax") or m == "repro"
                      or m.startswith("repro."))
@@ -183,8 +201,16 @@ def test_unported_paths_raise(cpu_acc, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Deployment(cpu_acc, devices=["cpu"], tensor_parallel=2,
                    backend="quant")
+    cfg = registry.reduced("qwen3-moe-30b-a3b")
+    params = lm.init_params(cfg, torch.Generator(), device="cpu")
+    sp = steps.place_params(params, make_mesh((1, 2), ("data", "model"),
+                                              devices=["cpu", "cpu"]),
+                            cfg=cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        checkpoint.restore(tmp_path, {}, shardings={})
+        steps.make_eval_step(cfg)(sp, {"tokens": torch.ones((2, 4),
+                                                            dtype=torch.int32),
+                                       "labels": torch.ones((2, 4),
+                                                            dtype=torch.int32)})
 
 
 def test_mesh_refuses_silent_cpu(monkeypatch):
