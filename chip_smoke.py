@@ -359,6 +359,7 @@ does not hold the repository's ``src/repro_torch``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import functools
 import json
@@ -366,6 +367,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import types
 from pathlib import Path
@@ -524,7 +526,11 @@ RESTART_TOL = 1e-6
 # |value| (mamba2's moments within SSM_TOL, as its other paths); each
 # parameter's update within SHARD_TOL x lr (plus one float32 rounding of
 # the parameter) of the one its own gathered moments give (SHARD_ADAMW).
+# qwen3-moe-30b-a3b at full width, SHARD_MOE_LAYERS of its 48 layers, on
+# SHARD_MESH: the calls of granite's, the routes of each unsharded call
+# forced onto the sharded ones.
 SHARD_MESH, SHARD_SSM_MESH = (2, 4), (2, 2)
+SHARD_MOE_LAYERS = 2
 SHARD_PREFILL, SHARD_DECODE = 2, 8
 SHARD_TOL = 1e-4
 SHARD_ADAMW = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
@@ -2852,7 +2858,10 @@ class DoubleBuffered:
     with ``pipeline="double"`` for the length of each conv. A float conv
     then launches #2 (its fused pool the maxpool kernel, as
     ``ops.conv2d(pool=)`` does) and an A8 conv #10 (through
-    ``ops.qconv2d_a8``); the launch counts show that every conv did."""
+    ``ops.qconv2d_a8``); the launch counts show that every conv did.
+    The entry points are module attributes, so one conv at a time holds
+    them (``_DOUBLE_LOCK``): a deployment's replicas issue from threads
+    of their own."""
     name = "double"
 
     def __init__(self, K, base):
@@ -2860,17 +2869,21 @@ class DoubleBuffered:
         self.entries = ((K.conv2d, "conv2d"), (K.qmatmul, "qmatmul_a8"))
 
     def conv(self, *args, **kw):
-        saved = [getattr(m, f) for m, f in self.entries]
-        for (m, f), fn in zip(self.entries, saved):
-            setattr(m, f, _with_double(fn))
-        try:
-            return self.base.conv(*args, **kw)
-        finally:
+        with _DOUBLE_LOCK:
+            saved = [getattr(m, f) for m, f in self.entries]
             for (m, f), fn in zip(self.entries, saved):
-                setattr(m, f, fn)
+                setattr(m, f, _with_double(fn))
+            try:
+                return self.base.conv(*args, **kw)
+            finally:
+                for (m, f), fn in zip(self.entries, saved):
+                    setattr(m, f, fn)
 
     def __getattr__(self, item):
         return getattr(self.base, item)
+
+
+_DOUBLE_LOCK = threading.Lock()
 
 
 def _with_double(fn):
@@ -3603,6 +3616,354 @@ def run_tp(torch, np, codegen, ImageStream, Deployment, DetectRequest,
     return counts, run
 
 
+# Path tp's quantized and double-buffered designs: each conv's kernel
+# counter by the lowering the one-device table takes.
+_A8_KERNELS = ("qmatmul_a8", "qmatmul_a8_double", "qmatmul_a8_grouped")
+
+
+def tp_conv_kernel(qmm, quant_kern, node, w, quant: bool,
+                   double: bool) -> str:
+    """The counter a conv of a design launches: #7 ``qmatmul`` (float
+    activations, or per-channel activation scales whose runs align to no
+    K tile: ``qmm._group_tile``), #8 ``qmatmul_a8`` (#10 under
+    ``double``), #9 ``qmatmul_a8_grouped`` (per-channel activation
+    scales, whatever the pipeline), or #1 ``conv2d`` (#2 under
+    ``double``) where it runs in float (the float design; a quant
+    design's float lowering)."""
+    low = quant_kern.select_lowering(node, w) if quant else "float"
+    if low == "int8-w":
+        return "qmatmul"
+    if low == "int8-wa":
+        a = node.attrs["a_scale"]
+        if not isinstance(a, tuple):
+            return "qmatmul_a8_double" if double else "qmatmul_a8"
+        xs = tuple(float(v) for v in a) * (node.geom("K") ** 2)
+        return "qmatmul" if qmm._group_tile(xs, len(xs), 128, bool(
+            w.packed))[0] is None else "qmatmul_a8_grouped"
+    return "conv2d_double" if double else "conv2d"
+
+
+def tp_plan(codegen, quant_mod, qmm, quant_kern, acc, quant: bool,
+            double: bool) -> tuple:
+    """One tensor-parallel forward of ``acc``'s design, from its graph:
+    (each counter's launches, each conv's counter, the convs cut by
+    filter, the all-gather bytes). A conv whose filters divide TP_WIDTH
+    (and whose weight cuts into filter blocks) launches its kernel once
+    a position, then an all-gather of its output; every other node
+    launches once, a maxpool unfused."""
+    g = acc.graph
+    launches: dict = {}
+    kernel_of, sharded = {}, []
+    for name in codegen.launch_nodes(g):
+        n = g.nodes[name]
+        if n.op == "conv":
+            w = acc.params[name]["w"]
+            k = kernel_of[name] = tp_conv_kernel(qmm, quant_kern, n, w,
+                                                 quant, double)
+            cut = n.geom("F") % TP_WIDTH == 0 and (
+                not isinstance(w, quant_mod.QTensor)
+                or quant_mod.cuts_by_filter(w))
+            sharded += [n] if cut else []
+            launches[k] = launches.get(k, 0) + (TP_WIDTH if cut else 1)
+        else:
+            k = {"maxpool": "maxpool2d", "resize": "resize_nearest"}.get(
+                n.op, "pointwise")
+            if n.op not in ("concat", "split", "add"):
+                launches[k] = launches.get(k, 0) + 1
+    nbytes = sum(BATCH * int(math.prod(g.streams[n.outputs[0]].shape)) * 4
+                 for n in sharded)
+    return launches, kernel_of, sharded, nbytes
+
+
+class TpCompare:
+    """A one-device lowering table that runs every conv twice on the same
+    input, the one-device path's own: through ``one`` and through
+    ``codegen.TensorParallel(one)`` over the placed parameters
+    (``placed``), and holds the two within KERNEL_TOL of the conv's
+    kernel (atol = rtol). Where the conv contracts int8 activation codes
+    and is cut by filter, its int32 sums are held bit-equal too: the
+    conv's codes through the same kernel with unit scales, zero 0 and no
+    bias, on each position's filter block and on the whole weight, whose
+    outputs are then the sums exactly (below 2^24). The one-device
+    result is passed on; pools run as nodes of their own."""
+    name = "tp_compare"
+
+    def __init__(self, torch, codegen, ops, ref, one, placed, kernel_of,
+                 double: bool):
+        self.torch, self.ops, self.ref = torch, ops, ref
+        self.one, self.tp = one, codegen.TensorParallel(one)
+        self.placed, self.kernel_of, self.double = placed, kernel_of, double
+        self.worst, self.convs, self.sums_equal = 0.0, 0, 0
+
+    def fuses_pool(self, node):
+        return False
+
+    def _sums(self, x, w, node, dev):
+        torch = self.torch
+        a = node.attrs["a_scale"]
+        codes = self.ref.quantize_activation(
+            x, a if isinstance(a, float) else torch.tensor(
+                a, dtype=torch.float32, device=x.device),
+            bits=int(node.attrs.get("a_bits", 8))).to(dev, torch.float32)
+        unit = 1.0 if isinstance(a, float) else tuple(1.0 for _ in a)
+        return self.ops.qconv2d_a8(
+            codes, w.q, torch.ones_like(w.scale), torch.zeros_like(w.zero),
+            None, x_scale=unit, a_bits=8, K=node.geom("K"),
+            stride=node.geom("stride"), w_packed=w.packed,
+            pipeline="double" if self.double else "grid")
+
+    def conv(self, x, p, node, res=None, **kw):
+        want = self.one.conv(x, p, node, res)
+        st = self.placed[node.name]["w"]
+        got = self.tp.conv(x, self.placed[node.name], node, res)
+        kname = self.kernel_of[node.name]
+        tol = KERNEL_TOL[kname]
+        err = float((got - want).abs().max())
+        self.worst = max(self.worst, err)
+        self.convs += 1
+        if float((got - want).abs().sub(tol * want.abs()).max()) > tol:
+            raise AssertionError(f"{node.name}: tensor-parallel {kname} "
+                                 f"{err} from one device on the same "
+                                 f"input")
+        if kname in _A8_KERNELS and st.spec and st.spec[-1] is not None:
+            xd = self.ops.channel_concat(x)
+            whole = self._sums(xd, p["w"], node, xd.device)
+            parts = [self._sums(xd, st.shard(i), node, st.shard(i).q.device)
+                     .to(xd.device) for i in range(len(st.shards))]
+            if not self.torch.equal(self.torch.cat(parts, -1), whole):
+                raise AssertionError(f"{node.name}: int32 sums of the "
+                                     f"filter blocks differ from one "
+                                     f"device's")
+            self.sums_equal += 1
+        return want
+
+    def __getattr__(self, item):
+        return getattr(self.one, item)
+
+
+def plans_of(torch, K, fn) -> list:
+    """The tensor-core kernels' plans (planner, plan) of ``fn()``'s calls
+    in order: #1/#2's ``conv2d._plan``, #7's ``qmatmul._plan``, #8/#10's
+    ``_plan_a8``, #9's ``_plan_a8g``."""
+    rec: list = []
+    entries = ((K.conv2d, "_plan"), (K.qmatmul, "_plan"),
+               (K.qmatmul, "_plan_a8"), (K.qmatmul, "_plan_a8g"))
+    saved = [getattr(m, f) for m, f in entries]
+
+    def wrap(real, label):
+        def planner(*a, **kw):
+            out = real(*a, **kw)
+            rec.append((label, tuple(out)))
+            return out
+        return planner
+    for (m, f), real in zip(entries, saved):
+        setattr(m, f, wrap(real, f"{m.__name__}.{f}"))
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for (m, f), real in zip(entries, saved):
+            setattr(m, f, real)
+    return rec
+
+
+def same_plans(one: list, tp: list, kernel_of: dict, sharded: list,
+               order: list) -> bool:
+    """Whether every conv's kernel ran on the same plan (tile, split) at
+    each position as on one device: ``one`` has a plan a conv, ``tp`` one
+    a position for each conv cut by filter, in ``order``."""
+    cut = {n.name for n in sharded}
+    i = j = 0
+    same = True
+    for name in order:
+        n_tp = TP_WIDTH if name in cut else 1
+        want = one[i]
+        for got in tp[j:j + n_tp]:
+            if got[0] != want[0]:
+                raise AssertionError(f"plans out of step at {name}: "
+                                     f"{got} against {want}")
+            same &= got[1] == want[1]
+        i, j = i + 1, j + n_tp
+    if i != len(one) or j != len(tp):
+        raise AssertionError(f"{len(one)} one-device plans and {len(tp)} "
+                             f"tensor-parallel ones for {len(order)} convs")
+    return same
+
+
+def run_tp_quant(torch, np, codegen, quant_mod, ops, ref, K, ImageStream,
+                 Deployment, DetectRequest, counters, designs: list
+                 ) -> tuple:
+    """Path tp's quantized and double-buffered designs, with no
+    recompile: each entry of ``designs`` (label, accelerator, its
+    one-device lowering table, its plain table, img, seed) served by
+    TP_REPLICAS tensor-parallel replicas of TP_WIDTH positions
+    (``Deployment(tensor_parallel=..., backend=<table>)``), N_REQ
+    requests, the launch counters set to 0 just before and read just
+    after. Each sharded conv launches its kernel (#7, #8, #9, #10, #1 or
+    #2, ``tp_conv_kernel``) once a position on its filter block, then an
+    all-gather; the rest once, maxpool unfused (``tp_plan``). Gates: the
+    launches; every conv against one device on the one-device path's
+    input (``TpCompare``: KERNEL_TOL, int32 sums bit-equal); end to end,
+    the served outputs bit-equal to the one-device kernel forward where
+    every conv's plan is the same at each position (``plans_of``),
+    otherwise, for a design that quantizes activations to 8 bits, within
+    A8_TOL·max|out| of the plain path or A8_SPREAD times its one-ulp
+    spread (``a8_path_check``'s rule), and for the others within TP_TOL
+    of the one-device forward; one profiled forward's all-gather bytes
+    (``roofline.trace``) equal to the graph's. Readings: the forward's
+    device, issue and back-to-back ms beside the one-device forward's,
+    frames/s of a second window. Returns (launches, {label: run})."""
+    from repro_torch.device import cuda_devices
+    from repro_torch.dist import sharding
+    from repro_torch.roofline import trace
+    from repro_torch.serve.deployment import step_fn_for, tp_backend
+    from torch.profiler import ProfilerActivity, profile
+    total = {k: 0 for k in counters}
+    runs: dict = {}
+    for label, acc, one, plain, img, seed in designs:
+        tag = f"[tp] {label}:"
+        t0 = time.perf_counter()
+        quant = isinstance(getattr(one, "base", one), codegen.QuantBackend)
+        double = isinstance(one, DoubleBuffered)
+        a8 = quant and any(int(n.attrs.get("a_bits", 16)) <= 8
+                           and n.attrs.get("a_scale") is not None
+                           for n in acc.graph.nodes.values())
+        per_fwd, kernel_of, sharded, gather_bytes = tp_plan(
+            codegen, quant_mod, K.qmatmul, codegen.get_backend("quant"),
+            acc, quant, double)
+        _zero(counters)
+        images, done, stats, wall = serve(
+            Deployment, DetectRequest, ImageStream, acc, N_REQ, img, seed,
+            backend=one, replicas=TP_REPLICAS, tensor_parallel=TP_WIDTH,
+            devices=cuda_devices())
+        counts = _counts(counters)
+        batches = stats["batches"]
+        want = {k: per_fwd.get(k, 0) * batches for k in counters}
+        if batches != N_REQ // BATCH or counts != want:
+            raise AssertionError(f"{tag} launches {counts} over {batches} "
+                                 f"batches, expected {want}")
+        for k, v in counts.items():
+            total[k] += v
+        shapes = [tuple(o.shape[1:]) for o in acc.forward(
+            torch.zeros((1, img, img, 3), device=acc.torch_device))]
+        if len(done) != N_REQ or any(
+                not r.done or [tuple(o.shape) for o in r.outputs] != shapes
+                or not all(np.isfinite(o).all() for o in r.outputs)
+                for r in done):
+            raise AssertionError(f"{tag} served outputs")
+        placed = sharding.place_sharded(acc.params, positions(TP_WIDTH))
+        step = step_fn_for(acc, tp_backend(one))
+        xb = torch.from_numpy(np.stack(images[:BATCH])).to(acc.torch_device)
+        cmp = TpCompare(torch, codegen, ops, ref, one, placed, kernel_of,
+                        double)
+        acc.forward(xb, backend=cmp)
+        order = [n.name for n in acc.graph.topo_order() if n.op == "conv"]
+        same = same_plans(
+            plans_of(torch, K, lambda: acc.forward(xb, backend=one)),
+            plans_of(torch, K, lambda: step(placed, xb)), kernel_of,
+            sharded, order)
+        e2e = {"vs_one_max": 0.0, "bit_equal": True}
+        for i in range(0, N_REQ, BATCH):
+            x = torch.from_numpy(np.stack(images[i:i + BATCH])).to(
+                acc.torch_device)
+            got = [torch.from_numpy(np.stack([r.outputs[j] for r in
+                                              done[i:i + BATCH]]))
+                   for j in range(len(shapes))]
+            one_out = [o.cpu() for o in acc.forward(x, backend=one)]
+            d = max(float((a - b).abs().max()) for a, b in zip(got, one_out))
+            e2e["vs_one_max"] = max(e2e["vs_one_max"], d)
+            e2e["bit_equal"] &= d == 0.0
+            if same:
+                if d != 0.0:
+                    raise AssertionError(f"{tag} batch {i // BATCH}: every "
+                                         f"plan the same, yet {d} from one "
+                                         f"device")
+            elif a8:
+                want_p = [o.cpu() for o in acc.forward(x, backend=plain)]
+                spread = [[o.cpu() for o in acc.forward(
+                    x, backend=NudgedOutputs(torch, plain, to))]
+                    for to in (float("inf"), float("-inf"))]
+
+                def diff(outs):
+                    t = [(o - w).abs() for o, w in zip(outs, want_p)]
+                    return (max(float(u.max()) for u in t), float(
+                        torch.cat([u.reshape(-1) for u in t]).mean()))
+                k_max, k_mean = diff(got)
+                s = [diff(o) for o in spread]
+                s_max, s_mean = max(a for a, _ in s), max(b for _, b in s)
+                top = max(float(w.abs().max()) for w in want_p)
+                ok = k_max <= A8_TOL * top or (
+                    k_max <= A8_SPREAD * s_max
+                    and k_mean <= A8_SPREAD * s_mean)
+                e2e.setdefault("a8", []).append(
+                    {"batch": i // BATCH, "vs_plain_max": k_max,
+                     "vs_plain_mean": k_mean, "spread_max": s_max,
+                     "spread_mean": s_mean, "max_out": top, "ok": ok})
+                if not ok:
+                    raise AssertionError(f"{tag} batch {i // BATCH}: "
+                                         f"{e2e['a8'][-1]}")
+            elif not all(torch.allclose(a, b, atol=TP_TOL, rtol=TP_TOL)
+                         for a, b in zip(got, one_out)):
+                raise AssertionError(f"{tag} batch {i // BATCH}: {d} from "
+                                     f"one device")
+        fwd = functools.partial(step, placed, xb)
+        fwd()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fwd()
+            torch.cuda.synchronize()
+        got_b = trace.collective_bytes(prof)
+        n_gather = trace.collective_count(prof)
+        if got_b != {"all-gather": gather_bytes, "total": gather_bytes} \
+                or n_gather != len(sharded):
+            raise AssertionError(f"{tag} trace {got_b} in {n_gather} "
+                                 f"transfers, the graph's {gather_bytes} "
+                                 f"in {len(sharded)}")
+        dev_tp, issue_tp = device_ms(torch, fwd, reps=5)
+        dev_one, issue_one = device_ms(
+            torch, lambda: acc.forward(xb, backend=one), reps=5)
+        b2b_tp = cuda_ms(torch, fwd, budget_ms=300)
+        b2b_one = cuda_ms(torch, lambda: acc.forward(xb, backend=one),
+                          budget_ms=300)
+        _, _, stats2, wall2 = serve(
+            Deployment, DetectRequest, ImageStream, acc, N_REQ, img,
+            seed + 1, backend=one, replicas=TP_REPLICAS,
+            tensor_parallel=TP_WIDTH, devices=cuda_devices())
+        fps = stats2["frames"] / wall2
+        run = {"img": img, "launches_per_forward": per_fwd,
+               "sharded_convs": len(sharded), "convs": len(order),
+               "conv_max_abs_err_vs_one": cmp.worst,
+               "convs_int32_sums_equal": cmp.sums_equal,
+               "same_plans": same, "end_to_end": e2e,
+               "trace_bytes": got_b, "trace_transfers": n_gather,
+               "forward_device_ms": dev_tp, "forward_issue_ms": issue_tp,
+               "forward_back_to_back_ms": b2b_tp,
+               "one_device_forward_device_ms": dev_one,
+               "one_device_forward_issue_ms": issue_one,
+               "one_device_forward_back_to_back_ms": b2b_one,
+               "frames_per_s": fps,
+               "ms_per_batch": wall2 / stats2["batches"] * 1e3}
+        held = ("bit-equal to one device (every plan the same)" if same
+                else "within A8_TOL or A8_SPREAD of the plain path" if a8
+                else f"within {TP_TOL} of one device")
+        print(f"{tag} yolov8n@{img}, {TP_REPLICAS} replicas x {TP_WIDTH} "
+              f"positions: launches a forward {_nonzero(per_fwd)} "
+              f"({len(sharded)} of {len(order)} convs cut by filter); each "
+              f"conv against one device on its input: max_abs_err "
+              f"{cmp.worst:.3e}, int32 sums bit-equal at {cmp.sums_equal} "
+              f"A8 convs; every plan the same at each position: {same}; "
+              f"served outputs {held} (max |diff| from one device "
+              f"{e2e['vs_one_max']:.3e}); {n_gather} all-gathers of "
+              f"{got_b['total']} B; forward device {dev_tp:.3f} ms, issue "
+              f"{issue_tp:.3f} ms, back to back {b2b_tp:.3f} ms; one device "
+              f"{dev_one:.3f} / {issue_one:.3f} / {b2b_one:.3f} ms; "
+              f"{fps:.1f} frames/s; {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        runs[label] = run
+        del placed, step, cmp
+    return total, runs
+
+
 def zero_counts(counters, **nonzero) -> dict:
     """Every counter's name with 0, but ``nonzero``'s counts."""
     return {k: nonzero.get(k, 0) for k in counters}
@@ -3859,7 +4220,7 @@ class Routes:
                 po = probs[rows].gather(-1, own[rows])
                 pr = probs[rows].gather(-1, rec[rows])
                 gap = ((po - pr).abs() * differ[rows]).amax(-1)
-                self.flips.extend(float(g) for g in gap.cpu())
+                self.flips.extend(float(g) for g in gap.detach().cpu())
             gate = probs.gather(-1, rec)
             gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
             return probs, gate, rec
@@ -3879,15 +4240,55 @@ class Routes:
                 "max_flip_margin": max(self.flips, default=0.0)}
 
 
-def check_routes(tag: str, routes: Routes) -> dict:
+class CallRoutes(Routes):
+    """``Routes`` for whole calls (a sharded call against its unsharded
+    one, where a pack over other rows or a last-bit difference could
+    route otherwise): ``recording()`` keeps one call's routings in
+    order; ``forced(repeat)`` replays them onto another call whose
+    routings come in the same order, each ``repeat`` times in a row (a
+    sharded call routes once a device), with that call's own gates at
+    the recorded experts, counting its own flips and their margins."""
+
+    @contextlib.contextmanager
+    def recording(self):
+        self.log.clear()
+        self.dropped.clear()
+        self.tag = ("prefill", 0)
+        self.record()
+        try:
+            yield
+        finally:
+            self.restore()
+
+    @contextlib.contextmanager
+    def forced(self, repeat: int):
+        self.force()
+        self.queue = [r for r in self.recorded.get(0, [])
+                      for _ in range(repeat)]
+        try:
+            yield
+        finally:
+            self.restore()
+        if self.queue:
+            raise AssertionError(f"{len(self.queue)} recorded routings "
+                                 f"not replayed")
+
+    def dropped_frac(self) -> tuple:
+        """(mean, max) dropped_frac over the recorded call's MoE layers."""
+        d = [float(x) for _, x in self.dropped]
+        return sum(d) / len(d), max(d)
+
+
+def check_routes(tag: str, routes: Routes,
+                 what: str = "the plain replay forced onto the served "
+                 "path's experts") -> dict:
     """Every decision whose replayed top-k differs from the served one is
     a near tie: margin below ROUTE_TIE."""
     if routes.queue:
         raise AssertionError(f"{tag}: {len(routes.queue)} recorded "
                              f"routings not replayed")
     r = routes.summary()
-    print(f"{tag} routes: the plain replay forced onto the served path's "
-          f"experts; its own top-k differs at {r['flips']} of "
+    print(f"{tag} routes: {what}; its own top-k differs at {r['flips']} of "
           f"{r['decisions']} routing decisions, margins "
           f"{[f'{m:.2e}' for m in r['flip_margins'][-8:]]} (largest "
           f"{r['max_flip_margin']:.3e}; each must be below {ROUTE_TIE})",
@@ -4560,7 +4961,8 @@ def sharded_launches(cfg, sp, kind: str, n_mb: int = 1,
                      steps: int = 1) -> dict:
     """#6, #11, #12 and #13 launches of one sharded call, from the mesh
     and the plan: every position runs its layers' norms (2 a layer;
-    post-norms 4 more; an SSM layer's ``ln`` and mixer norm) and its
+    post-norms 4 more, QK-norm 2 more; an SSM layer's ``ln`` and mixer
+    norm) and its
     attention (or mixer) on its heads or data shard, a train step's
     checkpointed layers (remat) twice; the final norm at every position
     where the head is vocab-sharded, else once a data group."""
@@ -4571,7 +4973,7 @@ def sharded_launches(cfg, sp, kind: str, n_mb: int = 1,
     final = n if (tp > 1 and _on_model(head)) else dp
     L = cfg.n_layers
     ssm = cfg.family == "ssm"
-    norms = 2 + (4 if cfg.post_norm else 0)
+    norms = 2 + (4 if cfg.post_norm else 0) + (2 if cfg.qk_norm else 0)
     again = 2 if kind == "train" and cfg.remat != "none" else 1
     out = {"rmsnorm": 0, "mha": 0, "decode_attention": 0, "ssd_scan": 0}
     reps = n_mb if kind == "train" else steps if kind == "decode" else 1
@@ -4585,19 +4987,27 @@ def sharded_launches(cfg, sp, kind: str, n_mb: int = 1,
     return out
 
 
+def _moe_layer(cfg, i: int) -> bool:
+    return cfg.family == "moe" and (cfg.moe_every <= 1
+                                    or i % cfg.moe_every == cfg.moe_every - 1)
+
+
 def sharded_transfers(cfg, sp, kind: str, rows: int, T: int,
                       n_mb: int = 1, steps: int = 1) -> dict:
     """The labelled transfers of one sharded call, (kind, bytes) → count,
     derived from the plan's specs: the embedding's all-reduce where the
     table is vocab-sharded; a layer's all-reduce where ``wo`` is cut
-    over ``model`` and where ``down`` is; an all-gather of each kv
-    projection where it is cut within heads; the logits' all-gather over
-    ``model`` where the head is vocab-sharded; the loss's all-reduce (8
-    bytes) and the whole logits' all-gather over the data groups where
-    there are several. A train step also runs the layers' collectives
-    again under remat, every forward collective's adjoint (an all-gather
-    a reduce-scatter), one gradient all-reduce a leaf held by more than
-    one position and the global norm's (4 bytes)."""
+    over ``model`` and where ``down`` is (an MLP's, or an MoE layer's
+    shared expert's); an all-gather of each kv projection where it is
+    cut within heads; an MoE layer's all-gather of its input rows over
+    the data groups (the whole batch at each position) where there are
+    several; the logits' all-gather over ``model`` where the head is
+    vocab-sharded; the loss's all-reduce (8 bytes) and the whole
+    logits' all-gather over the data groups where there are several. A
+    train step also runs the layers' collectives again under remat,
+    every forward collective's adjoint (an all-gather a reduce-scatter),
+    one gradient all-reduce a leaf held by more than one position and
+    the global norm's (4 bytes)."""
     from collections import Counter
     from repro_torch.tree import leaves
     first = sp["embed"]["table"]
@@ -4607,38 +5017,48 @@ def sharded_transfers(cfg, sp, kind: str, rows: int, T: int,
     d, V = cfg.d_model, cfg.vocab
     head = sp["embed"]["table"] if cfg.tie_embeddings else sp["lm_head"]["w"]
     r = rows // dp
-    t_out = T if kind == "train" else 1            # logits a row
+    lay = sp["layers"]
+    blocks = {"dense": lay["dense"], "moe": lay["moe"]} \
+        if "dense" in lay else {"moe" if "moe" in lay else "dense": lay}
 
-    def once(t):                # (outer, layers) of one forward pass
-        outer, layer = Counter(), Counter()
+    def once(t):                # (outer, layers, MoE rows) of one pass
+        outer, layer, rows_dp = Counter(), Counter(), Counter()
         act = r * t * d * 4
         if tp > 1 and _on_model(sp["embed"]["table"]):
             outer[("all-reduce", act)] += 1
-        if cfg.family != "ssm" and tp > 1:
-            at = sp["layers"]["attn"]
-            if _on_model(at["wk"]["w"]) and cfg.n_kv_heads % tp:
-                layer[("all-gather", r * t * cfg.n_kv_heads
-                       * cfg.head_dim * 4)] += 2
-            if _on_model(at["wo"]["w"]):
+        for i in range(cfg.n_layers):
+            blk = blocks["moe" if _moe_layer(cfg, i) else "dense"]
+            if cfg.family != "ssm" and tp > 1:
+                at = blk["attn"]
+                if _on_model(at["wk"]["w"]) and cfg.n_kv_heads % tp:
+                    layer[("all-gather", r * t * cfg.n_kv_heads
+                           * cfg.head_dim * 4)] += 2
+                if _on_model(at["wo"]["w"]):
+                    layer[("all-reduce", act)] += 1
+            down = blk["mlp"]["down"] if "mlp" in blk else \
+                blk["moe"]["shared"]["down"] if "shared" in blk.get(
+                    "moe", {}) else None
+            if tp > 1 and down is not None and _on_model(down["w"]):
                 layer[("all-reduce", act)] += 1
-            if _on_model(sp["layers"]["mlp"]["down"]["w"]):
-                layer[("all-reduce", act)] += 1
-        layer = Counter({k: v * cfg.n_layers for k, v in layer.items()})
+            if "moe" in blk and dp > 1:
+                rows_dp[("all-gather", rows * t * d * 4)] += 1
         if tp > 1 and _on_model(head):
             outer[("all-gather", r * (t if kind == "train" else 1)
                    * V * 4)] += 1
-        return outer, layer
+        return outer, layer, rows_dp
 
     out = Counter()
     if kind == "train":
-        outer, layer = once(T)
+        outer, layer, rows_dp = once(T)
         again = 2 if cfg.remat != "none" else 1
         adj = Counter()
         for (k, b), c in (outer + layer).items():
             adj[("reduce-scatter", b // tp) if k == "all-gather"
                 else (k, b)] += c
-        per_mb = outer + Counter({k: v * again for k, v in layer.items()}) \
-            + adj
+        for (k, b), c in rows_dp.items():
+            adj[("reduce-scatter", b // dp)] += c
+        per_mb = outer + Counter({k: v * again for k, v in
+                                  (layer + rows_dp).items()}) + adj
         if dp > 1:
             per_mb[("all-reduce", 8)] += 2
         for k, v in per_mb.items():
@@ -4650,8 +5070,8 @@ def sharded_transfers(cfg, sp, kind: str, rows: int, T: int,
             out[("all-reduce", 4)] += 1
         return dict(out)
     for _ in range(steps):
-        outer, layer = once(T if kind == "prefill" else 1)
-        out += outer + layer
+        outer, layer, rows_dp = once(T if kind == "prefill" else 1)
+        out += outer + layer + rows_dp
         if dp > 1:
             out[("all-gather", rows * V * 4)] += 1
     return dict(out)
@@ -4672,14 +5092,16 @@ def _moments_check(torch, s_a, s_b) -> dict:
     against ``s_b``'s, max |difference| over max |value|, as (ratio,
     leaf): the first moment (a tenth of the clipped gradient after one
     step) and the second moment's square root (the gradient's magnitude:
-    ``v`` itself doubles the gradient's relative difference)."""
+    ``v`` itself doubles the gradient's relative difference). ``s_b``
+    may be held on the host."""
     from repro_torch.tree import flatten_with_path
     out = {}
     for k, f in (("m", lambda t: t), ("v", torch.sqrt)):
         flat = dict(flatten_with_path(s_b[k]))
-        out[k] = max((_rel(f(_whole(st)), f(_whole(flat[path]))),
+        out[k] = max((_rel(a, f(_whole(flat[path]).to(a.device))),
                       "|".join(map(str, path)))
-                     for path, st in flatten_with_path(s_a[k]))
+                     for path, st in flatten_with_path(s_a[k])
+                     for a in [f(_whole(st))])
     return out
 
 
@@ -4784,7 +5206,12 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
     width, TRAIN_LAYERS layers, on SHARD_MESH: one adamw step of
     TRAIN_ROWS x TRAIN_SEQ in TRAIN_MB microbatches (remat full), one
     prefill of SHARD_PREFILL x TRAIN_SEQ, SHARD_DECODE decode steps;
-    (b) mamba2-130m whole on SHARD_SSM_MESH, one adamw step of TRAIN_SSM.
+    (b) mamba2-130m whole on SHARD_SSM_MESH, one adamw step of TRAIN_SSM;
+    (c) qwen3-moe-30b-a3b at full width, SHARD_MOE_LAYERS layers, on
+    SHARD_MESH: the calls of (a), every routing of each unsharded call
+    recorded and forced onto the sharded calls (``CallRoutes``; their
+    own flips held to margins below ROUTE_TIE), the unsharded step's
+    results moved to the host before the sharded one runs.
     Each sharded call runs under ``torch.profiler`` with the launch
     counters set to 0 just before it: its launches and transfers are
     held to ``sharded_launches``/``sharded_transfers``, its outputs to
@@ -4794,26 +5221,29 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
     max |diff| / max |value|, within SHARD_TOL, mamba2's moments within
     SSM_TOL), each parameter's update to the one its gathered moments
     give (``_update_check``). The unsharded step is also run with its
-    microbatches cut into the data groups' rows and on the plain
-    versions, and mamba2's gradients are also summed as the sharded step
-    sums them (``_split_sums_check``): each against the
-    unsharded step is printed as the spread of a summation order with no
-    sharding code in it. A second call
-    of each is timed beside the unsharded one's second call; peak
-    memory; the step's analytic FLOPs as a share of the fp32 peak.
+    microbatches cut into the data groups' rows (not for the MoE model,
+    whose capacity is the call's) and on the plain versions, and
+    mamba2's gradients are also summed as the sharded step sums them
+    (``_split_sums_check``): each against the unsharded step is printed
+    as the spread of a summation order with no sharding code in it. A
+    second call of each is timed beside the unsharded one's second call;
+    peak memory; the step's analytic FLOPs as a share of the fp32 peak.
     Returns (launches, run dict)."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import steps
+    from repro_torch.nn import moe
     from repro_torch.optim import optimizers
     from repro_torch.roofline import analysis
+    from repro_torch.tree import tree_map
     tag = "[sharded]"
     t_path = time.perf_counter()
     run: dict = {}
     total = {k: 0 for k in counters}
     card = smi()
+    n_dev = len({str(d) for d in positions(math.prod(SHARD_MESH))})
 
     def batch_of(cfg, rows, seq, n_mb, index):
         b = TokenStream(vocab=cfg.vocab, seq_len=seq, batch=rows, seed=0,
@@ -4849,7 +5279,14 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
                                  f"launched {_counts(counters)}")
         return out
 
-    def train_case(label, cfg, params, shape, rows, seq, n_mb, tol):
+    def recorded(routes):
+        return routes.recording() if routes else contextlib.nullcontext()
+
+    def forced(routes, repeat):
+        return routes.forced(repeat) if routes else contextlib.nullcontext()
+
+    def train_case(label, cfg, params, shape, rows, seq, n_mb, tol,
+                   routes=None):
         mesh = mesh_lib.make_mesh(shape, ("data", "model"),
                                   devices=positions(math.prod(shape)))
         sp = steps.place_params(params, mesh, cfg=cfg)
@@ -4857,34 +5294,44 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
         step = steps.make_train_step(cfg, opt, n_mb)
         b = batch_of(cfg, rows, seq, n_mb, 0)
         state = opt.init(params)
-        p_un, s_un, m_un = step(params, state, 0, b)
+        with recorded(routes):
+            p_un, s_un, m_un = step(params, state, 0, b)
         del p_un
+        dropped = routes.dropped_frac() if routes else None
+        if routes:          # the sharded step runs beside it on the card
+            s_un = tree_map(lambda t: t.cpu(), s_un)
+            free_card(torch)
         un_ms = _timed(torch, lambda: step(params, state, 0, b)[2])[1]
         # two summation orders with no sharding code in them: the
         # unsharded step with its microbatches cut into the data groups'
-        # rows (the data-parallel split of the sums), and on the plain
-        # versions
-        split = {k: v.reshape((n_mb * shape[0], -1) + tuple(v.shape[2:]))
-                 for k, v in b.items()}
-        s_rs = steps.make_train_step(cfg, opt, n_mb * shape[0])(
-            params, state, 0, split)[1]
-        row_split = _moments_check(torch, s_un, s_rs)
-        del s_rs, split
+        # rows (the data-parallel split of the sums; an MoE layer's
+        # capacity would change), and on the plain versions
+        row_split = None
+        if not routes:
+            split = {k: v.reshape((n_mb * shape[0], -1)
+                                  + tuple(v.shape[2:])) for k, v in b.items()}
+            s_rs = steps.make_train_step(cfg, opt, n_mb * shape[0])(
+                params, state, 0, split)[1]
+            row_split = _moments_check(torch, s_un, s_rs)
+            del s_rs, split
         cot_split = _split_sums_check(
             torch, lm, cfg, params, {k: v[0] for k, v in b.items()},
             shape[0], shape[1]) if cfg.family == "ssm" and n_mb == 1 \
             else None
         free_card(torch)
-        s_up, m_up = plain(f"{label} unsharded step",
-                           lambda: step(params, state, 0, b)[1:])
-        witness = _moments_check(torch, s_un, s_up)
+        with forced(routes, 1):
+            s_up, m_up = plain(f"{label} unsharded step",
+                               lambda: step(params, state, 0, b)[1:])
+        witness = _moments_check(torch, s_up, s_un)
         del state, s_up
         free_card(torch)
         ss = steps.init_opt_state(opt, sp, cfg)
-        (p_sh, s_sh, m_sh), counts, got = counted(
-            f"{label} train step", lambda: step(sp, ss, 0, b),
-            sharded_launches(cfg, sp, "train", n_mb),
-            sharded_transfers(cfg, sp, "train", rows // n_mb, seq, n_mb))
+        with forced(routes, n_dev):
+            (p_sh, s_sh, m_sh), counts, got = counted(
+                f"{label} train step", lambda: step(sp, ss, 0, b),
+                sharded_launches(cfg, sp, "train", n_mb),
+                sharded_transfers(cfg, sp, "train", rows // n_mb, seq,
+                                  n_mb))
 
         def rel(m, k):
             return abs(float(m_sh[k]) - float(m[k])) / abs(float(m[k]))
@@ -4896,8 +5343,9 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
         del p_sh, s_un
         free_card(torch)
         # the same sharded step on the plain versions
-        s_pl, m_pl = plain(f"{label} train step",
-                           lambda: step(sp, ss, 0, b)[1:])
+        with forced(routes, n_dev):
+            s_pl, m_pl = plain(f"{label} train step",
+                               lambda: step(sp, ss, 0, b)[1:])
         vs_plain = {"loss_rel": rel(m_pl, "loss"),
                     "grad_norm_rel": rel(m_pl, "grad_norm"),
                     "moments": _moments_check(torch, s_sh, s_pl)}
@@ -4919,7 +5367,7 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
                "unsharded_kernels_vs_plain": {
                    "loss_rel": abs(float(m_un["loss"]) - float(m_up["loss"]))
                    / abs(float(m_up["loss"])), "moments": witness},
-               "update_worst": upd,
+               "update_worst": upd, "dropped_frac": dropped,
                "launches": counts, "transfers": _fmt(got),
                "transfer_count": sum(got.values()),
                "transfer_bytes": sum(b * c for (_, b), c in got.items()),
@@ -4937,17 +5385,22 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
               f"against the same sharded step on the plain versions (no "
               f"launch): loss {vs_plain['loss_rel']:.3e}, grad norm "
               f"{vs_plain['grad_norm_rel']:.3e}, moments "
-              f"{worst(vs_plain['moments'])}; with no sharding, the "
-              f"unsharded step against itself with its microbatches cut "
-              f"into the data groups' rows: moments {worst(row_split)}, "
+              f"{worst(vs_plain['moments'])}; with no sharding, "
+              + ("" if row_split is None else
+                 f"the unsharded step against itself with its "
+                 f"microbatches cut into the data groups' rows: moments "
+                 f"{worst(row_split)}, ")
               + ("" if cot_split is None else
                  f"its gradients summed as the sharded step sums them "
                  f"({shape[0]} row blocks x {shape[1]} backward passes, "
                  f"one a vocab block): {cot_split[0]:.3e} "
                  f"({cot_split[1]}), ")
-              + f"and through the kernels against plain: moments "
+              + f"through the kernels against plain: moments "
               f"{worst(witness)}; "
-              f"each parameter's update against its gathered moments' "
+              + ("" if dropped is None else
+                 f"dropped_frac of the MoE layers mean {dropped[0]:.4f}, "
+                 f"max {dropped[1]:.4f}; ")
+              + f"each parameter's update against its gathered moments' "
               f"worst {upd[0]:.3e} of SHARD_TOL x lr + one rounding "
               f"({upd[1]}, max |diff| {upd[2]:.3e}); "
               f"launches {_nonzero(counts)} = sharded_launches; "
@@ -4967,94 +5420,119 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
         free_card(torch)
         return out
 
+    def infer_case(label, cfg, params, routes=None):
+        mesh = mesh_lib.make_mesh(SHARD_MESH, ("data", "model"),
+                                  devices=positions(math.prod(SHARD_MESH)))
+        sp = steps.place_params(params, mesh, cfg=cfg)
+        S = TRAIN_SEQ + SHARD_DECODE
+        prefill = steps.make_prefill_step(cfg, S)
+        decode = steps.make_decode_step(cfg)
+        b = batch_of(cfg, SHARD_PREFILL, TRAIN_SEQ, 1, 1)
+        pb = {"tokens": b["tokens"][0]}
+        with recorded(routes):
+            l_un, c_un = prefill(params, pb)
+        dropped = routes.dropped_frac() if routes else None
+        (_, _), un_ms = _timed(torch, lambda: prefill(params, pb))
+        with forced(routes, n_dev):
+            (l_sh, c_sh), counts, got = counted(
+                f"{label} prefill", lambda: prefill(sp, pb),
+                sharded_launches(cfg, sp, "prefill"),
+                sharded_transfers(cfg, sp, "prefill", SHARD_PREFILL,
+                                  TRAIN_SEQ))
+        with forced(routes, n_dev):
+            l_pl, c_pl = plain(f"{label} prefill", lambda: prefill(sp, pb))
+        errs = {"prefill": _rel(l_sh, l_un),
+                "prefill_vs_plain": _rel(l_sh, l_pl)}
+        for k in ("k", "v"):
+            errs[f"prefill_cache_{k}_vs_plain"] = _rel(c_sh[k].gather(),
+                                                       c_pl[k].gather())
+        (_, _), sh_ms = _timed(torch, lambda: prefill(sp, pb))
+        cell = ShapeCell("prefill", "prefill", TRAIN_SEQ, SHARD_PREFILL)
+        work = analysis.analytic_flops(cfg, cell)["fwd"]
+        pre = {"launches": counts, "transfers": _fmt(got), "ms": sh_ms,
+               "unsharded_ms": un_ms, "analytic_flops": work,
+               "fp32_peak_share": analysis.peak_share(work, sh_ms / 1e3),
+               "dropped_frac": dropped}
+        gen = torch.Generator(device=dev).manual_seed(5)
+        dec_ms, dec_un_ms = [], []
+        d_counts, d_got = None, None
+        for i in range(SHARD_DECODE):
+            tok = torch.randint(0, cfg.vocab, (SHARD_PREFILL,),
+                                generator=gen, device=dev,
+                                dtype=torch.int32)
+            with recorded(routes):
+                (l_un, c_un), ms_u = _timed(
+                    torch, lambda: decode(params, tok, c_un))
+            if i == 0:
+                with forced(routes, n_dev):
+                    (l_sh, c_sh), d_counts, d_got = counted(
+                        f"{label} decode step", lambda: decode(sp, tok, c_sh),
+                        sharded_launches(cfg, sp, "decode"),
+                        sharded_transfers(cfg, sp, "decode", SHARD_PREFILL,
+                                          1))
+                with forced(routes, n_dev):
+                    l_pl, c_pl = plain(f"{label} decode step",
+                                       lambda: decode(sp, tok, c_pl))
+                errs["decode_0_vs_plain"] = _rel(l_sh, l_pl)
+                for k in ("k", "v"):
+                    errs[f"decode_0_cache_{k}_vs_plain"] = _rel(
+                        c_sh[k].gather(), c_pl[k].gather())
+                del l_pl, c_pl
+            else:
+                with forced(routes, n_dev):
+                    (l_sh, c_sh), ms_s = _timed(
+                        torch, lambda: decode(sp, tok, c_sh))
+                dec_ms.append(ms_s)
+                dec_un_ms.append(ms_u)
+            errs[f"decode_{i}"] = _rel(l_sh, l_un)
+        for k in ("k", "v"):
+            errs[f"cache_{k}"] = _rel(c_sh[k].gather(), c_un[k])
+        if not all(bool(torch.isfinite(x).all()) for x in (l_sh, l_un)):
+            raise AssertionError(f"{tag} {label}: non-finite logits")
+        cell = ShapeCell("decode", "decode", S, SHARD_PREFILL)
+        dwork = analysis.analytic_flops(cfg, cell)["fwd"]
+        dmed = statistics.median(dec_ms)
+        out = {
+            "prefill": pre, "rows": SHARD_PREFILL, "seq": TRAIN_SEQ,
+            "cache": S, "decode_steps": SHARD_DECODE,
+            "decode_launches": d_counts, "decode_transfers": _fmt(d_got),
+            "decode_ms_median": dmed,
+            "decode_unsharded_ms_median": statistics.median(dec_un_ms),
+            "decode_fp32_peak_share": analysis.peak_share(dwork, dmed / 1e3),
+            "rel_errs": errs, "peak_gib": peak_gib(torch)}
+        worst = max(errs.values())
+        print(f"{tag} {label} prefill {SHARD_PREFILL} x {TRAIN_SEQ} (cache "
+              f"{S}): launches {_nonzero(counts)}, transfers {_fmt(got)} (= "
+              f"sharded_launches, sharded_transfers); {sh_ms:.1f} ms "
+              f"(unsharded {un_ms:.1f} ms), {pre['fp32_peak_share']:.4f} of "
+              f"the fp32 peak"
+              + ("" if dropped is None else
+                 f", dropped_frac mean {dropped[0]:.4f} max "
+                 f"{dropped[1]:.4f}")
+              + f"; {SHARD_DECODE} decode steps: the first's launches "
+              f"{_nonzero(d_counts)}, transfers {_fmt(d_got)}; median "
+              f"{dmed:.2f} ms a step after it (unsharded "
+              f"{out['decode_unsharded_ms_median']:.2f} ms), "
+              f"{out['decode_fp32_peak_share']:.5f} of the fp32 "
+              f"peak; logits and cache max |diff| / max |value| worst "
+              f"{worst:.3e} (tolerance {SHARD_TOL}; against the unsharded "
+              f"steps, and the prefill and first decode step against the "
+              f"same sharded calls on the plain versions, no launch: "
+              f"{max(v for k, v in errs.items() if 'plain' in k):.3e}) on "
+              f"{card}", flush=True)
+        if worst > SHARD_TOL:
+            raise AssertionError(f"{tag} {label} inference: {errs}")
+        del sp, c_un, c_sh, l_un, l_sh
+        free_card(torch)
+        return out
+
     # (a) granite-3-8b
     cfg, params = make_lm(torch, lm, registry, dev, tag, "granite-3-8b",
                           TRAIN_LAYERS, remat="full")
     run["train"] = train_case("granite-3-8b", cfg, params, SHARD_MESH,
                               TRAIN_ROWS, TRAIN_SEQ, TRAIN_MB, SHARD_TOL)
-    mesh = mesh_lib.make_mesh(SHARD_MESH, ("data", "model"),
-                              devices=positions(math.prod(SHARD_MESH)))
-    sp = steps.place_params(params, mesh, cfg=cfg)
-    S = TRAIN_SEQ + SHARD_DECODE
-    prefill = steps.make_prefill_step(cfg, S)
-    decode = steps.make_decode_step(cfg)
-    b = batch_of(cfg, SHARD_PREFILL, TRAIN_SEQ, 1, 1)
-    pb = {"tokens": b["tokens"][0]}
-    l_un, c_un = prefill(params, pb)
-    (_, _), un_ms = _timed(torch, lambda: prefill(params, pb))
-    (l_sh, c_sh), counts, got = counted(
-        "prefill", lambda: prefill(sp, pb),
-        sharded_launches(cfg, sp, "prefill"),
-        sharded_transfers(cfg, sp, "prefill", SHARD_PREFILL, TRAIN_SEQ))
-    l_pl, c_pl = plain("prefill", lambda: prefill(sp, pb))
-    errs = {"prefill": _rel(l_sh, l_un), "prefill_vs_plain": _rel(l_sh, l_pl)}
-    for k in ("k", "v"):
-        errs[f"prefill_cache_{k}_vs_plain"] = _rel(c_sh[k].gather(),
-                                                   c_pl[k].gather())
-    (_, _), sh_ms = _timed(torch, lambda: prefill(sp, pb))
-    cell = ShapeCell("prefill", "prefill", TRAIN_SEQ, SHARD_PREFILL)
-    work = analysis.analytic_flops(cfg, cell)["fwd"]
-    pre = {"launches": counts, "transfers": _fmt(got), "ms": sh_ms,
-           "unsharded_ms": un_ms, "analytic_flops": work,
-           "fp32_peak_share": analysis.peak_share(work, sh_ms / 1e3)}
-    gen = torch.Generator(device=dev).manual_seed(5)
-    dec_ms, dec_un_ms = [], []
-    d_counts, d_got = None, None
-    for i in range(SHARD_DECODE):
-        tok = torch.randint(0, cfg.vocab, (SHARD_PREFILL,), generator=gen,
-                            device=dev, dtype=torch.int32)
-        (l_un, c_un), ms_u = _timed(torch, lambda: decode(params, tok,
-                                                          c_un))
-        if i == 0:
-            (l_sh, c_sh), d_counts, d_got = counted(
-                "decode step", lambda: decode(sp, tok, c_sh),
-                sharded_launches(cfg, sp, "decode"),
-                sharded_transfers(cfg, sp, "decode", SHARD_PREFILL, 1))
-            l_pl, c_pl = plain("decode step", lambda: decode(sp, tok, c_pl))
-            errs["decode_0_vs_plain"] = _rel(l_sh, l_pl)
-            for k in ("k", "v"):
-                errs[f"decode_0_cache_{k}_vs_plain"] = _rel(
-                    c_sh[k].gather(), c_pl[k].gather())
-            del l_pl, c_pl
-        else:
-            (l_sh, c_sh), ms_s = _timed(torch, lambda: decode(sp, tok, c_sh))
-            dec_ms.append(ms_s)
-            dec_un_ms.append(ms_u)
-        errs[f"decode_{i}"] = _rel(l_sh, l_un)
-    for k in ("k", "v"):
-        errs[f"cache_{k}"] = _rel(c_sh[k].gather(), c_un[k])
-    if not all(bool(torch.isfinite(x).all()) for x in (l_sh, l_un)):
-        raise AssertionError(f"{tag} non-finite logits")
-    cell = ShapeCell("decode", "decode", S, SHARD_PREFILL)
-    dwork = analysis.analytic_flops(cfg, cell)["fwd"]
-    dmed = statistics.median(dec_ms)
-    run["infer"] = {
-        "prefill": pre, "rows": SHARD_PREFILL, "seq": TRAIN_SEQ,
-        "cache": S, "decode_steps": SHARD_DECODE,
-        "decode_launches": d_counts, "decode_transfers": _fmt(d_got),
-        "decode_ms_median": dmed,
-        "decode_unsharded_ms_median": statistics.median(dec_un_ms),
-        "decode_fp32_peak_share": analysis.peak_share(dwork, dmed / 1e3),
-        "rel_errs": errs, "peak_gib": peak_gib(torch)}
-    worst = max(errs.values())
-    print(f"{tag} prefill {SHARD_PREFILL} x {TRAIN_SEQ} (cache {S}): "
-          f"launches {_nonzero(counts)}, transfers {_fmt(got)} (= "
-          f"sharded_launches, sharded_transfers); {sh_ms:.1f} ms (unsharded "
-          f"{un_ms:.1f} ms), {pre['fp32_peak_share']:.4f} of the fp32 peak; "
-          f"{SHARD_DECODE} decode steps: the first's launches "
-          f"{_nonzero(d_counts)}, transfers {_fmt(d_got)}; median "
-          f"{dmed:.2f} ms a step after it (unsharded "
-          f"{run['infer']['decode_unsharded_ms_median']:.2f} ms), "
-          f"{run['infer']['decode_fp32_peak_share']:.5f} of the fp32 "
-          f"peak; logits and cache max |diff| / max |value| worst "
-          f"{worst:.3e} (tolerance {SHARD_TOL}; against the unsharded "
-          f"steps, and the prefill and first decode step against the same "
-          f"sharded calls on the plain versions, no launch: "
-          f"{max(v for k, v in errs.items() if 'plain' in k):.3e}) on "
-          f"{card}", flush=True)
-    if worst > SHARD_TOL:
-        raise AssertionError(f"{tag} inference: {errs}")
-    del params, sp, c_un, c_sh, l_un, l_sh
+    run["infer"] = infer_case("granite-3-8b", cfg, params)
+    del params
     free_card(torch)
 
     # (b) mamba2-130m: #13 a position on its data shard
@@ -5062,6 +5540,22 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
     rows, seq = TRAIN_SSM
     run["ssm"] = train_case("mamba2-130m", cfg, params, SHARD_SSM_MESH,
                             rows, seq, 1, SSM_TOL)
+    del params
+    free_card(torch)
+
+    # (c) qwen3-moe-30b-a3b: replicated experts on the whole batch a
+    # device, attention by heads; the routes of each unsharded call
+    # forced onto the sharded ones
+    cfg, params = make_lm(torch, lm, registry, dev, tag, "qwen3-moe-30b-a3b",
+                          SHARD_MOE_LAYERS, remat="full")
+    routes = CallRoutes(moe)
+    run["moe_train"] = train_case("qwen3-moe-30b-a3b", cfg, params,
+                                  SHARD_MESH, TRAIN_ROWS, TRAIN_SEQ,
+                                  TRAIN_MB, SHARD_TOL, routes)
+    run["moe_infer"] = infer_case("qwen3-moe-30b-a3b", cfg, params, routes)
+    run["moe_routes"] = check_routes(
+        f"{tag} qwen3-moe-30b-a3b", routes, "the sharded calls forced onto "
+        "the unsharded calls' experts")
     del params
     free_card(torch)
     run["launches"] = total
@@ -5564,16 +6058,48 @@ def main() -> int:
 
     zero = functools.partial(zero_counts, counters)
 
-    def per_group_path():
-        """Path quant_per_group: the design recalibrated with per-group
-        scales on a batch of the image stream (another seed than the
-        one served), one batch served, ``a8_path_check``, and its
-        forward read (``per_group_forward``)."""
+    def recalibrate_per_group() -> dict:
+        """quant_per_group's design recalibrated with per-group scales on
+        a batch of the image stream (another seed than the one served)."""
         calib_g = torch.from_numpy(ImageStream(160, BATCH, seed=9).batch_at(
             0)).to(acc_g.torch_device)
-        written = codegen.calibrate_activation_scales(
+        return codegen.calibrate_activation_scales(
             acc_g.graph, place(fp160, acc_g.torch_device), calib_g,
             granularity="per_group", group_size=16)
+
+    def compile_w4a8():
+        """quant_w4a8's design: yolov8n at 640, packed W4, A8."""
+        return core.compile(model, core.CompileConfig(
+            backend="quant", w_bits=4, a_bits=8, batch_size=BATCH),
+            params=random_params(torch, codegen, model.graph, 0))
+
+    def compile_mixed():
+        """mixed's design: the per-layer wordlength search at 160."""
+        return core.compile(model160, core.CompileConfig(
+            bits="mixed", search_evals=16, calib_frames=1,
+            batch_size=BATCH),
+            params=random_params(torch, codegen, model160.graph, 2))
+
+    auto = codegen.get_backend("auto")
+
+    def dbl(base):
+        return DoubleBuffered(K, base)
+
+    def tp_designs(acc, acc_q, acc_4, acc_m) -> list:
+        """Path tp's designs after main's: (label, accelerator, its
+        one-device lowering table, its plain table, img, seed)."""
+        return [("quant_w8a16", acc_q, quant_kern, quant_ref, IMG, 0),
+                ("quant_w4a8", acc_4, quant_kern, quant_ref, IMG, 5),
+                ("quant_per_group", acc_g, quant_kern, quant_ref, 160, 6),
+                ("mixed", acc_m, quant_kern, quant_ref, 160, 7),
+                ("double_float", acc, dbl(auto), auto, IMG, 0),
+                ("double_w4a8", acc_4, dbl(quant_kern), quant_ref, IMG, 5)]
+
+    def per_group_path():
+        """Path quant_per_group: the design recalibrated with per-group
+        scales (``recalibrate_per_group``), one batch served,
+        ``a8_path_check``, and its forward read (``per_group_forward``)."""
+        written = recalibrate_per_group()
         (images_g, done_g, _, _), cg = drive(acc_g, BATCH, 160, 6,
                                              backend="quant")
         n_g, n_f = cg["qmatmul_a8_grouped"], cg["qmatmul"]
@@ -5598,9 +6124,7 @@ def main() -> int:
         return cg, a8_g, fwd_g
 
     if args.only == "a8":
-        acc_4 = core.compile(model, core.CompileConfig(
-            backend="quant", w_bits=4, a_bits=8, batch_size=BATCH),
-            params=random_params(torch, codegen, model.graph, 0))
+        acc_4 = compile_w4a8()
         print("[kernels] #8, #9 and #10 vs their plain versions on the card",
               flush=True)
         per_kernel: dict = {}
@@ -5639,6 +6163,14 @@ def main() -> int:
     if args.only == "tp":
         _, run = run_tp(torch, np, codegen, ImageStream, Deployment,
                         DetectRequest, counters, acc, xb)
+        acc_q = core.compile(model, core.CompileConfig(
+            backend="quant", batch_size=BATCH, replicas=2),
+            params=random_params(torch, codegen, model.graph, 0))
+        recalibrate_per_group()
+        _, run["designs"] = run_tp_quant(
+            torch, np, codegen, quant, ops, ref, K, ImageStream, Deployment,
+            DetectRequest, counters, tp_designs(acc, acc_q, compile_w4a8(),
+                                                compile_mixed()))
         write_out({}, tp=run)
         print(f"[card] {smi()}")
         return 0
@@ -5752,9 +6284,7 @@ def main() -> int:
 
     # quant_w4a8: packed int4 weights, int8 activations, one batch
     t0 = time.perf_counter()
-    acc_4 = core.compile(model, core.CompileConfig(
-        backend="quant", w_bits=4, a_bits=8, batch_size=BATCH),
-        params=random_params(torch, codegen, model.graph, 0))
+    acc_4 = compile_w4a8()
     probes["quant_w4a8"] = {k: acc_4.report[k] for k in (
         "quant_max_abs_delta", "quant_mean_rel_delta")}
     (images_4, done_4, _, _), c4 = drive(acc_4, BATCH, IMG, 5,
@@ -5779,9 +6309,7 @@ def main() -> int:
 
     # mixed: the per-layer wordlength search at 160, one batch
     t0 = time.perf_counter()
-    acc_m = core.compile(model160, core.CompileConfig(
-        bits="mixed", search_evals=16, calib_frames=1, batch_size=BATCH),
-        params=random_params(torch, codegen, model160.graph, 2))
+    acc_m = compile_mixed()
     t_search = time.perf_counter() - t0
     (images_m, done_m, _, _), cm = drive(acc_m, BATCH, 160, 7,
                                          backend="quant")
@@ -5820,10 +6348,6 @@ def main() -> int:
     # to the DoubleBuffered table; each conv held against the grid
     # kernels on the grid path's input
     double = {}
-    auto = codegen.get_backend("auto")
-
-    def dbl(base):
-        return DoubleBuffered(K, base)
     c_df, done_df, double["float"] = double_forward(
         torch, np, AcceleratorReplica, DetectRequest, counters, acc,
         dbl(auto), auto, images,
@@ -5884,10 +6408,15 @@ def main() -> int:
              "quant_w8a16": q_counts, "quant_w4a8": c4,
              "quant_per_group": cg, "mixed": cm,
              "double": {k: c_df[k] + c_dq[k] for k in counters}}
-    # tp: main's design by tensor-parallel replicas
+    # tp: main's design by tensor-parallel replicas, then the designs
+    # quant_w8a16, quant_w4a8, quant_per_group, mixed and double compiled
     paths["tp"], tp_run = run_tp(torch, np, codegen, ImageStream,
                                  Deployment, DetectRequest, counters, acc,
                                  xb)
+    c_tq, tp_run["designs"] = run_tp_quant(
+        torch, np, codegen, quant, ops, ref, K, ImageStream, Deployment,
+        DetectRequest, counters, tp_designs(acc, acc_q, acc_4, acc_m))
+    paths["tp"] = {k: paths["tp"][k] + c_tq[k] for k in counters}
 
     # ---------------------------------------------------------------- 4
     # A short serving window after warm-up: a smoke reading of the

@@ -21,9 +21,15 @@ Layout per step, the JAX package's::
   than the one it was saved from); ``save`` of a tree of
   ``ShardedTensor`` leaves writes the gathered arrays, so either
   package reads them.
+* **Quantized weights** — a ``QTensor`` leaf is saved as the JAX
+  package's pytree flattens it, its codes, scale and zero at
+  ``<path>|0``, ``|1`` and ``|2`` (a sharded one gathered from its
+  filter blocks first, bit-equal); ``restore`` rebuilds it from a
+  ``QTensor`` template leaf (its bits, shape and packing).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -33,6 +39,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.quant import QTensor
 from ..tree import flatten_with_path, map_with_path
 
 SEP = "|"
@@ -43,15 +50,25 @@ def _key(path: tuple) -> str:
 
 
 def _numpy(leaf) -> np.ndarray:
-    if hasattr(leaf, "shards"):             # a ShardedTensor: whole
-        leaf = leaf.gather()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
 
+_QPARTS = ("q", "scale", "zero")       # a QTensor's children, in order
+
+
 def _flatten(tree: Any) -> dict[str, np.ndarray]:
-    return {_key(path): _numpy(leaf) for path, leaf in flatten_with_path(tree)}
+    out = {}
+    for path, leaf in flatten_with_path(tree):
+        if hasattr(leaf, "shards"):         # a ShardedTensor: whole
+            leaf = leaf.gather()
+        if isinstance(leaf, QTensor):
+            for i, part in enumerate(_QPARTS):
+                out[_key(path + (i,))] = _numpy(getattr(leaf, part))
+        else:
+            out[_key(path)] = _numpy(leaf)
+    return out
 
 
 def _structure(tree: Any) -> str:
@@ -139,7 +156,7 @@ def restore(ckpt_dir: str | Path, template: Any, step: int | None = None,
     d = ckpt_dir / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     with np.load(d / "arrays.npz") as arrays:
-        def leaf(path, tmpl):
+        def array(path, tmpl):
             key = _key(path)
             if key not in arrays:
                 raise KeyError(f"checkpoint missing leaf {key}")
@@ -147,11 +164,19 @@ def restore(ckpt_dir: str | Path, template: Any, step: int | None = None,
             if tuple(arr.shape) != tuple(tmpl.shape):
                 raise ValueError(f"{key}: shape {arr.shape} != "
                                  f"{tuple(tmpl.shape)}")
-            arr = torch.from_numpy(arr.astype(_numpy_dtype(tmpl.dtype)))
+            return torch.from_numpy(arr.astype(_numpy_dtype(tmpl.dtype)))
+
+        def leaf(path, tmpl):
+            if isinstance(tmpl, QTensor):
+                arr = dataclasses.replace(tmpl, **{
+                    part: array(path + (i,), getattr(tmpl, part))
+                    for i, part in enumerate(_QPARTS)})
+            else:
+                arr = array(path, tmpl)
             if shardings is not None:
                 return shard_tensor(arr, _at(shardings, path))
-            device = tmpl.device if isinstance(tmpl, torch.Tensor) \
-                else "cpu"
+            device = tmpl.q.device if isinstance(tmpl, QTensor) else \
+                tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu"
             return arr.to(device)
 
         tree = map_with_path(leaf, template)

@@ -32,7 +32,9 @@ its ``w_bits``/``a_bits`` annotations (``ops.qconv2d`` for float
 activations, ``ops.qconv2d_a8`` for calibrated A≤8 nodes), with dequant,
 bias, activation and residual in the epilogue.
 ``calibrate_activation_ranges``/``calibrate_activation_scales`` measure
-the A≤8 activation scales on a calibration batch.
+the A≤8 activation scales on a calibration batch. ``TensorParallel`` is
+the lowering table of a replica spread over several positions, over
+either backend: each position runs its filter block of a conv.
 """
 from __future__ import annotations
 
@@ -44,7 +46,8 @@ import numpy as np
 import torch
 
 from .ir import Graph, Node
-from .quant import QTensor, QuantConfig, dequantize, quantize
+from .quant import (QTensor, QuantConfig, cuts_by_filter, dequantize,
+                    filter_block, quantize)
 from ..kernels import ops
 from ..roofline import trace
 
@@ -186,12 +189,22 @@ class QuantBackend(KernelBackend):
             return "int8-wa"
         return "int8-w"
 
+    def weight_quant(self, node: Node, w) -> QuantConfig | None:
+        """The scheme ``conv`` quantizes ``node``'s float weight ``w`` by
+        on every call (its ``wq`` annotation; W8 per channel without
+        one), or None where it takes ``w`` as it is (a ``QTensor``, or a
+        grouped conv's float weight)."""
+        if isinstance(w, QTensor) or node.geom("groups") != 1:
+            return None
+        return node.attrs.get("wq", _QCFG_DEFAULT)
+
     def conv(self, x, p, node, res=None, pool=None):
         w, b = p["w"], p["b"]
-        if not isinstance(w, QTensor):
-            if node.geom("groups") != 1:
-                return super().conv(x, p, node, res, pool=pool)
-            w = quantize(w, node.attrs.get("wq", _QCFG_DEFAULT))
+        qcfg = self.weight_quant(node, w)
+        if qcfg is not None:
+            w = quantize(w, qcfg)
+        elif not isinstance(w, QTensor):
+            return super().conv(x, p, node, res, pool=pool)
         lowering = self.select_lowering(node, w)
         if lowering == "float":
             return super().conv(x, p, node, res, pool=pool)
@@ -213,21 +226,33 @@ class QuantBackend(KernelBackend):
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
     """The lowering table of a tensor-parallel replica: ``inner`` (a
-    float ``KernelBackend``) over parameters laid out by
-    ``dist.sharding.place_sharded`` under ``conv_tp_plan``.
+    ``KernelBackend``, a ``QuantBackend``, or a table over one) over
+    parameters laid out by ``dist.sharding.place_sharded`` under
+    ``conv_tp_plan``.
 
     A conv whose filters are sharded (its ``w`` split on the trailing
-    axis over the positions of a ``model`` mesh) runs ``inner.conv``
-    once per position, on that position's device, with the filter slice,
-    the bias slice and the matching channel slice of ``res``; the input
-    is replicated (position 0's stream copied to every other device).
-    The slices are then gathered onto position 0 in position order, one
-    ``all-gather`` labelled for ``roofline.trace`` with the gathered
-    tensor's bytes. Every other node — and a conv whose out-channels do
-    not divide the mesh, so its weights stayed whole — runs once on the
-    replicated activations on position 0. The quantized backends are
-    not served this way (``NotImplementedError`` at the replica)."""
-    inner: KernelBackend
+    axis over the positions of a ``model`` mesh; a ``QTensor``'s codes,
+    and its scale and zero where they run over the filters) runs
+    ``inner.conv`` once per position, on that position's device, with
+    the filter block, the bias slice and the matching channel slice of
+    ``res``; the input is replicated (position 0's stream copied to
+    every other device). The slices are then gathered onto position 0 in
+    position order, one ``all-gather`` labelled for ``roofline.trace``
+    with the gathered tensor's bytes. Every other node — and a conv
+    whose weights stayed whole (out-channels that do not divide the
+    mesh, a per-group code layout) — runs once on the replicated
+    activations on position 0. Under a quantizing ``inner`` each
+    position's kernel plan is made for its F/tp filters.
+
+    A float weight that ``inner`` quantizes on the fly
+    (``QuantBackend.weight_quant``) by a scheme with one scale a filter
+    is quantized a block at a time, which gives the whole tensor's codes
+    cut; under any other scheme (per tensor, per group, another axis) it
+    is quantized whole, as GSPMD keeps the whole tensor's scales, and
+    then cut, or run whole where the result has no filter blocks.
+    ``fuses_pool`` is False: a fused conv + maxpool runs its maxpool as
+    a node of its own."""
+    inner: Backend
 
     @property
     def name(self) -> str:
@@ -236,12 +261,32 @@ class TensorParallel:
     def fuses_pool(self, node: Node) -> bool:
         return False
 
+    def _filter_blocks(self, w, node):
+        """Each position's filter block of the sharded ``w``, or a whole
+        ``QTensor`` that has none."""
+        quant = getattr(self.inner, "weight_quant", None)
+        cfg = quant(node, w.shard(0)) if quant is not None else None
+        if cfg is None or (cfg.granularity == "per_channel"
+                           and cfg.axis % w.ndim == w.ndim - 1):
+            return [w.shard(i) for i in range(len(w.shards))]
+        qt = quantize(w.gather(), cfg)
+        if not cuts_by_filter(qt):
+            return qt
+        devs = w.mesh.device_list()
+        fs = w.shape[-1] // len(devs)
+        return [filter_block(qt, slice(i * fs, (i + 1) * fs)).to(dev)
+                for i, dev in enumerate(devs)]
+
     def conv(self, x, p, node, res=None, pool=None):
         w, b = p["w"], p["b"]
         spec = w.spec
         if len(spec) < w.ndim or spec[-1] is None:
             return self.inner.conv(x, {"w": w.shard(0), "b": b.shard(0)},
                                    node, res)
+        blocks = self._filter_blocks(w, node)
+        if isinstance(blocks, QTensor):
+            return self.inner.conv(x, {"w": blocks, "b": b.gather()}, node,
+                                   res)
         devs = w.mesh.device_list()
         xd = ops.channel_concat(x).contiguous()
         rd = None if res is None else ops.channel_concat(res)
@@ -254,7 +299,7 @@ class TensorParallel:
             ri = None if rd is None else \
                 rd[..., i * fs:(i + 1) * fs].to(dev).contiguous()
             parts.append(self.inner.conv(
-                local[dev], {"w": w.shard(i), "b": b.shard(i)}, node, ri))
+                local[dev], {"w": blocks[i], "b": b.shard(i)}, node, ri))
         shape = parts[0].shape[:-1] + (w.shape[-1],)
         nbytes = math.prod(shape) * parts[0].element_size()
         with trace.transfer("all-gather", nbytes):

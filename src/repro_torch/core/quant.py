@@ -100,6 +100,54 @@ class QTensor:
         return w.reshape(self.shape).to(dtype)
 
 
+def cuts_by_filter(qt: QTensor) -> bool:
+    """Whether ``qt`` cuts into filter blocks (its last axis) that
+    dequantize to the same filters: codes with a filter axis (unpacked
+    or nibble-packed; a per-group layout has none), and a scale and zero
+    that run over the filters or are broadcast along them (per tensor,
+    or per channel over another axis)."""
+    if not qt.packed and tuple(qt.q.shape) != tuple(qt.shape):
+        return False
+    F = qt.shape[-1]
+    return all(t.ndim == 0 or t.shape[-1] in (1, F)
+               for t in (qt.scale, qt.zero))
+
+
+def filter_block(qt: QTensor, sl: slice) -> QTensor:
+    """The QTensor of filters ``sl`` of ``qt`` (``cuts_by_filter``): its
+    codes' columns, and its scale and zero where they run over the
+    filters. A per-tensor scale stays the whole tensor's."""
+    if not cuts_by_filter(qt):
+        raise ValueError("this QTensor layout has no filter blocks")
+    F = qt.shape[-1]
+
+    def cut(t):
+        return t if t.ndim == 0 or t.shape[-1] != F \
+            else t[..., sl].contiguous()
+    return dataclasses.replace(
+        qt, q=qt.q[..., sl].contiguous(), scale=cut(qt.scale),
+        zero=cut(qt.zero),
+        shape=tuple(qt.shape[:-1]) + (len(range(F)[sl]),))
+
+
+def join_filter_blocks(blocks: list) -> QTensor:
+    """The inverse of :func:`filter_block` over consecutive blocks in
+    filter order: codes joined by column, a scale and zero that run over
+    the filters joined too (a per-tensor one kept)."""
+    first = blocks[0]
+
+    def join(ts):
+        if ts[0].ndim == 0 or ts[0].shape[-1] != first.shape[-1]:
+            return ts[0]
+        return torch.cat(ts, dim=-1)
+    F = sum(b.shape[-1] for b in blocks)
+    return dataclasses.replace(
+        first, q=torch.cat([b.q for b in blocks], dim=-1),
+        scale=join([b.scale for b in blocks]),
+        zero=join([b.zero for b in blocks]),
+        shape=tuple(first.shape[:-1]) + (F,))
+
+
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
     """Pack int4 codes (int8 storage, values in [-8, 7]) two per byte:
     (R, N) → (ceil(R/2), N) int8, code ``2r`` in the low nibble and

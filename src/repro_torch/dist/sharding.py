@@ -37,7 +37,8 @@ import math
 
 import torch
 
-from ..core.quant import QTensor
+from ..core.quant import (QTensor, cuts_by_filter, filter_block,
+                          join_filter_blocks)
 from ..launch.mesh import Mesh
 from ..tree import map_with_path, tree_map
 
@@ -165,7 +166,7 @@ class ShardedTensor:
     block (row-major positions), on that position's device. Positions
     whose block and device agree share one tensor. A ``QTensor`` leaf is
     sharded on its filter (last) axis only: each shard is the QTensor of
-    that block of filters (served, not gathered)."""
+    that block of filters (``quant.filter_block``)."""
 
     def __init__(self, sharding: NamedSharding, shards: list, shape,
                  dtype):
@@ -190,13 +191,19 @@ class ShardedTensor:
         return self.shards[position]
 
     def gather(self, device=None):
-        """The whole tensor on ``device`` (default position 0's)."""
+        """The whole tensor on ``device`` (default position 0's); a
+        ``QTensor`` from its filter blocks, bit-equal to the one cut."""
         dev = torch.device(device) if device is not None \
             else self.mesh.device_list()[0]
         if not any(ax is not None for ax in self.spec):
             return self.shards[0].to(dev)
         if isinstance(self.shards[0], QTensor):
-            raise NotImplementedError("a sharded QTensor is not gathered")
+            blocks = {}
+            for p, s in enumerate(self.shards):
+                sl = _slices(tuple(self.shape), self.sharding, p)[-1]
+                blocks.setdefault(sl.start, s)
+            return join_filter_blocks([blocks[k].to(dev)
+                                       for k in sorted(blocks)])
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
         for p, s in enumerate(self.shards):
             out[_slices(tuple(self.shape), self.sharding, p)] = s.to(dev)
@@ -207,29 +214,17 @@ class ShardedTensor:
                 f"{self.spec!r} over {self.mesh!r})")
 
 
-def _qtensor_block(qt: QTensor, sl: slice) -> QTensor:
-    """The QTensor of filters ``sl`` (the last axis) of ``qt``: its codes'
-    columns (unpacked or nibble-packed), and its scale and zero where
-    they run over the filters."""
-    F = qt.shape[-1]
-    if not qt.packed and tuple(qt.q.shape) != tuple(qt.shape):
-        raise NotImplementedError("a per-group QTensor is not sharded")
-
-    def cut(t):
-        return t if t.ndim == 0 or t.shape[-1] != F \
-            else t[..., sl].contiguous()
-    return dataclasses.replace(
-        qt, q=qt.q[..., sl].contiguous(), scale=cut(qt.scale),
-        zero=cut(qt.zero), shape=tuple(qt.shape[:-1])
-        + (sl.stop - sl.start,))
-
-
 def shard_tensor(leaf, sharding: NamedSharding) -> ShardedTensor:
     """``leaf`` cut into one contiguous block for each position of the
-    sharding's mesh, each on its position's device."""
+    sharding's mesh, each on its position's device. A ``QTensor`` is cut
+    on its filter (last) axis only, and one without filter blocks (a
+    per-group code layout: ``quant.cuts_by_filter``) stays whole at
+    every position."""
     shape = tuple(leaf.shape)
-    sharded = [i for i, ax in enumerate(sharding.spec) if ax is not None]
     is_q = isinstance(leaf, QTensor)
+    if is_q and not cuts_by_filter(leaf):
+        sharding = NamedSharding(sharding.mesh, PartitionSpec())
+    sharded = [i for i, ax in enumerate(sharding.spec) if ax is not None]
     if is_q and sharded and sharded != [len(shape) - 1]:
         raise NotImplementedError("a QTensor is sharded on its last axis "
                                   "only")
@@ -242,7 +237,7 @@ def shard_tensor(leaf, sharding: NamedSharding) -> ShardedTensor:
             if not sharded:
                 made[key] = leaf.to(dev)
             elif is_q:
-                made[key] = _qtensor_block(leaf, sl[-1]).to(dev)
+                made[key] = filter_block(leaf, sl[-1]).to(dev)
             else:
                 made[key] = leaf[sl].to(dev).contiguous()
         shards.append(made[key])
@@ -323,12 +318,33 @@ def tp_mesh(devices) -> Mesh:
 def place_sharded(params, devices, plan: ShardingPlan | None = None):
     """A CONCRETE parameter tree laid across a device GROUP under
     ``plan`` (default ``conv_tp_plan``): ``ShardedTensor`` leaves. One
-    device degrades to ``place_replicated``."""
+    device degrades to ``place_replicated``.
+
+    A conv whose ``w`` is a ``QTensor`` without filter blocks (a
+    per-group code layout) keeps ``w`` and ``b`` whole at every
+    position, and ``codegen.TensorParallel`` runs it once on position 0,
+    as it runs a conv whose filters do not divide the mesh. The JAX
+    package's plan cuts such codes along their group axis instead, which
+    is not a filter slice; GSPMD still computes the unsharded call."""
     devices = list(devices)
     if len(devices) <= 1:
         return place_replicated(params, devices[0])
     mesh = tp_mesh(devices)
-    return place(params, tree_specs(params, mesh, plan or conv_tp_plan()))
+    return place(params, _whole_without_filter_blocks(
+        params, tree_specs(params, mesh, plan or conv_tp_plan())))
+
+
+def _whole_without_filter_blocks(params, specs):
+    """``specs`` with a conv's ``w`` and ``b`` replicated where ``w`` is a
+    ``QTensor`` that does not cut by filter."""
+    if not isinstance(params, dict):
+        return specs
+    w = params.get("w")
+    if isinstance(w, QTensor) and not cuts_by_filter(w):
+        return {k: NamedSharding(v.mesh, PartitionSpec())
+                if k in ("w", "b") else v for k, v in specs.items()}
+    return {k: _whole_without_filter_blocks(v, specs[k])
+            for k, v in params.items()}
 
 
 def input_sharding(mesh: Mesh) -> NamedSharding:

@@ -35,6 +35,23 @@ Layout (parameters as ``launch.steps.place_params`` lays them out):
   all-reduced; a tied or ``lm_head`` readout's logits are all-gathered
   over ``model``. A replicated head (granite's 49155 rows) is read once
   a data group, at its ``model`` position 0.
+* **MoE.** ``plan_for``'s ``['experts']`` rule matches no leaf, so the
+  router and every expert stay replicated; attention and llama4's
+  shared expert are cut over ``model`` (the shared expert's ``up`` and
+  ``gate`` by columns, ``down`` by rows, its partial sum all-reduced).
+  The layer keeps GSPMD's meaning of the unsharded call: its input rows
+  are all-gathered over the data groups (on T over ``model`` first under
+  ``seq_shard``), route → stable-sort pack → ``experts`` run on the
+  whole batch with ``capacity(B·T)`` of the whole call, and each
+  position keeps its own rows. The routed layer runs once a device (the
+  positions of one device would repeat it on equal inputs); its
+  gradient is autograd's through the rows each position keeps, so the
+  replicated experts' and router's gradient is counted once, summed
+  over their distinct tensors as any replicated leaf's. The
+  load-balance aux of each MoE layer is position 0's, computed over the
+  whole batch, and enters the loss once (``0.01 ×`` the mean over the
+  MoE layers). llama4's grouped layout (``layers = {"dense", "moe"}``)
+  runs its dense layers as the dense family's.
 * **SSM.** The mixer's weights match no rule and stay replicated: each
   ``model`` position runs the mixer on its data shard (the redundancy
   the JAX package's ``launch/dryrun.py:224-229`` notes).
@@ -50,16 +67,16 @@ Layout (parameters as ``launch.steps.place_params`` lays them out):
 
 Training: the loss is the global batch's token-weighted mean (each data
 group's summed NLL and token count, ``lm._nll_sums``, all-reduced over
-the data groups). ``launch.steps`` runs its own step over
-:class:`Distinct`, the flat tree of a sharded tree's distinct tensors:
-parameters that positions share (one tensor for every position whose
-device and block agree, ``sharding.shard_tensor``) are one autograd
-leaf, so their gradient is the sum of those positions' contributions;
-the gradient of a block is then the sum over the distinct tensors that
-hold it (an all-reduce over ``data``, and over ``model`` too for a
-replicated leaf), the global norm counts each block once, and the
-optimizer (elementwise: ``adamw``, ``sgd``) updates each distinct tensor
-once.
+the data groups), plus a moe model's load-balance term. ``launch.steps``
+runs its own step over :class:`Distinct`, the flat tree of a sharded
+tree's distinct tensors: parameters that positions share (one tensor for
+every position whose device and block agree, ``sharding.shard_tensor``)
+are one autograd leaf, so their gradient is the sum of those
+positions' contributions; the gradient of a block is then the sum over
+the distinct tensors that hold it (an all-reduce over ``data``, and
+over ``model`` too for a replicated leaf), the global norm counts each
+block once, and the optimizer (elementwise: ``adamw``, ``sgd``) updates
+each distinct tensor once.
 
 Transfers, each labelled once for the whole mesh with one position's
 bytes (as HLO lists one collective in the per-device program): the
@@ -70,7 +87,7 @@ loss's all-reduce, one gradient all-reduce a parameter leaf held by
 more than one position, and the global norm's all-reduce.
 
 Not run sharded (``NotImplementedError``, each naming its ROADMAP.md
-item): the moe, encdec and hybrid families, ``kv_bits=8``, and the
+item): the encdec and hybrid families, ``kv_bits=8``, and the
 ``adafactor`` and ``int8_adamw`` optimizers, whose factored or grouped
 statistics run across a sharded axis.
 """
@@ -89,12 +106,13 @@ from ..kernels import ops
 from ..models import lm
 from ..nn import attention as A
 from ..nn import layers as L
+from ..nn import moe as M
 from ..nn import ssm as S
 from ..roofline import trace
 from ..tree import flatten_with_path, leaves, map_with_path, tree_map
 from . import sharding as sh
 
-REFUSED_FAMILIES = ("moe", "encdec", "hybrid")
+REFUSED_FAMILIES = ("encdec", "hybrid")
 REFUSED_OPTIMIZERS = ("adafactor", "int8_adamw")
 
 
@@ -333,7 +351,13 @@ class Run:
         self.P = local if local is not None else [
             tree_map(lambda st, p=p: st.shard(p), params)
             for p in self.grid.positions]
+        self.load_balance: list = []    # each MoE layer's, in order
         g = self.grid
+        # the MoE input's all-gather over the data groups: the positions
+        # of one model coordinate, in data-group order
+        self.data_groups = [sorted((p for p in g.positions if g.m[p] == m),
+                                   key=g.g.__getitem__)
+                            for m in range(g.tp)]
         self.embed_split = g.tp > 1 and _on_model(params["embed"]["table"])
         head = params["embed"]["table"] if cfg.tie_embeddings \
             else params["lm_head"]["w"]
@@ -347,9 +371,13 @@ class Run:
                         f"({sh.keystr(path)}) waits for ROADMAP.md §1, "
                         f"item 3d")
             self.heads = None
-            self.mlp_split = False
+            self.mlp_split = self.shared_split = False
             return
-        at = params["layers"]["attn"]
+        # the blocks' trees: llama4's grouped layout has two kinds, whose
+        # attention is laid out alike
+        blocks = [params["layers"][k] for k in ("dense", "moe")] \
+            if lm._grouped(cfg) else [params["layers"]]
+        at = blocks[-1]["attn"]
         H, Hkv, tp = cfg.n_heads, cfg.n_kv_heads, g.tp
         q_split = tp > 1 and _on_model(at["wq"]["w"])
         kv_split = tp > 1 and _on_model(at["wk"]["w"])
@@ -366,8 +394,13 @@ class Run:
         self.acfg = dataclasses.replace(
             lm.attn_cfg(cfg), n_heads=H // tp if q_whole else H,
             n_kv_heads=Hkv // tp if kv_whole else Hkv)
-        self.mlp_split = tp > 1 and _on_model(
-            params["layers"]["mlp"]["down"]["w"])
+        mlp = [b["mlp"] for b in blocks if "mlp" in b]
+        self.mlp_split = bool(mlp) and tp > 1 and _on_model(
+            mlp[0]["down"]["w"])
+        shared = [b["moe"]["shared"] for b in blocks
+                  if "shared" in b.get("moe", {})]
+        self.shared_split = bool(shared) and tp > 1 and _on_model(
+            shared[0]["down"]["w"])
 
     # -- geometry ---------------------------------------------------------
     def _q_range(self, m: int, q_split: bool) -> tuple[int, int]:
@@ -392,7 +425,12 @@ class Run:
 
     # -- helpers ----------------------------------------------------------
     def layer(self, p: int, i: int) -> dict:
-        return lm.layer(self.P[p]["layers"], i)
+        return lm.layer(self.P[p]["layers"], i, self.cfg)
+
+    def moe_layer(self, i: int) -> bool:
+        """Whether layer ``i`` is an MoE layer."""
+        me = self.cfg.moe_every
+        return self.cfg.family == "moe" and (me <= 1 or i % me == me - 1)
 
     def rope(self, pos: torch.Tensor):
         """RoPE tables of ``pos`` on its device, made once a call."""
@@ -548,6 +586,10 @@ def _dense_layer(run: Run, i: int, window, pos: dict, mode: str, seq: bool,
                               clen), run.heads.q_split, seq)
     h = {p: h[p] + lm._attn_out(cfg, pls[p], a[p]) for p in P}
     x = {p: L.rmsnorm(pls[p]["ln2"], h[p], eps) for p in P}
+    if run.moe_layer(i):
+        y, lb = _moe(run, pls, x, seq)
+        return tuple(h[p] + lm._mlp_out(cfg, pls[p], y[p]) for p in P) \
+            + (lb,)
     if seq and run.mlp_split:
         x = run.over_model("all-gather", x, dim=1)
     y = {p: L.mlp(pls[p]["mlp"], x[p], act=cfg.act) for p in P}
@@ -555,6 +597,45 @@ def _dense_layer(run: Run, i: int, window, pos: dict, mode: str, seq: bool,
         y = run.over_model("reduce-scatter" if seq else "all-reduce", y,
                            dim=1)
     return tuple(h[p] + lm._mlp_out(cfg, pls[p], y[p]) for p in P)
+
+
+def _moe(run: Run, pls: dict, x: dict, seq: bool) -> tuple[dict, torch.Tensor]:
+    """The MoE layer over every position (``x``: its input, whole or the
+    T chunk where ``seq``), with the unsharded call's meaning: the rows
+    are all-gathered over the data groups (on T over ``model`` first where
+    ``seq``), and the replicated router and experts run ``nn/moe``'s
+    route → stable-sort pack → ``experts`` on the whole batch, so that
+    capacity is ``capacity(B·T)`` of the whole call; each position keeps
+    its data group's rows (its T chunk). The routed layer runs once a
+    device, the first position's input standing for the others' (they
+    are equal): work repeated on one device is done once, and positions
+    on other devices each do it whole. Its gradient is then what autograd
+    gives through the rows each position keeps, each contribution once.
+    A shared expert (llama4) runs on each position's rows, cut over
+    ``model`` where ``plan_for`` cuts it, its partial sum all-reduced (or
+    reduce-scattered on T). Returns (each position's output, the
+    load-balance aux of position 0's call)."""
+    cfg, g = run.cfg, run.grid
+    if seq:
+        x = run.over_model("all-gather", x, dim=1)
+    whole = collective("all-gather", x, run.data_groups, g.devs, dim=0)
+    done: dict = {}
+    for p in g.positions:
+        if g.devs[p] not in done:
+            routed = {k: v for k, v in pls[p]["moe"].items()
+                      if k != "shared"}
+            done[g.devs[p]] = M.forward_with_aux(routed, cfg.moe, whole[p])
+    b = next(iter(x.values())).shape[0]
+    y = {p: done[g.devs[p]][0][g.g[p] * b:(g.g[p] + 1) * b]
+         for p in g.positions}
+    if seq:
+        y = {p: run.local_t(v, p) for p, v in y.items()}
+    if "shared" in pls[0]["moe"]:
+        ys = run.reduce({p: L.mlp(pls[p]["moe"]["shared"], x[p],
+                                  act=cfg.act) for p in g.positions},
+                        run.shared_split, seq)
+        y = {p: y[p] + ys[p] for p in g.positions}
+    return y, done[g.devs[0]][1]["load_balance"]
 
 
 def _ssm_layer(run: Run, i: int, mode: str, cache, *hs):
@@ -631,6 +712,9 @@ def _stack(run: Run, h: dict, mode: str, cache=None, clen=None,
                                        cfg.layer_window(i), pos, mode, seq,
                                        cache, clen)
             hs = lm._remat(fn, rmode)(*hs)
+            if len(hs) > g.n:          # an MoE layer's load-balance aux
+                run.load_balance.append(hs[-1])
+                hs = hs[:-1]
     return dict(zip(g.positions, hs)), seq
 
 
@@ -714,6 +798,9 @@ def loss_fn(params: dict, cfg: ModelCfg, batch: dict, run: Run | None = None):
             for p, lg in logits.items()}
     tot = collective("all-reduce", sums, [g.leaders], g.devs)[g.leaders[0]]
     loss = tot[0] / torch.clamp(tot[1], min=1.0)
+    if run.load_balance:            # position 0's, counted once
+        lb = run.load_balance
+        loss = loss + 0.01 * (sum(lb) / len(lb)).to(loss.device)
     return loss, {"loss": loss, "tokens": tot[1]}
 
 

@@ -33,8 +33,8 @@ roles that every workload (vision detection, LM decoding) shares:
 
 A torch port of the JAX package's ``serve/deployment.py``. A
 tensor-parallel replica (``AcceleratorReplica(device=[d0, d1])``,
-``Deployment(tensor_parallel=k)``) serves the float backends; the
-quantized ones raise ``NotImplementedError`` there.
+``Deployment(tensor_parallel=k)``) serves every backend, the quantized
+one included (each position's quantized kernels on its filter block).
 
 Rejections are counted ONCE per request: a request that bounces off a
 full queue, drains under back-pressure, and is resubmitted is one
@@ -326,9 +326,9 @@ class AcceleratorReplica:
     under ``sharding.conv_tp_plan`` (conv out-channels sharded on the
     ``model`` axis, divisibility-guarded, ``sharding.place_sharded``),
     inputs land on position 0's device, and the executor runs through
-    ``codegen.TensorParallel``: each sharded conv once per position,
-    then an all-gather. Float backends only: a quantized backend raises
-    ``NotImplementedError``.
+    ``codegen.TensorParallel`` over the replica's backend (``quant``
+    included): each sharded conv once per position on its filter block,
+    then an all-gather.
 
     On a CUDA device each replica owns a CUDA stream: ``assemble`` copies
     the batch into a pinned host tensor and issues a ``non_blocking``
@@ -352,12 +352,6 @@ class AcceleratorReplica:
             self.positions = tuple(positions) if positions is not None \
                 else tuple(range(len(self.devices)))
             self.device = self.devices[0]   # inputs, replicated streams
-            be = codegen.get_backend(self.backend)
-            if not isinstance(be, codegen.KernelBackend) \
-                    or isinstance(be, codegen.QuantBackend):
-                raise NotImplementedError(
-                    "a tensor-parallel replica serves the float backends "
-                    "only (ROADMAP.md, cuts: quantized tensor parallelism)")
         else:
             if isinstance(device, (list, tuple)):
                 device = device[0] if device else None
@@ -464,8 +458,8 @@ def make_step_fn(graph, backend=None):
 
 
 def tp_backend(backend=None):
-    """The tensor-parallel lowering table over ``backend`` (a name or a
-    float ``KernelBackend``; None is ``auto``)."""
+    """The tensor-parallel lowering table over ``backend`` (a registered
+    name, ``quant`` included, or a lowering table; None is ``auto``)."""
     return codegen.TensorParallel(codegen.get_backend(backend))
 
 

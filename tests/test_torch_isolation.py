@@ -1,11 +1,14 @@
 """The port stands alone: it imports neither JAX nor the JAX package
 (the training modules included: a short CPU training run with a
-checkpoint, a tensor-parallel forward, a pipelined call, a sharded LM
-train step and the dry run import neither), its entry points refuse to
-fall back to the CPU (the train loop's and the mesh's too), and what is
-not ported yet (a quantized tensor-parallel replica, a sharded moe
-model) raises ``NotImplementedError``."""
+checkpoint, a tensor-parallel forward, a quantized tensor-parallel
+replica and the checkpoint of its sharded weights, a pipelined call, a
+sharded LM train step, a sharded moe train step and the dry run import
+neither), its entry points refuse to fall back to the CPU (the train
+loop's and the mesh's too), and what is not ported yet (a sharded
+hybrid or encdec model, a sharded ``kv_bits=8`` cache) raises
+``NotImplementedError``."""
 import ast
+import dataclasses
 import subprocess
 import sys
 import textwrap
@@ -147,6 +150,25 @@ def test_import_compile_and_run_load_no_jax():
             sp, steps.init_opt_state(opt, sp, cfg), 0,
             {"tokens": toks, "labels": toks})
         assert spmd.is_sharded(sp) and float(met["loss"]) > 0
+        cfg = registry.reduced("llama4-maverick-400b-a17b")
+        params = lm.init_params(cfg, torch.Generator(), device="cpu")
+        sp = steps.place_params(params, m, cfg=cfg)
+        sp, st, met = steps.make_train_step(cfg, opt, 1)(
+            sp, steps.init_opt_state(opt, sp, cfg), 0,
+            {"tokens": toks, "labels": toks})
+        assert spmd.is_sharded(sp) and float(met["loss"]) > 0
+        with Deployment(qacc, replicas=1, tensor_parallel=2,
+                        devices=["cpu", "cpu"], backend="quant",
+                        prefetch=False) as dep:
+            dep.submit(DetectRequest(uid=0, image=torch.zeros(32, 32, 3)
+                                     .numpy()))
+            assert dep.run()[0].done
+        with tempfile.TemporaryDirectory() as d:
+            checkpoint.save(d, 1, sharding.place_sharded(qacc.params,
+                                                         ["cpu", "cpu"]))
+            back, _ = checkpoint.restore(d, qacc.params)
+            assert all(torch.equal(back[k]["w"].q, v["w"].q)
+                       for k, v in qacc.params.items())
         rec = dryrun.lower_cell(registry.get("granite-3-8b"),
                                 SHAPES["decode_32k"],
                                 mesh.make_production_mesh())
@@ -198,19 +220,16 @@ def test_entry_points_refuse_silent_cpu(monkeypatch, cpu_acc):
 
 
 def test_unported_paths_raise(cpu_acc, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Deployment(cpu_acc, devices=["cpu"], tensor_parallel=2,
-                   backend="quant")
-    cfg = registry.reduced("qwen3-moe-30b-a3b")
-    params = lm.init_params(cfg, torch.Generator(), device="cpu")
-    sp = steps.place_params(params, make_mesh((1, 2), ("data", "model"),
-                                              devices=["cpu", "cpu"]),
-                            cfg=cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.make_eval_step(cfg)(sp, {"tokens": torch.ones((2, 4),
-                                                            dtype=torch.int32),
-                                       "labels": torch.ones((2, 4),
-                                                            dtype=torch.int32)})
+    toks = torch.ones((2, 4), dtype=torch.int32)
+    for name in ("zamba2-1.2b", "seamless-m4t-medium", "kv8"):
+        cfg = registry.reduced("granite-3-8b" if name == "kv8" else name)
+        if name == "kv8":
+            cfg = dataclasses.replace(cfg, kv_bits=8)
+        params = lm.init_params(cfg, torch.Generator(), device="cpu")
+        sp = steps.place_params(params, make_mesh(
+            (1, 2), ("data", "model"), devices=["cpu", "cpu"]), cfg=cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            steps.make_eval_step(cfg)(sp, {"tokens": toks, "labels": toks})
 
 
 def test_mesh_refuses_silent_cpu(monkeypatch):

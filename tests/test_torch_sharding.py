@@ -310,11 +310,3 @@ def test_tp_deployment_over_two_groups(accs):
         assert [r.positions for r in dep.replicas] == [(0, 1), (2, 3),
                                                        (0, 1)]
 
-
-def test_tp_refuses_the_quant_backend(accs):
-    _, _, tacc = accs
-    with pytest.raises(NotImplementedError, match="float"):
-        AcceleratorReplica(tacc, device=["cpu", "cpu"], backend="quant")
-    with pytest.raises(NotImplementedError, match="float"):
-        Deployment(tacc, devices=["cpu"] * 2, tensor_parallel=2,
-                   backend="quant")
