@@ -529,8 +529,21 @@ RESTART_TOL = 1e-6
 # qwen3-moe-30b-a3b at full width, SHARD_MOE_LAYERS of its 48 layers, on
 # SHARD_MESH: the calls of granite's, the routes of each unsharded call
 # forced onto the sharded ones.
+# zamba2-1.2b at full width, SHARD_HYBRID_LAYERS of its 38 layers (two
+# shared-block calls), and seamless-m4t-medium whole (12 + 12 layers) on
+# SHARD_MESH: an adamw step of SHARD_SMALL (rows x tokens; seamless over
+# as many source frames), a prefill of SHARD_PREFILL rows of as many
+# tokens, SHARD_DECODE decode steps. granite-3-8b on (a)'s weights at
+# kv_bits=8 (the prefill and decode steps of (a)) and at remat="group"
+# (one adafactor step of (a)'s shape on SHARD_MESH, one int8_adamw step
+# on SHARD_INT8_MESH, where d_ff's 1,600 columns a position cut its
+# groups of 128: 12.5 a shard, so a group's absmax is a maximum over
+# positions).
 SHARD_MESH, SHARD_SSM_MESH = (2, 4), (2, 2)
+SHARD_INT8_MESH = (1, 8)
 SHARD_MOE_LAYERS = 2
+SHARD_HYBRID_LAYERS = 12
+SHARD_SMALL = (2, 512)
 SHARD_PREFILL, SHARD_DECODE = 2, 8
 SHARD_TOL = 1e-4
 SHARD_ADAMW = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
@@ -4957,34 +4970,73 @@ def _on_model(st) -> bool:
                for ax in st.spec)
 
 
+def _model_axis(spec) -> int | None:
+    """The axis a spec cuts over ``model``, or None."""
+    from repro_torch.dist import sharding
+    for i, ax in enumerate(spec):
+        if ax is not None and "model" in sharding._axes(ax):
+            return i
+    return None
+
+
+def _replays(cfg, kind: str, part: str = "decoder") -> int:
+    """How often a call runs a block's forward: a train step's
+    checkpointed blocks twice (``full``, ``dots``), the decoder layers
+    of the attention families three times under ``group`` (the group's
+    recompute, then each layer's); zamba2's shared block is never
+    checkpointed, the encoder's layers as ``full`` under ``group``."""
+    if kind != "train" or cfg.remat == "none" or part == "shared":
+        return 1
+    grouped = cfg.family == "moe" and cfg.moe_every > 1
+    if part == "decoder" and cfg.remat == "group" and cfg.family in (
+            "dense", "vlm", "moe", "encdec") and not grouped \
+            and cfg.scan_layers:
+        return 3
+    return 2
+
+
 def sharded_launches(cfg, sp, kind: str, n_mb: int = 1,
                      steps: int = 1) -> dict:
     """#6, #11, #12 and #13 launches of one sharded call, from the mesh
     and the plan: every position runs its layers' norms (2 a layer;
-    post-norms 4 more, QK-norm 2 more; an SSM layer's ``ln`` and mixer
-    norm) and its
-    attention (or mixer) on its heads or data shard, a train step's
-    checkpointed layers (remat) twice; the final norm at every position
-    where the head is vocab-sharded, else once a data group."""
+    post-norms 4 more, QK-norm 2 more, an encdec decoder layer's ``ln_x``
+    1 more; an SSM layer's ``ln`` and mixer norm; zamba2's shared block 2
+    a call) and its attention (an encdec decoder layer's self- and
+    cross-attention; the shared block's; none in an int8 cache's decode
+    step, whose attention is tensor code) or mixer on its heads or data
+    shard, its encoder layers' 2 norms and attention and ``enc_norm`` in
+    forward and prefill, a train step's checkpointed blocks again
+    (``_replays``); the final norm at every position where the head is
+    vocab-sharded, else once a data group."""
     n = len(sp["embed"]["table"].shards)
     tp = sp["embed"]["table"].mesh.shape.get("model", 1)
     dp = n // tp
     head = sp["embed"]["table"] if cfg.tie_embeddings else sp["lm_head"]["w"]
     final = n if (tp > 1 and _on_model(head)) else dp
     L = cfg.n_layers
-    ssm = cfg.family == "ssm"
-    norms = 2 + (4 if cfg.post_norm else 0) + (2 if cfg.qk_norm else 0)
-    again = 2 if kind == "train" and cfg.remat != "none" else 1
+    dec, enc = _replays(cfg, kind), _replays(cfg, kind, "encoder")
+    fwd = kind != "decode"
+    att = "mha" if fwd else "decode_attention"
     out = {"rmsnorm": 0, "mha": 0, "decode_attention": 0, "ssd_scan": 0}
-    reps = n_mb if kind == "train" else steps if kind == "decode" else 1
-    out["rmsnorm"] = reps * (n * L * norms * again + final)
-    if ssm:
-        out["ssd_scan"] = 0 if kind == "decode" else reps * n * L * again
-    elif kind == "decode":
-        out["decode_attention"] = reps * n * L
+    if cfg.family in ("ssm", "hybrid"):
+        calls = -(-L // cfg.shared_attn_every) \
+            if cfg.family == "hybrid" else 0
+        out["rmsnorm"] = n * L * 2 * dec + n * calls * 2
+        out["ssd_scan"] = n * L * dec if fwd else 0
+        out[att] = n * calls
     else:
-        out["mha"] = reps * n * L * again
-    return out
+        norms = 2 + (4 if cfg.post_norm else 0) \
+            + (2 if cfg.qk_norm else 0) + (1 if cfg.is_encdec else 0)
+        out["rmsnorm"] = n * L * norms * dec
+        per = 2 if cfg.is_encdec else 1
+        if fwd or cfg.kv_bits != 8:
+            out[att] = n * L * per * dec
+        if cfg.is_encdec and fwd:
+            out["rmsnorm"] += n * cfg.n_enc_layers * 2 * enc + n
+            out["mha"] += n * cfg.n_enc_layers * enc
+    reps = n_mb if kind == "train" else steps if kind == "decode" else 1
+    return {k: reps * (v + (final if k == "rmsnorm" else 0))
+            for k, v in out.items()}
 
 
 def _moe_layer(cfg, i: int) -> bool:
@@ -4992,22 +5044,85 @@ def _moe_layer(cfg, i: int) -> bool:
                                     or i % cfg.moe_every == cfg.moe_every - 1)
 
 
+def opt_transfers(opt_name: str, sp, state) -> dict:
+    """The optimizer's labelled transfers of a sharded step, leaf by leaf
+    from the layouts: adafactor, for a leaf cut over ``model``, an
+    all-reduce of its row mean of g² (cut on its last axis) or of its
+    column mean (on its second to last) and then of the mean of ``vr``,
+    and of its rms (4 bytes); for each of its statistics laid out
+    otherwise than the leaf's blocks read it (``vr`` at the parameter's
+    dims but the last, ``vc`` at all but the second to last), an
+    all-gather of it on the way in where it is stored cut, and on the
+    way out where the blocks' layout is cut. int8_adamw: two all-reduces
+    (the maxima of m and of v) of the group absmax where a leaf's groups
+    straddle its shards. None for adamw and sgd."""
+    from collections import Counter
+    from repro_torch.optim import optimizers
+    from repro_torch.tree import flatten_with_path
+    want: Counter = Counter()
+    if opt_name not in ("adafactor", "int8_adamw"):
+        return {}
+
+    def at(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+    for path, st in flatten_with_path(sp):
+        nd, cut = st.ndim, _model_axis(st.spec)
+        if opt_name == "int8_adamw":
+            g = optimizers._qgroup(tuple(st.shape))
+            if cut == nd - 1 and st.shards[0].shape[-1] % g:
+                want[("all-reduce", math.prod(st.shape[:-1])
+                      * (st.shape[-1] // g) * 4)] += 2
+            continue
+        f = at(state["f"], path)
+        sp_ = tuple(st.spec) + (None,) * (nd - len(st.spec))
+        lay = {"v": sp_} if nd < 2 else {"vr": sp_[:-1],
+                                         "vc": sp_[:-2] + sp_[-1:]}
+        for name, spec in lay.items():
+            short = list(spec)
+            while short and short[-1] is None:
+                short.pop()
+            if tuple(f[name].spec) != tuple(short):
+                whole = math.prod(f[name].shape) * 4
+                if _model_axis(f[name].spec) is not None:
+                    want[("all-gather", whole)] += 1
+                if _model_axis(spec) is not None:
+                    want[("all-gather", whole)] += 1
+        if cut is None:
+            continue
+        if nd >= 2:
+            kept = st.shape[:-1] if cut == nd - 1 \
+                else st.shape[:-2] + st.shape[-1:]
+            want[("all-reduce", math.prod(kept) * 4)] += 1
+            if cut == nd - 2:
+                want[("all-reduce", math.prod(st.shape[:-2]) * 4)] += 1
+        want[("all-reduce", 4)] += 1
+    return dict(want)
+
+
 def sharded_transfers(cfg, sp, kind: str, rows: int, T: int,
-                      n_mb: int = 1, steps: int = 1) -> dict:
+                      n_mb: int = 1, steps: int = 1, src: int = 0,
+                      opt_name: str = "adamw", state=None) -> dict:
     """The labelled transfers of one sharded call, (kind, bytes) → count,
     derived from the plan's specs: the embedding's all-reduce where the
     table is vocab-sharded; a layer's all-reduce where ``wo`` is cut
     over ``model`` and where ``down`` is (an MLP's, or an MoE layer's
-    shared expert's); an all-gather of each kv projection where it is
-    cut within heads; an MoE layer's all-gather of its input rows over
-    the data groups (the whole batch at each position) where there are
-    several; the logits' all-gather over ``model`` where the head is
-    vocab-sharded; the loss's all-reduce (8 bytes) and the whole
-    logits' all-gather over the data groups where there are several. A
-    train step also runs the layers' collectives again under remat,
-    every forward collective's adjoint (an all-gather a reduce-scatter),
-    one gradient all-reduce a leaf held by more than one position and
-    the global norm's (4 bytes)."""
+    shared expert's), an encdec decoder layer's cross-attention's
+    (its ``wo``), zamba2's two a shared-block call; an all-gather of
+    the q projection and of each kv projection where it is cut within
+    heads (a cross-attention's kv of the ``src`` encoder rows, in forward
+    and prefill); an encoder
+    layer's two all-reduces of its ``src`` rows; an MoE layer's
+    all-gather of its input rows over the data groups (the whole batch
+    at each position) where there are several; the logits' all-gather
+    over ``model`` where the head is vocab-sharded; the loss's
+    all-reduce (8 bytes) and the whole logits' all-gather over the data
+    groups where there are several. A train step also runs a
+    checkpointed block's collectives again (``_replays``), every forward
+    collective's adjoint (an all-gather a reduce-scatter), one gradient
+    all-reduce a leaf held by more than one position, the global norm's
+    (4 bytes) and ``opt_transfers`` of its optimizer and ``state``."""
     from collections import Counter
     from repro_torch.tree import leaves
     first = sp["embed"]["table"]
@@ -5017,48 +5132,74 @@ def sharded_transfers(cfg, sp, kind: str, rows: int, T: int,
     d, V = cfg.d_model, cfg.vocab
     head = sp["embed"]["table"] if cfg.tie_embeddings else sp["lm_head"]["w"]
     r = rows // dp
+    kvc = cfg.n_kv_heads * cfg.head_dim * 4
     lay = sp["layers"]
     blocks = {"dense": lay["dense"], "moe": lay["moe"]} \
         if "dense" in lay else {"moe" if "moe" in lay else "dense": lay}
 
-    def once(t):                # (outer, layers, MoE rows) of one pass
-        outer, layer, rows_dp = Counter(), Counter(), Counter()
-        act = r * t * d * 4
+    def attn(at, t):            # an attention's: q, kv gathers, wo's sum
+        out = Counter()
+        if tp > 1 and _on_model(at["wq"]["w"]) and cfg.n_heads % tp:
+            out[("all-gather", r * t * cfg.n_heads * cfg.head_dim * 4)] += 1
+        if tp > 1 and _on_model(at["wk"]["w"]) and cfg.n_kv_heads % tp:
+            out[("all-gather", r * t * kvc)] += 2
+        if tp > 1 and _on_model(at["wo"]["w"]):
+            out[("all-reduce", r * t * d * 4)] += 1
+        return out
+
+    def mlp(m, t):
+        out = Counter()
+        if tp > 1 and m is not None and _on_model(m["down"]["w"]):
+            out[("all-reduce", r * t * d * 4)] += 1
+        return out
+
+    def once(t):        # (outer, layers, encoder, shared, MoE rows) a pass
+        outer, layer, enc, shared, rows_dp = (Counter() for _ in range(5))
         if tp > 1 and _on_model(sp["embed"]["table"]):
-            outer[("all-reduce", act)] += 1
-        for i in range(cfg.n_layers):
+            outer[("all-reduce", r * t * d * 4)] += 1
+        if cfg.family == "hybrid":
+            for _ in range(-(-cfg.n_layers // cfg.shared_attn_every)):
+                shared += attn(sp["shared"]["attn"], t) \
+                    + mlp(sp["shared"]["mlp"], t)
+        for i in range(cfg.n_layers if cfg.family not in (
+                "ssm", "hybrid") else 0):
             blk = blocks["moe" if _moe_layer(cfg, i) else "dense"]
-            if cfg.family != "ssm" and tp > 1:
-                at = blk["attn"]
-                if _on_model(at["wk"]["w"]) and cfg.n_kv_heads % tp:
-                    layer[("all-gather", r * t * cfg.n_kv_heads
-                           * cfg.head_dim * 4)] += 2
-                if _on_model(at["wo"]["w"]):
-                    layer[("all-reduce", act)] += 1
-            down = blk["mlp"]["down"] if "mlp" in blk else \
-                blk["moe"]["shared"]["down"] if "shared" in blk.get(
-                    "moe", {}) else None
-            if tp > 1 and down is not None and _on_model(down["w"]):
-                layer[("all-reduce", act)] += 1
+            layer += attn(blk["attn"], t)
+            if cfg.is_encdec:
+                xa = attn(blk["xattn"], t)
+                if kind == "decode":        # k and v read from the cache
+                    xa.pop(("all-gather", r * t * kvc), None)
+                elif ("all-gather", r * t * kvc) in xa:
+                    xa.pop(("all-gather", r * t * kvc))
+                    layer[("all-gather", r * src * kvc)] += 2
+                layer += xa
+            layer += mlp(blk["mlp"] if "mlp" in blk else
+                         blk["moe"]["shared"] if "shared" in blk.get(
+                             "moe", {}) else None, t)
             if "moe" in blk and dp > 1:
                 rows_dp[("all-gather", rows * t * d * 4)] += 1
+        if cfg.is_encdec and kind != "decode":
+            el = sp["enc_layers"]
+            for _ in range(cfg.n_enc_layers):
+                enc += attn(el["attn"], src) + mlp(el["mlp"], src)
         if tp > 1 and _on_model(head):
             outer[("all-gather", r * (t if kind == "train" else 1)
                    * V * 4)] += 1
-        return outer, layer, rows_dp
+        return outer, layer, enc, shared, rows_dp
 
     out = Counter()
     if kind == "train":
-        outer, layer, rows_dp = once(T)
-        again = 2 if cfg.remat != "none" else 1
+        outer, layer, enc, shared, rows_dp = once(T)
         adj = Counter()
-        for (k, b), c in (outer + layer).items():
+        for (k, b), c in (outer + layer + enc + shared).items():
             adj[("reduce-scatter", b // tp) if k == "all-gather"
                 else (k, b)] += c
         for (k, b), c in rows_dp.items():
             adj[("reduce-scatter", b // dp)] += c
-        per_mb = outer + Counter({k: v * again for k, v in
-                                  (layer + rows_dp).items()}) + adj
+        per_mb = outer + shared + adj
+        for part, again in ((layer + rows_dp, _replays(cfg, kind)),
+                            (enc, _replays(cfg, kind, "encoder"))):
+            per_mb += Counter({k: v * again for k, v in part.items()})
         if dp > 1:
             per_mb[("all-reduce", 8)] += 2
         for k, v in per_mb.items():
@@ -5068,10 +5209,13 @@ def sharded_transfers(cfg, sp, kind: str, rows: int, T: int,
                 out[("all-reduce", st.shards[0].numel() * 4)] += 1
         if n > 1:
             out[("all-reduce", 4)] += 1
+        for k, v in opt_transfers(opt_name, sp, state).items():
+            out[k] += v
         return dict(out)
-    for _ in range(steps):
-        outer, layer, rows_dp = once(T if kind == "prefill" else 1)
-        out += outer + layer + rows_dp
+    for s in range(steps):
+        outer, layer, enc, shared, rows_dp = once(
+            T if kind == "prefill" else 1)
+        out += outer + layer + enc + shared + rows_dp
         if dp > 1:
             out[("all-gather", rows * V * 4)] += 1
     return dict(out)
@@ -5087,22 +5231,63 @@ def _whole(st):
     return st.gather() if isinstance(st, ShardedTensor) else st
 
 
-def _moments_check(torch, s_a, s_b) -> dict:
+def _state_check(torch, s_a, s_b, loose: str | None = None) -> dict:
     """The worst leaf of optimizer state ``s_a`` (gathered where sharded)
-    against ``s_b``'s, max |difference| over max |value|, as (ratio,
-    leaf): the first moment (a tenth of the clipped gradient after one
-    step) and the second moment's square root (the gradient's magnitude:
-    ``v`` itself doubles the gradient's relative difference). ``s_b``
-    may be held on the host."""
+    against ``s_b``'s (which may be held on the host), by kind of
+    statistic, as (ratio, leaf): max |difference| over max |value| of
+    adamw's first moment and of the square root of its second (``v``
+    itself doubles the gradient's relative difference), of the square
+    roots of adafactor's ``vr``, ``vc`` and ``v``, of int8_adamw's
+    scales (``v``'s square-rooted); and int8_adamw's codes, each
+    dequantized moment's |difference| in scale steps (the larger scale
+    plus 127 times the scales' difference): a code may round the other
+    way where its input differs in the last bits. Leaves whose path
+    holds ``loose`` are read apart, under their kind + `` (loose)``."""
     from repro_torch.tree import flatten_with_path
-    out = {}
-    for k, f in (("m", lambda t: t), ("v", torch.sqrt)):
-        flat = dict(flatten_with_path(s_b[k]))
-        out[k] = max((_rel(a, f(_whole(flat[path]).to(a.device))),
-                      "|".join(map(str, path)))
-                     for path, st in flatten_with_path(s_a[k])
-                     for a in [f(_whole(st))])
+    out: dict = {}
+
+    def note(kind, path, ratio):
+        key = "|".join(map(str, path))
+        if loose is not None and loose in key:
+            kind += " (loose)"
+        if ratio >= out.get(kind, (-1.0, None))[0]:
+            out[kind] = (ratio, key)
+    flat_a, flat_b = dict(flatten_with_path(s_a)), dict(
+        flatten_with_path(s_b))
+    for path, st in flat_a.items():
+        a = _whole(st)
+        b = _whole(flat_b[path]).to(a.device)
+        if path[0] == "f":
+            note(path[-1], path, _rel(torch.sqrt(a), torch.sqrt(b)))
+        elif path[-1] == "q":
+            continue
+        elif path[-1] == "s":
+            f = torch.sqrt if path[0] == "v" else (lambda t: t)
+            note(path[0] + "_scale", path, _rel(f(a), f(b)))
+            qa = _whole(flat_a[path[:-1] + ("q",)])
+            qb = _whole(flat_b[path[:-1] + ("q",)]).to(a.device)
+            g = qa.shape[-1] // a.shape[-1]
+            sa, sb = (torch.repeat_interleave(x.double(), g, dim=-1)
+                      for x in (a, b))
+            step = torch.maximum(sa, sb) + 127 * (sa - sb).abs()
+            note("codes", path[:-1], float(((qa.double() * sa - qb.double()
+                                              * sb).abs() / step).max()))
+        else:
+            f = torch.sqrt if path[0] == "v" else (lambda t: t)
+            note(path[0], path, _rel(f(a), f(b)))
     return out
+
+
+def _held_to(state: dict, tol: float, loose_tol: float) -> bool:
+    """``_state_check``'s worst within ``tol`` (a ``loose`` leaf within
+    ``loose_tol``; codes within one scale step)."""
+    return all(r <= (1.0 if k == "codes" else loose_tol if "loose" in k
+                     else tol) for k, (r, _) in state.items())
+
+
+def _fmt_state(state: dict) -> str:
+    return ", ".join(f"{k} {r:.3e} ({leaf})" for k, (r, leaf) in
+                     sorted(state.items()))
 
 
 def _split_sums_check(torch, lm, cfg, params, mb, groups: int,
@@ -5170,32 +5355,78 @@ def _update_check(torch, p_old, p_new, state, step: int) -> tuple:
         c1, c2 = 1 - a["b1"] ** t, 1 - a["b2"] ** t
         u = (ms[path].gather() / c1) / (torch.sqrt(vs[path].gather() / c2)
                                         + a["eps"]) + a["weight_decay"] * p
-        want = p + (-TRAIN_LR * u)
-        diff = (st.gather() - want).abs()
-        ratio = float((diff / (SHARD_TOL * TRAIN_LR + torch.finfo(
-            torch.float32).eps * want.abs())).max())
-        if ratio >= worst[0]:
-            worst = (ratio, "|".join(map(str, path)), float(diff.max()))
+        worst = _worse(torch, worst, path, st.gather(), p + (-TRAIN_LR * u))
+    return worst
+
+
+def _worse(torch, worst: tuple, path, got, want) -> tuple:
+    diff = (got - want).abs()
+    ratio = float((diff / (SHARD_TOL * TRAIN_LR + torch.finfo(
+        torch.float32).eps * want.abs())).max())
+    if ratio >= worst[0]:
+        return (ratio, "|".join(map(str, path)), float(diff.max()))
+    return worst
+
+
+def _rule_check(torch, opt, p_old, p_new, state_old, grads,
+                step: int) -> tuple:
+    """Each gathered parameter of a sharded adafactor or int8_adamw step
+    against its own rule: p_old + the optimizer's unsharded update of
+    the step's own gradients (``grads``: the sharded step's, gathered,
+    clipped) and the old state (gathered), in float32 on the card; as
+    ``_update_check``. A lockstep reduction that missed a block, or a
+    group or statistic cut another way, moves the update by far more
+    than 1e-4 x lr."""
+    from repro_torch.optim import optimizers
+    from repro_torch.tree import flatten_with_path, tree_map
+    upd, _ = opt.update(grads, state_old, p_old, step)
+    want = dict(flatten_with_path(tree_map(optimizers.apply_update, p_old,
+                                           upd)))
+    worst = (0.0, None, 0.0)
+    for path, st in flatten_with_path(p_new):
+        worst = _worse(torch, worst, path, st.gather(), want[path])
     return worst
 
 
 def _trace_of(torch, fn) -> tuple:
-    """(fn's result, its labelled transfers (kind, bytes) → count) under
-    ``torch.profiler`` (CPU activity only)."""
+    """(fn's result, its labelled transfers (kind, bytes) → count): each
+    ``roofline.trace.transfer`` range fn opens, counted as it opens. These
+    are the ranges a ``torch.profiler`` trace of fn holds (the CPU tests
+    read them so); a profiler here would build a tree of every op of the
+    call, about 9 s a sharded zamba2 or mamba2 step on the host of an
+    NVIDIA H100 80GB HBM3 machine."""
     from collections import Counter
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.roofline import trace
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    got: Counter = Counter()
+    label = trace.transfer
+
+    def counting(kind, nbytes):
+        got[(kind, int(nbytes))] += 1
+        return label(kind, nbytes)
+    trace.transfer = counting
+    try:
         out = fn()
         torch.cuda.synchronize()
-    got = Counter(trace._parse(e.name) for e in prof.events()
-                  if trace._parse(e.name))
+    finally:
+        trace.transfer = label
     return out, dict(got)
 
 
 def _fmt(transfers: dict) -> str:
     return ", ".join(f"{k} {b} B x {c}" for (k, b), c in
                      sorted(transfers.items()))
+
+
+def _mean_rel(a, b) -> float:
+    """mean |a - b| over mean |b| (the int8 cache's decode rule)."""
+    return float((a - b).abs().mean() / b.abs().mean().clamp(min=1e-30))
+
+
+def _codes_differ(torch, a, b) -> tuple:
+    """(codes that differ, the largest difference) of two int8 caches'
+    codes."""
+    d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+    return int((d > 0).sum()), int(d.max())
 
 
 def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
@@ -5211,26 +5442,39 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
     SHARD_MESH: the calls of (a), every routing of each unsharded call
     recorded and forced onto the sharded calls (``CallRoutes``; their
     own flips held to margins below ROUTE_TIE), the unsharded step's
-    results moved to the host before the sharded one runs.
+    results moved to the host before the sharded one runs; (d)
+    zamba2-1.2b at full width, SHARD_HYBRID_LAYERS layers (two
+    shared-block calls), on SHARD_MESH: one adamw step of SHARD_SMALL
+    (remat full), a prefill of SHARD_PREFILL x SHARD_SMALL's length,
+    SHARD_DECODE decode steps; (e) seamless-m4t-medium whole on
+    SHARD_MESH, the calls of (d) over as many source frames; (f)
+    granite-3-8b at ``kv_bits=8`` on (a)'s weights: (a)'s prefill and
+    decode steps, the decode logits and the decoded cache's scales held
+    by KV8_MEAN_REL and the int8 codes counted (each within one); (g) granite-3-8b at ``remat="group"`` on (a)'s
+    weights: one adafactor step of (a)'s shape on SHARD_MESH and one
+    int8_adamw step on SHARD_INT8_MESH.
     Each sharded call runs under ``torch.profiler`` with the launch
     counters set to 0 just before it: its launches and transfers are
     held to ``sharded_launches``/``sharded_transfers``, its outputs to
     the unsharded step's and to the same sharded call on the plain
     versions (``ops.set_default_backend("ref")``, no launch) on the same
-    inputs (loss and grad norm relative, the moments, logits and caches
-    max |diff| / max |value|, within SHARD_TOL, mamba2's moments within
-    SSM_TOL), each parameter's update to the one its gathered moments
-    give (``_update_check``). The unsharded step is also run with its
-    microbatches cut into the data groups' rows (not for the MoE model,
-    whose capacity is the call's) and on the plain versions, and
-    mamba2's gradients are also summed as the sharded step sums them
-    (``_split_sums_check``): each against the unsharded step is printed
-    as the spread of a summation order with no sharding code in it. A
-    second call of each is timed beside the unsharded one's second call;
-    peak memory; the step's analytic FLOPs as a share of the fp32 peak.
-    Returns (launches, run dict)."""
+    inputs (loss and grad norm relative, the optimizer state
+    (``_state_check``), logits and caches max |diff| / max |value|,
+    within SHARD_TOL; mamba2's state within SSM_TOL, zamba2's mixer
+    leaves' too), each parameter's update to the one its gathered
+    moments give (adamw, ``_update_check``) or its optimizer's own rule
+    on the step's gathered gradients (``_rule_check``). The unsharded
+    step is also run with its microbatches cut into the data groups'
+    rows (not for the MoE model, whose capacity is the call's) and on
+    the plain versions, and mamba2's gradients are also summed as the
+    sharded step sums them (``_split_sums_check``): each against the
+    unsharded step is printed as the spread of a summation order with
+    no sharding code in it. A second call of each is timed beside the
+    unsharded one's second call; peak memory; the step's analytic FLOPs
+    as a share of the fp32 peak. Returns (launches, run dict)."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.data.synthetic import TokenStream
+    from repro_torch.dist import spmd
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import steps
@@ -5248,7 +5492,12 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
     def batch_of(cfg, rows, seq, n_mb, index):
         b = TokenStream(vocab=cfg.vocab, seq_len=seq, batch=rows, seed=0,
                         microbatches=n_mb).batch_at(index)
-        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        if cfg.is_encdec:           # as many source frames as tokens
+            g = torch.Generator(device=dev).manual_seed(index)
+            b["src_embeds"] = torch.randn(
+                b["tokens"].shape + (cfg.d_model,), generator=g, device=dev)
+        return b
 
     def counted(what, fn, want_launches, want_transfers):
         _zero(counters)
@@ -5285,12 +5534,25 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
     def forced(routes, repeat):
         return routes.forced(repeat) if routes else contextlib.nullcontext()
 
+    def make_opt(name):
+        extra = SHARD_ADAMW if name in ("adamw", "int8_adamw") else {}
+        return optimizers.get(name, lr=TRAIN_LR, **extra)
+
+    def step_grads(cfg, sp, b, n_mb):
+        """The sharded step's own gradients, clipped, gathered."""
+        dt = spmd.Distinct(sp)
+        g, _ = steps.accumulate_grads(dt.tensors, cfg, b, n_mb,
+                                      loss_fn=dt.loss_fn)
+        g = dt.sum_blocks(g)
+        g, _ = optimizers.clip_by_global_norm(g, 1.0, dt.norm(g))
+        return spmd.gather(dt.sharded(g))
+
     def train_case(label, cfg, params, shape, rows, seq, n_mb, tol,
-                   routes=None):
+                   routes=None, opt_name="adamw", loose=None):
         mesh = mesh_lib.make_mesh(shape, ("data", "model"),
                                   devices=positions(math.prod(shape)))
         sp = steps.place_params(params, mesh, cfg=cfg)
-        opt = optimizers.adamw(lr=TRAIN_LR, **SHARD_ADAMW)
+        opt = make_opt(opt_name)
         step = steps.make_train_step(cfg, opt, n_mb)
         b = batch_of(cfg, rows, seq, n_mb, 0)
         state = opt.init(params)
@@ -5312,7 +5574,7 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
                                   + tuple(v.shape[2:])) for k, v in b.items()}
             s_rs = steps.make_train_step(cfg, opt, n_mb * shape[0])(
                 params, state, 0, split)[1]
-            row_split = _moments_check(torch, s_un, s_rs)
+            row_split = _state_check(torch, s_un, s_rs, loose)
             del s_rs, split
         cot_split = _split_sums_check(
             torch, lm, cfg, params, {k: v[0] for k, v in b.items()},
@@ -5322,8 +5584,8 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
         with forced(routes, 1):
             s_up, m_up = plain(f"{label} unsharded step",
                                lambda: step(params, state, 0, b)[1:])
-        witness = _moments_check(torch, s_up, s_un)
-        del state, s_up
+        witness = _state_check(torch, s_up, s_un, loose)
+        del s_up
         free_card(torch)
         ss = steps.init_opt_state(opt, sp, cfg)
         with forced(routes, n_dev):
@@ -5331,16 +5593,23 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
                 f"{label} train step", lambda: step(sp, ss, 0, b),
                 sharded_launches(cfg, sp, "train", n_mb),
                 sharded_transfers(cfg, sp, "train", rows // n_mb, seq,
-                                  n_mb))
+                                  n_mb, src=seq, opt_name=opt_name,
+                                  state=ss))
 
         def rel(m, k):
             return abs(float(m_sh[k]) - float(m[k])) / abs(float(m[k]))
         loss_rel, gn_rel = rel(m_un, "loss"), rel(m_un, "grad_norm")
-        mom = _moments_check(torch, s_sh, s_un)
-        upd = _update_check(torch, params, p_sh, s_sh, 0)
+        mom = _state_check(torch, s_sh, s_un, loose)
+        if opt_name == "adamw":
+            upd = _update_check(torch, params, p_sh, s_sh, 0)
+        else:
+            with forced(routes, n_dev):
+                grads = step_grads(cfg, sp, b, n_mb)
+            upd = _rule_check(torch, opt, params, p_sh, state, grads, 0)
+            del grads
         finite = bool(torch.isfinite(m_sh["loss"])) and \
             bool(torch.isfinite(m_sh["grad_norm"]))
-        del p_sh, s_un
+        del p_sh, s_un, state
         free_card(torch)
         # the same sharded step on the plain versions
         with forced(routes, n_dev):
@@ -5348,7 +5617,7 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
                                lambda: step(sp, ss, 0, b)[1:])
         vs_plain = {"loss_rel": rel(m_pl, "loss"),
                     "grad_norm_rel": rel(m_pl, "grad_norm"),
-                    "moments": _moments_check(torch, s_sh, s_pl)}
+                    "state": _state_check(torch, s_sh, s_pl, loose)}
         del s_sh, s_pl
         free_card(torch)
         torch.cuda.reset_peak_memory_stats()
@@ -5358,15 +5627,17 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
         work = analysis.analytic_flops(cfg, cell)["total"]
         out = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": shape,
                "rows": rows, "seq": seq, "microbatches": n_mb,
+               "optimizer": opt_name, "remat": cfg.remat,
                "loss": float(m_sh["loss"]), "loss_unsharded":
                float(m_un["loss"]), "loss_rel": loss_rel,
                "grad_norm": float(m_sh["grad_norm"]), "grad_norm_rel":
-               gn_rel, "moments_worst": mom, "tolerance": tol,
-               "vs_plain": vs_plain, "unsharded_row_split": row_split,
+               gn_rel, "state_worst": mom, "tolerance": tol,
+               "loose": loose, "vs_plain": vs_plain,
+               "unsharded_row_split": row_split,
                "unsharded_split_sums": cot_split,
                "unsharded_kernels_vs_plain": {
                    "loss_rel": abs(float(m_un["loss"]) - float(m_up["loss"]))
-                   / abs(float(m_up["loss"])), "moments": witness},
+                   / abs(float(m_up["loss"])), "state": witness},
                "update_worst": upd, "dropped_frac": dropped,
                "launches": counts, "transfers": _fmt(got),
                "transfer_count": sum(got.values()),
@@ -5374,34 +5645,35 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
                "ms": sh_ms, "unsharded_ms": un_ms, "peak_gib": peak,
                "analytic_flops": work,
                "fp32_peak_share": analysis.peak_share(work, sh_ms / 1e3)}
-
-        def worst(mo):
-            return (f"m {mo['m'][0]:.3e} ({mo['m'][1]}), sqrt(v) "
-                    f"{mo['v'][0]:.3e} ({mo['v'][1]})")
-        print(f"{tag} {label} train step on {mesh}: loss {out['loss']!r} "
-              f"(unsharded {out['loss_unsharded']!r}, relative "
-              f"{loss_rel:.3e}), grad norm relative {gn_rel:.3e}, adamw "
-              f"moments' worst leaf {worst(mom)} (tolerance {tol}); "
-              f"against the same sharded step on the plain versions (no "
-              f"launch): loss {vs_plain['loss_rel']:.3e}, grad norm "
-              f"{vs_plain['grad_norm_rel']:.3e}, moments "
-              f"{worst(vs_plain['moments'])}; with no sharding, "
+        print(f"{tag} {label} {opt_name} train step (remat {cfg.remat}) on "
+              f"{mesh}: loss {out['loss']!r} (unsharded "
+              f"{out['loss_unsharded']!r}, relative {loss_rel:.3e}), grad "
+              f"norm relative {gn_rel:.3e}, state's worst {_fmt_state(mom)} "
+              f"(tolerance {tol}"
+              + ("" if loose is None else f"; {loose} leaves {SSM_TOL}")
+              + f"; codes in scale steps, within 1); against the same "
+              f"sharded step on the plain versions (no launch): loss "
+              f"{vs_plain['loss_rel']:.3e}, grad norm "
+              f"{vs_plain['grad_norm_rel']:.3e}, state "
+              f"{_fmt_state(vs_plain['state'])}; with no sharding, "
               + ("" if row_split is None else
                  f"the unsharded step against itself with its "
-                 f"microbatches cut into the data groups' rows: moments "
-                 f"{worst(row_split)}, ")
+                 f"microbatches cut into the data groups' rows: state "
+                 f"{_fmt_state(row_split)}, ")
               + ("" if cot_split is None else
                  f"its gradients summed as the sharded step sums them "
                  f"({shape[0]} row blocks x {shape[1]} backward passes, "
                  f"one a vocab block): {cot_split[0]:.3e} "
                  f"({cot_split[1]}), ")
-              + f"through the kernels against plain: moments "
-              f"{worst(witness)}; "
+              + f"through the kernels against plain: state "
+              f"{_fmt_state(witness)}; "
               + ("" if dropped is None else
                  f"dropped_frac of the MoE layers mean {dropped[0]:.4f}, "
                  f"max {dropped[1]:.4f}; ")
-              + f"each parameter's update against its gathered moments' "
-              f"worst {upd[0]:.3e} of SHARD_TOL x lr + one rounding "
+              + f"each parameter's update against "
+              + ("its gathered moments'" if opt_name == "adamw" else
+                 "its optimizer's rule on the step's gathered gradients")
+              + f" worst {upd[0]:.3e} of SHARD_TOL x lr + one rounding "
               f"({upd[1]}, max |diff| {upd[2]:.3e}); "
               f"launches {_nonzero(counts)} = sharded_launches; "
               f"transfers ({out['transfer_count']}, "
@@ -5412,42 +5684,66 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
               f"{out['fp32_peak_share']:.4f} of the fp32 peak", flush=True)
         ok = finite and max(loss_rel, gn_rel, vs_plain["loss_rel"],
                             vs_plain["grad_norm_rel"]) <= tol \
-            and max(mom["m"][0], mom["v"][0], vs_plain["moments"]["m"][0],
-                    vs_plain["moments"]["v"][0]) <= tol and upd[0] <= 1.0
+            and _held_to(mom, tol, SSM_TOL) \
+            and _held_to(vs_plain["state"], tol, SSM_TOL) and upd[0] <= 1.0
         if not ok:
             raise AssertionError(f"{tag} {label} train step: {out}")
         del sp, ss
         free_card(torch)
         return out
 
-    def infer_case(label, cfg, params, routes=None):
+    def infer_case(label, cfg, params, routes=None, seq=TRAIN_SEQ,
+                   loose=None):
         mesh = mesh_lib.make_mesh(SHARD_MESH, ("data", "model"),
                                   devices=positions(math.prod(SHARD_MESH)))
         sp = steps.place_params(params, mesh, cfg=cfg)
-        S = TRAIN_SEQ + SHARD_DECODE
+        S = seq + SHARD_DECODE
         prefill = steps.make_prefill_step(cfg, S)
         decode = steps.make_decode_step(cfg)
-        b = batch_of(cfg, SHARD_PREFILL, TRAIN_SEQ, 1, 1)
-        pb = {"tokens": b["tokens"][0]}
+        b = batch_of(cfg, SHARD_PREFILL, seq, 1, 1)
+        pb = {k: v[0] for k, v in b.items() if k != "labels"}
+        q8 = cfg.kv_bits == 8
+
+        def cache_errs(name, c_a, c_b, errs, codes, decoded=False):
+            """Every cache leaf: max |diff| / max |value| (SSM_TOL for
+            the ``loose`` leaves), the int8 codes counted; after decode
+            steps (``decoded``), the int8 cache's scales by the decode
+            logits' rule, mean relative (their rows' floats follow
+            attention over codes that may round the other way), their
+            max |diff| / max |value| printed."""
+            for k, st in c_a.items():
+                if k == "len":
+                    continue
+                a, bb = st.gather(), _whole(c_b[k])
+                if a.dtype == torch.int8:
+                    codes[f"{name}_{k}"] = _codes_differ(torch, a, bb)
+                elif q8 and decoded:
+                    steps_rel[f"{name}_{k}"] = _mean_rel(a, bb)
+                    scales_rel[f"{name}_{k}"] = _rel(a, bb)
+                else:
+                    errs[f"{name}_{k}" + (" (loose)" if loose and k in loose
+                                          else "")] = _rel(a, bb)
         with recorded(routes):
             l_un, c_un = prefill(params, pb)
         dropped = routes.dropped_frac() if routes else None
         (_, _), un_ms = _timed(torch, lambda: prefill(params, pb))
+        torch.cuda.reset_peak_memory_stats()
         with forced(routes, n_dev):
             (l_sh, c_sh), counts, got = counted(
                 f"{label} prefill", lambda: prefill(sp, pb),
                 sharded_launches(cfg, sp, "prefill"),
                 sharded_transfers(cfg, sp, "prefill", SHARD_PREFILL,
-                                  TRAIN_SEQ))
+                                  seq, src=seq))
         with forced(routes, n_dev):
             l_pl, c_pl = plain(f"{label} prefill", lambda: prefill(sp, pb))
         errs = {"prefill": _rel(l_sh, l_un),
                 "prefill_vs_plain": _rel(l_sh, l_pl)}
-        for k in ("k", "v"):
-            errs[f"prefill_cache_{k}_vs_plain"] = _rel(c_sh[k].gather(),
-                                                       c_pl[k].gather())
+        codes: dict = {}
+        steps_rel: dict = {}
+        scales_rel: dict = {}
+        cache_errs("prefill_cache_vs_plain", c_sh, c_pl, errs, codes)
         (_, _), sh_ms = _timed(torch, lambda: prefill(sp, pb))
-        cell = ShapeCell("prefill", "prefill", TRAIN_SEQ, SHARD_PREFILL)
+        cell = ShapeCell("prefill", "prefill", seq, SHARD_PREFILL)
         work = analysis.analytic_flops(cfg, cell)["fwd"]
         pre = {"launches": counts, "transfers": _fmt(got), "ms": sh_ms,
                "unsharded_ms": un_ms, "analytic_flops": work,
@@ -5473,10 +5769,12 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
                 with forced(routes, n_dev):
                     l_pl, c_pl = plain(f"{label} decode step",
                                        lambda: decode(sp, tok, c_pl))
-                errs["decode_0_vs_plain"] = _rel(l_sh, l_pl)
-                for k in ("k", "v"):
-                    errs[f"decode_0_cache_{k}_vs_plain"] = _rel(
-                        c_sh[k].gather(), c_pl[k].gather())
+                if q8:
+                    steps_rel["decode_0_vs_plain"] = _mean_rel(l_sh, l_pl)
+                else:
+                    errs["decode_0_vs_plain"] = _rel(l_sh, l_pl)
+                cache_errs("decode_0_cache_vs_plain", c_sh, c_pl, errs,
+                           codes, decoded=True)
                 del l_pl, c_pl
             else:
                 with forced(routes, n_dev):
@@ -5484,24 +5782,32 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
                         torch, lambda: decode(sp, tok, c_sh))
                 dec_ms.append(ms_s)
                 dec_un_ms.append(ms_u)
-            errs[f"decode_{i}"] = _rel(l_sh, l_un)
-        for k in ("k", "v"):
-            errs[f"cache_{k}"] = _rel(c_sh[k].gather(), c_un[k])
+            if q8:
+                steps_rel[f"decode_{i}"] = _mean_rel(l_sh, l_un)
+            else:
+                errs[f"decode_{i}"] = _rel(l_sh, l_un)
+        cache_errs("cache", c_sh, c_un, errs, codes, decoded=True)
         if not all(bool(torch.isfinite(x).all()) for x in (l_sh, l_un)):
             raise AssertionError(f"{tag} {label}: non-finite logits")
         cell = ShapeCell("decode", "decode", S, SHARD_PREFILL)
         dwork = analysis.analytic_flops(cfg, cell)["fwd"]
         dmed = statistics.median(dec_ms)
         out = {
-            "prefill": pre, "rows": SHARD_PREFILL, "seq": TRAIN_SEQ,
+            "prefill": pre, "rows": SHARD_PREFILL, "seq": seq,
             "cache": S, "decode_steps": SHARD_DECODE,
             "decode_launches": d_counts, "decode_transfers": _fmt(d_got),
             "decode_ms_median": dmed,
             "decode_unsharded_ms_median": statistics.median(dec_un_ms),
             "decode_fp32_peak_share": analysis.peak_share(dwork, dmed / 1e3),
-            "rel_errs": errs, "peak_gib": peak_gib(torch)}
-        worst = max(errs.values())
-        print(f"{tag} {label} prefill {SHARD_PREFILL} x {TRAIN_SEQ} (cache "
+            "rel_errs": errs, "decode_mean_rel": steps_rel,
+            "codes_differ": codes, "scales_max_rel": scales_rel,
+            "peak_gib": peak_gib(torch)}
+        strict = {k: v for k, v in errs.items() if "loose" not in k}
+        worst = max(strict.values())
+        worst_plain = max(v for k, v in strict.items() if "plain" in k)
+        worst_loose = max([v for k, v in errs.items() if "loose" in k],
+                          default=0.0)
+        print(f"{tag} {label} prefill {SHARD_PREFILL} x {seq} (cache "
               f"{S}): launches {_nonzero(counts)}, transfers {_fmt(got)} (= "
               f"sharded_launches, sharded_transfers); {sh_ms:.1f} ms "
               f"(unsharded {un_ms:.1f} ms), {pre['fp32_peak_share']:.4f} of "
@@ -5518,50 +5824,126 @@ def run_sharded(torch, np, lm, registry, counters, dev) -> tuple:
               f"{worst:.3e} (tolerance {SHARD_TOL}; against the unsharded "
               f"steps, and the prefill and first decode step against the "
               f"same sharded calls on the plain versions, no launch: "
-              f"{max(v for k, v in errs.items() if 'plain' in k):.3e}) on "
-              f"{card}", flush=True)
-        if worst > SHARD_TOL:
-            raise AssertionError(f"{tag} {label} inference: {errs}")
+              f"{worst_plain:.3e})"
+              + ("" if not loose else
+                 f", the {'/'.join(loose)} leaves {worst_loose:.3e} "
+                 f"(tolerance {SSM_TOL})")
+              + ("" if not q8 else
+                 f"; the decode logits' and the decoded cache scales' mean "
+                 f"relative difference worst {max(steps_rel.values()):.3e} "
+                 f"(bound {KV8_MEAN_REL}; the scales' max |diff| / max "
+                 f"|value| {scales_rel}); int8 codes differing (count, "
+                 f"largest): {codes}")
+              + f"; peak {out['peak_gib']:.2f} GiB on {card}", flush=True)
+        if worst > SHARD_TOL or worst_loose > SSM_TOL or (q8 and (
+                max(steps_rel.values()) >= KV8_MEAN_REL
+                or max(m for _, m in codes.values()) > 1)):
+            raise AssertionError(f"{tag} {label} inference: {errs} "
+                                 f"{steps_rel} {codes}")
         del sp, c_un, c_sh, l_un, l_sh
         free_card(torch)
         return out
 
-    # (a) granite-3-8b
-    cfg, params = make_lm(torch, lm, registry, dev, tag, "granite-3-8b",
-                          TRAIN_LAYERS, remat="full")
-    run["train"] = train_case("granite-3-8b", cfg, params, SHARD_MESH,
-                              TRAIN_ROWS, TRAIN_SEQ, TRAIN_MB, SHARD_TOL)
-    run["infer"] = infer_case("granite-3-8b", cfg, params)
-    del params
-    free_card(torch)
+    failed: list = []
 
-    # (b) mamba2-130m: #13 a position on its data shard
-    cfg, params = make_lm(torch, lm, registry, dev, tag, "mamba2-130m")
-    rows, seq = TRAIN_SSM
-    run["ssm"] = train_case("mamba2-130m", cfg, params, SHARD_SSM_MESH,
-                            rows, seq, 1, SSM_TOL)
-    del params
-    free_card(torch)
+    def sub(letter, fn):
+        """Sub-path ``letter``, timed; a failed check is kept, the next
+        runs."""
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except AssertionError as e:
+            failed.append(f"({letter}) {e}")
+            print(f"{tag} ({letter}) FAILED: {e}", flush=True)
+        free_card(torch)
+        run.setdefault("sub_seconds", {})[letter] = \
+            run.get("sub_seconds", {}).get(letter, 0.0) \
+            + time.perf_counter() - t0
 
-    # (c) qwen3-moe-30b-a3b: replicated experts on the whole batch a
-    # device, attention by heads; the routes of each unsharded call
-    # forced onto the sharded ones
-    cfg, params = make_lm(torch, lm, registry, dev, tag, "qwen3-moe-30b-a3b",
-                          SHARD_MOE_LAYERS, remat="full")
-    routes = CallRoutes(moe)
-    run["moe_train"] = train_case("qwen3-moe-30b-a3b", cfg, params,
-                                  SHARD_MESH, TRAIN_ROWS, TRAIN_SEQ,
-                                  TRAIN_MB, SHARD_TOL, routes)
-    run["moe_infer"] = infer_case("qwen3-moe-30b-a3b", cfg, params, routes)
-    run["moe_routes"] = check_routes(
-        f"{tag} qwen3-moe-30b-a3b", routes, "the sharded calls forced onto "
-        "the unsharded calls' experts")
-    del params
+    def granite():
+        # (a) granite-3-8b
+        cfg, params = make_lm(torch, lm, registry, dev, tag, "granite-3-8b",
+                              TRAIN_LAYERS, remat="full")
+        sub("a", lambda: run.update(
+            train=train_case("granite-3-8b", cfg, params, SHARD_MESH,
+                             TRAIN_ROWS, TRAIN_SEQ, TRAIN_MB, SHARD_TOL),
+            infer=infer_case("granite-3-8b", cfg, params)))
+        # (f) the int8 KV cache on the same weights
+        cfg8, _ = make_lm(torch, lm, registry, dev, tag, "granite-3-8b",
+                          TRAIN_LAYERS, params=params, kv_bits=8)
+        sub("f", lambda: run.update(kv8_infer=infer_case(
+            "granite-3-8b kv_bits=8", cfg8, params)))
+        # (g) adafactor and int8_adamw over the shards, remat group
+        cfgg, _ = make_lm(torch, lm, registry, dev, tag, "granite-3-8b",
+                          TRAIN_LAYERS, params=params, remat="group")
+        for name, shape in (("adafactor", SHARD_MESH),
+                            ("int8_adamw", SHARD_INT8_MESH)):
+            sub("g", lambda name=name, shape=shape: run.update({
+                f"{name}_train": train_case(
+                    "granite-3-8b", cfgg, params, shape, TRAIN_ROWS,
+                    TRAIN_SEQ, TRAIN_MB, SHARD_TOL, opt_name=name)}))
+
+    def mamba2():
+        # (b) mamba2-130m: #13 a position on its data shard
+        cfg, params = make_lm(torch, lm, registry, dev, tag, "mamba2-130m")
+        rows, seq = TRAIN_SSM
+        run["ssm"] = train_case("mamba2-130m", cfg, params, SHARD_SSM_MESH,
+                                rows, seq, 1, SSM_TOL)
+
+    def qwen3():
+        # (c) qwen3-moe-30b-a3b: replicated experts on the whole batch a
+        # device, attention by heads; the routes of each unsharded call
+        # forced onto the sharded ones
+        cfg, params = make_lm(torch, lm, registry, dev, tag,
+                              "qwen3-moe-30b-a3b", SHARD_MOE_LAYERS,
+                              remat="full")
+        routes = CallRoutes(moe)
+        run["moe_train"] = train_case("qwen3-moe-30b-a3b", cfg, params,
+                                      SHARD_MESH, TRAIN_ROWS, TRAIN_SEQ,
+                                      TRAIN_MB, SHARD_TOL, routes)
+        run["moe_infer"] = infer_case("qwen3-moe-30b-a3b", cfg, params,
+                                      routes)
+        run["moe_routes"] = check_routes(
+            f"{tag} qwen3-moe-30b-a3b", routes, "the sharded calls forced "
+            "onto the unsharded calls' experts")
+
+    def zamba2():
+        # (d) zamba2-1.2b: the mixer a position on its data shard, the
+        # shared block's attention and MLP cut over model
+        rows, seq = SHARD_SMALL
+        cfg, params = make_lm(torch, lm, registry, dev, tag, "zamba2-1.2b",
+                              SHARD_HYBRID_LAYERS, remat="full")
+        run["hybrid_train"] = train_case("zamba2-1.2b", cfg, params,
+                                         SHARD_MESH, rows, seq, 1,
+                                         SHARD_TOL, loose="mixer")
+        run["hybrid_infer"] = infer_case("zamba2-1.2b", cfg, params,
+                                         seq=seq, loose=("conv", "ssm"))
+
+    def seamless():
+        # (e) seamless-m4t-medium: the encoder in lockstep, cross-attention
+        # by heads over each position's rows of the encoder output
+        rows, seq = SHARD_SMALL
+        cfg, params = make_lm(torch, lm, registry, dev, tag,
+                              "seamless-m4t-medium", remat="full")
+        run["encdec_train"] = train_case("seamless-m4t-medium", cfg,
+                                         params, SHARD_MESH, rows, seq, 1,
+                                         SHARD_TOL)
+        run["encdec_infer"] = infer_case("seamless-m4t-medium", cfg, params,
+                                         seq=seq)
+
+    granite()
     free_card(torch)
+    for letter, fn in (("b", mamba2), ("c", qwen3), ("d", zamba2),
+                       ("e", seamless)):
+        sub(letter, fn)
+    if failed:
+        raise AssertionError(f"{tag} " + "; ".join(failed))
     run["launches"] = total
     run["seconds"] = time.perf_counter() - t_path
     print(f"{tag} launches {_nonzero(total)}; path sharded took "
-          f"{run['seconds']:.1f}s", flush=True)
+          f"{run['seconds']:.1f}s (by sub-path: " + ", ".join(
+              f"{k} {v:.1f}s" for k, v in run["sub_seconds"].items())
+          + ")", flush=True)
     return total, run
 
 

@@ -11,30 +11,47 @@ the layout, the collectives and the gather of cut heads. Every transfer
 between positions
 is made and labelled through ``roofline.trace.transfer``, even where the
 positions name one device. A sharded step computes the unsharded step's
-function; only the order of floating-point sums differs.
+function; only the order of floating-point sums differs. Every family
+(dense, vlm, moe, ssm, hybrid, encdec), the int8 KV cache and every
+optimizer run sharded.
 
 Layout (parameters as ``launch.steps.place_params`` lays them out):
 
 * **Batch.** Every mesh axis but ``model`` is a data axis; the batch is
   cut into contiguous blocks over them (row-major), on axis 1 of a
   microbatch-shaped train batch. Data group g holds block g at each of
-  its ``model`` positions.
+  its ``model`` positions; an encdec model's ``src_embeds`` is cut as
+  its tokens are.
 * **Attention, tensor-parallel by heads.** ``wq``/``wk``/``wv`` are
   column shards and ``wo`` a row shard: a position runs
   ``nn/attention`` with its head counts (``H/tp`` q and ``Hkv/tp`` kv
-  heads) on its shards, a partial sum all-reduced over ``model``. Where ``_guard`` left a projection sharded with
-  columns that are not whole heads (``tp`` divides H·Dh but not H, or
+  heads) on its shards, a partial sum all-reduced over ``model``.
+  Where ``_guard`` left a projection sharded with columns that are not
+  whole heads (``tp`` divides H·Dh but not H, or
   Hkv·Dh but not Hkv: every ``registry.reduced`` config at ``model =
   4``, starcoder2-7b at 8), that projection is all-gathered over
   ``model`` and the position attends over the whole heads that cover
-  its rows of ``wo``.
+  its rows of ``wo``. One helper (``_attention``, an ``Attend`` naming
+  its cache leaves, their row, causality and whether it is
+  cross-attention) serves the decoder's self-attention, the encoder's
+  bidirectional attention, an encdec decoder's cross-attention (k and v
+  from the encoder output, cached per layer in ``xk``/``xv``; a decode
+  step reads them with ``wq`` alone, no ``qnorm``, over all ``src_len``
+  rows) and zamba2's shared block (``sk``/``sv`` at its call index).
+* **The int8 cache** (``kv_bits=8``): codes ``k``/``v`` and row scales
+  ``k_s``/``v_s`` (L, B, S, Hkv), kv heads over ``model``. A row is one
+  (position, head), so it lies whole in one shard: each position
+  quantizes its rows (``flash.quantize_kv_rows``) and a decode step
+  attends through ``flash.decode_grouped_q8``, the unsharded tensor
+  code.
 * **MLP.** ``up``/``gate`` column shards, ``down`` a row shard, its
   partial sum all-reduced. Gemma2's post-norms apply to the sum.
 * **Embedding.** A vocab-sharded table (vocab divisible by ``model``)
   is looked up by block, out-of-block ids reading 0, and the blocks
   all-reduced; a tied or ``lm_head`` readout's logits are all-gathered
-  over ``model``. A replicated head (granite's 49155 rows) is read once
-  a data group, at its ``model`` position 0.
+  over ``model``. A replicated head (granite's 49155 rows, seamless's
+  256206 at ``model = 4``) is read once a data group, at its ``model``
+  position 0.
 * **MoE.** ``plan_for``'s ``['experts']`` rule matches no leaf, so the
   router and every expert stay replicated; attention and llama4's
   shared expert are cut over ``model`` (the shared expert's ``up`` and
@@ -52,18 +69,35 @@ Layout (parameters as ``launch.steps.place_params`` lays them out):
   whole batch, and enters the loss once (``0.01 ×`` the mean over the
   MoE layers). llama4's grouped layout (``layers = {"dense", "moe"}``)
   runs its dense layers as the dense family's.
-* **SSM.** The mixer's weights match no rule and stay replicated: each
-  ``model`` position runs the mixer on its data shard (the redundancy
-  the JAX package's ``launch/dryrun.py:224-229`` notes).
+* **SSM and hybrid.** The mixer's weights match no rule and stay
+  replicated: each ``model`` position runs the mixer on its data shard
+  (the redundancy the JAX package's ``launch/dryrun.py:224-229`` notes).
+  zamba2's shared block runs before each segment of
+  ``shared_attn_every`` Mamba layers: ``in_proj`` (replicated) on the
+  concatenation of the residual and the embedding ``h0`` (the current
+  token's in a decode step), attention cut by heads and the MLP by
+  columns, both partial sums all-reduced, ``out_proj`` replicated.
+* **encdec.** The encoder runs in lockstep as the decoder does (heads
+  cut, partial sums all-reduced, no windows, bidirectional), then
+  ``enc_norm`` at each position, so every position holds its rows of
+  the encoder output whole; each decoder layer's cross-attention
+  projects them through its own ``wk``/``wv`` shard, and its ``wo``
+  partial sum is all-reduced on its own, before the MLP.
 * **Remat.** A train step checkpoints each layer of the lockstep stack
-  (``cfg.remat``; ``group`` as ``full``), and its recompute replays the
+  (``cfg.remat`` ``full`` or ``dots``), the encoder's layers and the
+  Mamba layers too but not zamba2's shared block, as the JAX package's
+  ``_remat`` does; ``group`` checkpoints groups of ``remat_group`` (or
+  ``_auto_group(L)``) decoder layers with each layer checkpointed
+  inside (elsewhere ``group`` is ``full``). A recompute replays the
   whole layer, its collectives and kernels included.
 * **seq_shard.** Where ``cfg.seq_shard`` is set, ``tp > 1``, and the
-  sequence T > 1 divides by ``tp``, the residual between blocks is held
-  sequence-sharded over ``model``: a reduce-scatter on T in place of
-  each all-reduce, the norms on the T shard, an all-gather before the
-  next column-parallel product (the JAX package's ``_sp``). Otherwise
-  the residual stays whole, as ``_sp`` leaves it.
+  sequence T > 1 divides by ``tp``, the decoder's residual between
+  blocks is held sequence-sharded over ``model``: a reduce-scatter on T
+  in place of each all-reduce, the norms on the T shard, an all-gather
+  before the next column-parallel product (the JAX package's ``_sp``).
+  Otherwise the residual stays whole, as ``_sp`` leaves it. The
+  encoder, the SSM stack and zamba2's stack call no ``_sp`` in the
+  JAX package and stay whole.
 
 Training: the loss is the global batch's token-weighted mean (each data
 group's summed NLL and token count, ``lm._nll_sums``, all-reduced over
@@ -75,8 +109,20 @@ are one autograd leaf, so their gradient is the sum of those
 positions' contributions; the gradient of a block is then the sum over
 the distinct tensors that hold it (an all-reduce over ``data``, and
 over ``model`` too for a replicated leaf), the global norm counts each
-block once, and the optimizer (elementwise: ``adamw``, ``sgd``) updates
-each distinct tensor once.
+block once, and :func:`optimizer_step` updates each block once.
+
+The optimizer state is laid out by ``tree_specs`` of its own tree under
+``plan_for`` (the JAX dry run's layout). ``adamw``, ``sgd`` and the
+leaves whose blocks need nothing of other blocks update one distinct
+tensor at a time. An ``adafactor`` leaf cut over ``model``, or whose
+factored statistics are laid out otherwise than its blocks read them
+(a column-cut ``wq``'s ``vr`` is cut on d), and an ``int8_adamw`` leaf
+whose quantization groups straddle its shards, update in lockstep: the
+cross-block sums (adafactor's ``mean(g², -1)``, ``mean(g², -2)``,
+``mean(vr, -1)`` and the leaf's ``rms(u)``) and maxima (int8_adamw's
+group absmax) are all-reduced over ``model``, and a state leaf laid out
+otherwise than its parameter's blocks is all-gathered on its way in or
+out.
 
 Transfers, each labelled once for the whole mesh with one position's
 bytes (as HLO lists one collective in the per-device program): the
@@ -84,12 +130,8 @@ forward's collectives (again under remat, in the recompute), their
 adjoints in the backward (an all-reduce's is an all-reduce, an
 all-gather's a reduce-scatter, a reduce-scatter's an all-gather), the
 loss's all-reduce, one gradient all-reduce a parameter leaf held by
-more than one position, and the global norm's all-reduce.
-
-Not run sharded (``NotImplementedError``, each naming its ROADMAP.md
-item): the encdec and hybrid families, ``kv_bits=8``, and the
-``adafactor`` and ``int8_adamw`` optimizers, whose factored or grouped
-statistics run across a sharded axis.
+more than one position, the global norm's all-reduce, and the
+optimizer's.
 """
 from __future__ import annotations
 
@@ -105,15 +147,16 @@ from ..configs.base import ModelCfg
 from ..kernels import ops
 from ..models import lm
 from ..nn import attention as A
+from ..nn import flash
 from ..nn import layers as L
 from ..nn import moe as M
 from ..nn import ssm as S
+from ..optim import optimizers as opt_lib
 from ..roofline import trace
 from ..tree import flatten_with_path, leaves, map_with_path, tree_map
 from . import sharding as sh
 
-REFUSED_FAMILIES = ("encdec", "hybrid")
-REFUSED_OPTIMIZERS = ("adafactor", "int8_adamw")
+F32 = torch.float32
 
 
 def is_sharded(tree) -> bool:
@@ -126,22 +169,6 @@ def gather(tree, device=None):
     default its position 0's); other leaves as they are."""
     return tree_map(lambda x: x.gather(device)
                     if isinstance(x, sh.ShardedTensor) else x, tree)
-
-
-def check_supported(cfg: ModelCfg, optimizer=None) -> None:
-    """Raise ``NotImplementedError`` for what does not run sharded."""
-    if cfg.family in REFUSED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family over a sharded mesh waits for "
-            f"ROADMAP.md §1, item 3d")
-    if cfg.kv_bits == 8:
-        raise NotImplementedError(
-            "a kv_bits=8 cache over a sharded mesh waits for ROADMAP.md "
-            "§1, item 3d")
-    if optimizer is not None and optimizer.name in REFUSED_OPTIMIZERS:
-        raise NotImplementedError(
-            f"{optimizer.name} over sharded parameters waits for "
-            f"ROADMAP.md §1, item 3e")
 
 
 # ---------------------------------------------------------------------------
@@ -206,10 +233,14 @@ class _Op:
     """One collective over ``groups`` (lists of positions, in order):
     its forward and its adjoint. An all-reduce or all-gather has one
     output a (group, device): positions of a group on one device share
-    it; a reduce-scatter one a position (its chunk)."""
+    it; a reduce-scatter one a position (its chunk). An all-reduce sums,
+    or with ``reduce="max"`` takes the elementwise maximum (no
+    adjoint)."""
 
-    def __init__(self, kind: str, groups: list, devs: list, dim: int):
+    def __init__(self, kind: str, groups: list, devs: list, dim: int,
+                 reduce: str = "sum"):
         self.kind, self.groups, self.devs, self.dim = kind, groups, devs, dim
+        self.reduce = reduce
         self.order = [p for grp in groups for p in grp]
         self.index = {p: i for i, p in enumerate(self.order)}
         self.slot_of: dict[int, int] = {}
@@ -229,7 +260,8 @@ class _Op:
     def _sum(self, ts: list, dev):
         total = ts[0].to(dev)
         for t in ts[1:]:
-            total = total + t.to(dev)
+            total = torch.maximum(total, t.to(dev)) if self.reduce == "max" \
+                else total + t.to(dev)
         return total
 
     def forward(self, xs: list) -> list:
@@ -237,7 +269,8 @@ class _Op:
         for grp in self.groups:
             xg = [xs[self.index[p]] for p in grp]
             d0 = self.devs[grp[0]]
-            self.sizes.append([x.shape[self.dim] for x in xg])
+            self.sizes.append([x.shape[self.dim] if x.dim() else 1
+                               for x in xg])
             if self.kind == "all-gather":
                 full = torch.cat([x.to(d0) for x in xg], dim=self.dim)
             else:
@@ -257,6 +290,9 @@ class _Op:
     def backward(self, gs: list) -> list:
         """The adjoint: each input's gradient, the transfer labelled with
         one position's result bytes."""
+        if self.reduce != "sum":
+            raise RuntimeError(f"an all-reduce of the {self.reduce} has no "
+                               f"adjoint here")
         g0, size0 = gs[0], self.sizes[0]
         nbytes = {"all-reduce": _nbytes(g0),
                   "all-gather": _nbytes(g0) * size0[0] // sum(size0),
@@ -291,12 +327,12 @@ class _Collective(torch.autograd.Function):
 
 
 def collective(kind: str, xs: dict, groups: list, devs: list,
-               dim: int = -1) -> dict:
-    """``kind`` (``all-reduce``, ``all-gather`` along ``dim``,
-    ``reduce-scatter`` along ``dim``) of ``xs`` (position → tensor) over
-    ``groups``; position → result. Labelled once with one position's
-    result bytes; groups of one position move nothing and are not
-    labelled."""
+               dim: int = -1, reduce: str = "sum") -> dict:
+    """``kind`` (``all-reduce`` by ``reduce``, ``sum`` or ``max``;
+    ``all-gather`` along ``dim``, ``reduce-scatter`` along ``dim``) of
+    ``xs`` (position → tensor) over ``groups``; position → result.
+    Labelled once with one position's result bytes; groups of one
+    position move nothing and are not labelled."""
     groups = [list(g) for g in groups]
     if all(len(g) == 1 for g in groups):
         return {p: xs[p] for g in groups for p in g}
@@ -305,7 +341,7 @@ def collective(kind: str, xs: dict, groups: list, devs: list,
     nbytes = {"all-reduce": _nbytes(x0),
               "all-gather": sum(_nbytes(xs[p]) for p in first),
               "reduce-scatter": _nbytes(x0) // len(first)}[kind]
-    op = _Op(kind, groups, devs, dim)
+    op = _Op(kind, groups, devs, dim, reduce)
     with trace.transfer(kind, nbytes):
         outs = _Collective.apply(op, *[xs[p] for p in op.order])
     return {p: outs[op.slot_of[p]] for p in op.order}
@@ -315,10 +351,17 @@ def collective(kind: str, xs: dict, groups: list, devs: list,
 # one call's view of the sharded parameters
 # ---------------------------------------------------------------------------
 
+def _cut_axis(spec) -> int | None:
+    """The axis a spec cuts over ``model``, or None."""
+    for i, ax in enumerate(spec):
+        if ax is not None and "model" in sh._axes(ax):
+            return i
+    return None
+
+
 def _on_model(st) -> bool:
     """Whether a ``ShardedTensor`` is cut over ``model``."""
-    return any(ax is not None and "model" in sh._axes(ax)
-               for ax in st.spec)
+    return _cut_axis(st.spec) is not None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -344,7 +387,6 @@ class Run:
     tree (``P[p]``), and the layout read from the ``ShardedTensor`` s."""
 
     def __init__(self, params: dict, cfg: ModelCfg, local=None):
-        check_supported(cfg)
         first = leaves(params)[0]
         self.grid = Grid(first.mesh)
         self.cfg = cfg
@@ -363,20 +405,27 @@ class Run:
             else params["lm_head"]["w"]
         self.head_split = g.tp > 1 and _on_model(head)
         self._rope: dict = {}
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             for path, st in flatten_with_path(params["layers"]):
                 if _on_model(st):
-                    raise NotImplementedError(
-                        f"a mixer weight sharded over model "
-                        f"({sh.keystr(path)}) waits for ROADMAP.md §1, "
-                        f"item 3d")
+                    raise ValueError(
+                        f"the mixer leaf ['layers']{sh.keystr(path)} is "
+                        f"laid out {st.spec} over model: each position "
+                        f"runs the whole mixer on its data shard, under a "
+                        f"plan (such as plan_for's) that leaves every "
+                        f"mixer weight replicated")
+        if cfg.family == "ssm":
             self.heads = None
             self.mlp_split = self.shared_split = False
             return
         # the blocks' trees: llama4's grouped layout has two kinds, whose
-        # attention is laid out alike
-        blocks = [params["layers"][k] for k in ("dense", "moe")] \
-            if lm._grouped(cfg) else [params["layers"]]
+        # attention is laid out alike; zamba2's one shared block
+        if cfg.family == "hybrid":
+            blocks = [params["shared"]]
+        elif lm._grouped(cfg):
+            blocks = [params["layers"][k] for k in ("dense", "moe")]
+        else:
+            blocks = [params["layers"]]
         at = blocks[-1]["attn"]
         H, Hkv, tp = cfg.n_heads, cfg.n_kv_heads, g.tp
         q_split = tp > 1 and _on_model(at["wq"]["w"])
@@ -424,8 +473,9 @@ class Run:
         return 0, Hkv
 
     # -- helpers ----------------------------------------------------------
-    def layer(self, p: int, i: int) -> dict:
-        return lm.layer(self.P[p]["layers"], i, self.cfg)
+    def layer(self, p: int, i: int, key: str = "layers") -> dict:
+        return lm.layer(self.P[p][key], i,
+                        self.cfg if key == "layers" else None)
 
     def moe_layer(self, i: int) -> bool:
         """Whether layer ``i`` is an MoE layer."""
@@ -438,6 +488,15 @@ class Run:
         if key not in self._rope:
             self._rope[key] = (pos, lm._rope(self.cfg, pos))
         return self._rope[key][1]
+
+    def positions_of(self, T: int) -> dict:
+        """Positions 0..T-1 (1, T) at every position, one tensor a
+        device."""
+        made: dict = {}
+        for d in self.grid.devs:
+            if d not in made:
+                made[d] = torch.arange(T, device=d)[None, :]
+        return {p: made[self.grid.devs[p]] for p in self.grid.positions}
 
     def over_model(self, kind: str, xs: dict, dim: int = -1) -> dict:
         return collective(kind, xs, self.grid.model_groups, self.grid.devs,
@@ -462,57 +521,130 @@ class Run:
 
 
 # ---------------------------------------------------------------------------
-# the stack
+# attention
 # ---------------------------------------------------------------------------
 
-def _take(t: torch.Tensor, off: int, a: int, b: int) -> torch.Tensor:
-    """Heads [a, b) of ``t`` (…, heads, Dh) whose first head is ``off``."""
-    if (a - off, b - off) == (0, t.shape[-2]):
+@dataclasses.dataclass(frozen=True)
+class Attend:
+    """One attention of a block: its cache leaves (``names``, their row
+    ``at``: a layer, or a shared-block call), ``causal``, ``window``,
+    and ``cross``: cross-attention (k and v projected from the encoder
+    output in forward and prefill, read from the cached rows in a decode
+    step; no RoPE)."""
+    names: tuple = ("k", "v")
+    at: int = 0
+    causal: bool = True
+    window: int | None = None
+    cross: bool = False
+
+
+def _take(t: torch.Tensor, off: int, a: int, b: int,
+          axis: int = -2) -> torch.Tensor:
+    """Heads [a, b) of ``t`` (heads on ``axis``) whose first head is
+    ``off``."""
+    if (a - off, b - off) == (0, t.shape[axis]):
         return t
-    return t[..., a - off:b - off, :].contiguous()
+    return t.narrow(axis, a - off, b - a).contiguous()
 
 
-def _kv_for(t: torch.Tensor, off: int, qa: int, qb: int, rep: int):
-    """The kv heads q heads [qa, qb) read, as a tensor the kernels map
-    by ``q head // (nq / nkv)``: a range of whole groups, one kv head,
-    or one kv head a q head."""
+def _kv_for(t: torch.Tensor, off: int, qa: int, qb: int, rep: int,
+            axis: int = -2):
+    """The kv heads q heads [qa, qb) read (heads on ``axis``), as a
+    tensor the kernels map by ``q head // (nq / nkv)``: a range of whole
+    groups, one kv head, or one kv head a q head."""
     ka, kb = qa // rep, (qb - 1) // rep + 1
     if (qa % rep == 0 and qb % rep == 0) or kb - ka == 1:
-        return _take(t, off, ka, kb)
+        return _take(t, off, ka, kb, axis)
     idx = torch.tensor([h // rep - off for h in range(qa, qb)],
                        device=t.device)
-    return t.index_select(-2, idx)
+    return t.index_select(axis, idx)
 
 
-def _attention(run: Run, pls: dict, xs: dict, window, pos: dict,
-               mode: str, i: int, cache=None, clen=None) -> dict:
+def _int8(cache, att: Attend) -> bool:
+    """Whether ``att``'s cache holds int8 codes with row scales."""
+    return cache is not None and f"{att.names[0]}_s" in cache
+
+
+def _slots(cache, att: Attend, p: int) -> tuple:
+    """Position ``p``'s cache rows of ``att`` (views): (k, v), or (kq,
+    ks, vq, vs) for the int8 cache."""
+    kn, vn = att.names
+    if _int8(cache, att):
+        return tuple(cache[n].shard(p)[att.at]
+                     for n in (kn, f"{kn}_s", vn, f"{vn}_s"))
+    return cache[kn].shard(p)[att.at], cache[vn].shard(p)[att.at]
+
+
+def _store(cache, att: Attend, p: int, k, v, index=None) -> None:
+    """Write ``k`` and ``v`` (B, T, heads, Dh) into position ``p``'s
+    cache rows of ``att``: at positions [0, T) (``index`` None) or at
+    ``index`` (rows, at) of one token (B, heads, Dh); quantized where the
+    cache is int8."""
+    for name, t in zip(att.names, (k, v)):
+        where = (slice(None), slice(0, t.shape[1])) if index is None \
+            else index
+        dst = cache[name].shard(p)[att.at]
+        if _int8(cache, att):
+            codes, scales = flash.quantize_kv_rows(t)
+            dst[where] = codes
+            cache[f"{name}_s"].shard(p)[att.at][where] = scales
+        else:
+            dst[where] = t.to(dst.dtype)
+
+
+def _src_len(kc: torch.Tensor) -> torch.Tensor:
+    """Every row's length over cached cross-attention rows (B, S, …)."""
+    return torch.full((kc.shape[0],), kc.shape[1], dtype=torch.int32,
+                      device=kc.device)
+
+
+def _attention(run: Run, pa: dict, xs: dict, pos: dict, mode: str,
+               att: Attend, cache=None, clen=None, kv_x=None) -> dict:
     """Each position's attention output: a partial sum over its rows of
-    ``wo`` (``run.heads.q_split``) or the whole output. ``mode``:
-    ``forward``; ``prefill`` (layer ``i``'s keys and values written into
-    ``cache``'s k/v shards); ``decode`` (one token, written at ``clen``,
-    attending over ``clen`` + 1 cached positions). Whole heads run
-    ``nn/attention`` with the position's head counts (``run.acfg``)."""
+    ``wo`` (``run.heads.q_split``) or the whole output. ``pa``: each
+    position's attention parameters; ``kv_x``: each position's encoder
+    rows (cross-attention in forward and prefill). ``mode``:
+    ``forward``; ``prefill`` (the keys and values written into
+    ``att``'s cache rows); ``decode`` (one token, written at ``clen``,
+    attending over ``clen`` + 1 cached positions; a cross-attention step
+    over every cached row). Whole heads run ``nn/attention`` with the
+    position's head counts (``run.acfg``)."""
     if not run.heads.whole:
-        return _cut_heads(run, pls, xs, window, pos, mode, i, cache, clen)
+        return _cut_heads(run, pa, xs, pos, mode, att, cache, clen, kv_x)
+    acfg = dataclasses.replace(run.acfg, causal=att.causal,
+                               use_rope=not att.cross)
     out = {}
     for p, x in xs.items():
-        pa, tables = pls[p]["attn"], run.rope(pos[p])
-        if mode == "decode":
-            out[p], _ = A.decode_step(
-                pa, run.acfg, x, (cache["k"].shard(p)[i],
-                                  cache["v"].shard(p)[i]),
-                clen[p], window=window, rope=tables)
+        tables = None if att.cross else run.rope(pos[p])
+        B, T = x.shape[:2]
+        if att.cross and mode == "decode":
+            q = L.linear(pa[p]["wq"], x).reshape(B, -1, acfg.head_dim)
+            kc, vc = _slots(cache, att, p)
+            o = ops.decode_attention(q, kc, vc, _src_len(kc))
+            out[p] = L.linear(pa[p]["wo"], o.reshape(B, 1, -1))
+        elif att.cross and mode == "prefill":
+            # the reference's prefill passes no softcap here
+            q, k, v = A._project_qkv(pa[p], acfg, x, kv_x[p])
+            o = ops.mha(q, k, v, causal=False, window=None, softcap=None)
+            _store(cache, att, p, k, v)
+            out[p] = L.linear(pa[p]["wo"], o.reshape(B, T, -1))
+        elif mode == "decode":
+            out[p], _ = A.decode_step(pa[p], acfg, x, _slots(cache, att, p),
+                                      clen[p], window=att.window, rope=tables)
         elif mode == "prefill":
-            kc, vc = cache["k"].shard(p), cache["v"].shard(p)
-            out[p], (kc[i], vc[i]) = A.prefill(pa, run.acfg, x, kc.shape[2],
-                                               window=window, rope=tables)
+            S_ = cache[att.names[0]].shape[2]
+            out[p], (kc, vc) = A.prefill(pa[p], acfg, x, S_,
+                                         window=att.window, rope=tables)
+            _store(cache, att, p, kc, vc)
         else:
-            out[p] = A.forward(pa, run.acfg, x, window=window, rope=tables)
+            out[p] = A.forward(pa[p], acfg, x,
+                               kv_x=kv_x[p] if att.cross else None,
+                               window=att.window, rope=tables)
     return out
 
 
-def _cut_heads(run: Run, pls: dict, xs: dict, window, pos: dict,
-               mode: str, i: int, cache=None, clen=None) -> dict:
+def _cut_heads(run: Run, pa: dict, xs: dict, pos: dict, mode: str,
+               att: Attend, cache, clen, kv_x) -> dict:
     """``_attention`` where a projection's shard is not whole heads (or
     a position's q heads read another position's kv heads): that
     projection all-gathered over ``model``, each position attending over
@@ -521,59 +653,103 @@ def _cut_heads(run: Run, pls: dict, xs: dict, window, pos: dict,
     cfg, g, hd = run.cfg, run.grid, run.heads
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rep = H // Hkv
-    q = {p: L.linear(pls[p]["attn"]["wq"], x) for p, x in xs.items()}
-    k = {p: L.linear(pls[p]["attn"]["wk"], x) for p, x in xs.items()}
-    v = {p: L.linear(pls[p]["attn"]["wv"], x) for p, x in xs.items()}
+    acfg = dataclasses.replace(run.acfg, causal=att.causal,
+                               use_rope=not att.cross)
+    # a cross-attention decode step reads its k and v from the cache
+    project = not (att.cross and mode == "decode")
+    src = kv_x if att.cross else xs
+    q = {p: L.linear(pa[p]["wq"], x) for p, x in xs.items()}
+    if project:
+        k = {p: L.linear(pa[p]["wk"], src[p]) for p in xs}
+        v = {p: L.linear(pa[p]["wv"], src[p]) for p in xs}
     if hd.gather_q:
         q = run.over_model("all-gather", q)
-    if hd.gather_kv:
+    if project and hd.gather_kv:
         k = run.over_model("all-gather", k)
         v = run.over_model("all-gather", v)
     out = {}
     for p, x in xs.items():
         m = g.m[p]
         B, T = x.shape[:2]
-        pa = pls[p]["attn"]
         qo = m * H // g.tp if hd.q_whole else 0
         ko = m * Hkv // g.tp if hd.kv_whole and not hd.gather_kv else 0
-        qp, kp, vp = A._heads(pa, run.acfg, q[p], k[p], v[p])
         qa, qb = run._q_range(m, hd.q_split)
-        qp, kp = A._rope(run.acfg, _take(qp, qo, qa, qb), kp, None,
-                         run.rope(pos[p]))
-        if mode == "decode":
-            ca, cb = run.cache_range(m)
-            kc, vc = cache["k"].shard(p)[i], cache["v"].shard(p)[i]
-            rows = torch.arange(B, device=x.device)
-            at = clen[p].to(torch.long)
-            kc[rows, at] = _take(kp, ko, ca, cb)[:, 0].to(kc.dtype)
-            vc[rows, at] = _take(vp, ko, ca, cb)[:, 0].to(vc.dtype)
+        ca, cb = run.cache_range(m)
+        if project:
+            qp, kp, vp = A._heads(pa[p], acfg, q[p], k[p], v[p])
+        else:
+            qp, kp = q[p].reshape(B, T, -1, Dh), None
+        qp, kp = A._rope(acfg, _take(qp, qo, qa, qb), kp, None,
+                         None if att.cross else run.rope(pos[p]))
+        if mode == "decode" and att.cross:
+            kc, vc = _slots(cache, att, p)
             o = ops.decode_attention(
                 qp[:, 0].contiguous(), _kv_for(kc, ca, qa, qb, rep),
-                _kv_for(vc, ca, qa, qb, rep), clen[p] + 1, window=window,
-                softcap=cfg.attn_softcap)
+                _kv_for(vc, ca, qa, qb, rep), _src_len(kc))
+        elif mode == "decode":
+            _store(cache, att, p, _take(kp, ko, ca, cb)[:, 0],
+                   _take(vp, ko, ca, cb)[:, 0],
+                   (torch.arange(B, device=x.device), clen[p].to(torch.long)))
+            c = _slots(cache, att, p)
+            if len(c) == 4:
+                o = flash.decode_grouped_q8(
+                    qp[:, 0], *(_kv_for(t, ca, qa, qb, rep, axis)
+                                for t, axis in zip(c, (-2, -1, -2, -1))),
+                    clen[p] + 1, window=att.window, softcap=cfg.attn_softcap)
+            else:
+                o = ops.decode_attention(
+                    qp[:, 0].contiguous(), _kv_for(c[0], ca, qa, qb, rep),
+                    _kv_for(c[1], ca, qa, qb, rep), clen[p] + 1,
+                    window=att.window, softcap=cfg.attn_softcap)
         else:
             if mode == "prefill":
-                ca, cb = run.cache_range(m)
-                cache["k"].shard(p)[i][:, :T] = _take(kp, ko, ca, cb)
-                cache["v"].shard(p)[i][:, :T] = _take(vp, ko, ca, cb)
+                _store(cache, att, p, _take(kp, ko, ca, cb),
+                       _take(vp, ko, ca, cb))
+            # the reference's cross-attention prefill passes no softcap
             o = ops.mha(qp, _kv_for(kp, ko, qa, qb, rep),
-                        _kv_for(vp, ko, qa, qb, rep), causal=True,
-                        window=window, softcap=cfg.attn_softcap)
+                        _kv_for(vp, ko, qa, qb, rep),
+                        causal=att.causal and not att.cross,
+                        window=att.window,
+                        softcap=None if att.cross and mode == "prefill"
+                        else cfg.attn_softcap)
         o = o.reshape(B, T, -1)
         if hd.q_split:
             R = H * Dh // g.tp
             c0 = m * R - qa * Dh
             if (c0, R) != (0, o.shape[-1]):
                 o = o[..., c0:c0 + R]
-        out[p] = L.linear(pa["wo"], o)
+        out[p] = L.linear(pa[p]["wo"], o)
     return out
 
 
-def _dense_layer(run: Run, i: int, window, pos: dict, mode: str, seq: bool,
-                 cache, clen, *hs):
+# ---------------------------------------------------------------------------
+# the blocks
+# ---------------------------------------------------------------------------
+
+def _sub(trees: dict, key: str) -> dict:
+    return {p: t[key] for p, t in trees.items()}
+
+
+def _mlp(run: Run, pls: dict, x: dict, seq: bool) -> dict:
+    """The MLP over every position (``x`` whole or its T chunk where
+    ``seq``): column shards, the partial sum all-reduced (reduce-scattered
+    on T)."""
+    if seq and run.mlp_split:
+        x = run.over_model("all-gather", x, dim=1)
+    y = {p: L.mlp(pls[p]["mlp"], x[p], act=run.cfg.act) for p in x}
+    if run.mlp_split:
+        y = run.over_model("reduce-scatter" if seq else "all-reduce", y,
+                           dim=1)
+    return y
+
+
+def _dense_layer(run: Run, i: int, pos: dict, mode: str, seq: bool,
+                 cache, clen, enc, *hs):
     """Layer ``i`` over every position (``hs`` in position order): the
-    residual whole, or its T chunk where ``seq``. Returns the new
-    residuals in position order."""
+    residual whole, or its T chunk where ``seq``; an encdec decoder
+    layer's cross-attention over ``enc``, each position's encoder rows.
+    Returns the new residuals in position order (and an MoE layer's
+    load-balance aux after them)."""
     cfg, g = run.cfg, run.grid
     eps = cfg.norm_eps
     P = range(g.n)
@@ -582,21 +758,68 @@ def _dense_layer(run: Run, i: int, window, pos: dict, mode: str, seq: bool,
     x = {p: L.rmsnorm(pls[p]["ln1"], h[p], eps) for p in P}
     if seq:
         x = run.over_model("all-gather", x, dim=1)
-    a = run.reduce(_attention(run, pls, x, window, pos, mode, i, cache,
-                              clen), run.heads.q_split, seq)
+    a = run.reduce(_attention(run, _sub(pls, "attn"), x, pos, mode,
+                              Attend(("k", "v"), i,
+                                     window=cfg.layer_window(i)),
+                              cache, clen), run.heads.q_split, seq)
     h = {p: h[p] + lm._attn_out(cfg, pls[p], a[p]) for p in P}
+    if cfg.is_encdec:
+        x = {p: L.rmsnorm(pls[p]["ln_x"], h[p], eps) for p in P}
+        if seq:
+            x = run.over_model("all-gather", x, dim=1)
+        a = run.reduce(_attention(run, _sub(pls, "xattn"), x, pos, mode,
+                                  Attend(("xk", "xv"), i, causal=False,
+                                         cross=True), cache, clen, enc),
+                       run.heads.q_split, seq)
+        h = {p: h[p] + a[p] for p in P}
     x = {p: L.rmsnorm(pls[p]["ln2"], h[p], eps) for p in P}
     if run.moe_layer(i):
         y, lb = _moe(run, pls, x, seq)
         return tuple(h[p] + lm._mlp_out(cfg, pls[p], y[p]) for p in P) \
             + (lb,)
-    if seq and run.mlp_split:
-        x = run.over_model("all-gather", x, dim=1)
-    y = {p: L.mlp(pls[p]["mlp"], x[p], act=cfg.act) for p in P}
-    if run.mlp_split:
-        y = run.over_model("reduce-scatter" if seq else "all-reduce", y,
-                           dim=1)
+    y = _mlp(run, pls, x, seq)
     return tuple(h[p] + lm._mlp_out(cfg, pls[p], y[p]) for p in P)
+
+
+def _enc_layer(run: Run, i: int, pos: dict, *hs):
+    """Encoder layer ``i`` over every position: bidirectional attention
+    (RoPE, no window) cut by heads and the MLP by columns, both partial
+    sums all-reduced; the residual whole."""
+    cfg = run.cfg
+    P = run.grid.positions
+    pls = {p: run.layer(p, i, "enc_layers") for p in P}
+    h = dict(zip(P, hs))
+    x = {p: L.rmsnorm(pls[p]["ln1"], h[p], cfg.norm_eps) for p in P}
+    a = run.reduce(_attention(run, _sub(pls, "attn"), x, pos, "forward",
+                              Attend(causal=False)),
+                   run.heads.q_split, False)
+    h = {p: h[p] + a[p] for p in P}
+    x = {p: L.rmsnorm(pls[p]["ln2"], h[p], cfg.norm_eps) for p in P}
+    y = _mlp(run, pls, x, False)
+    return tuple(h[p] + y[p] for p in P)
+
+
+def _shared_block(run: Run, call: int, h0: dict, pos: dict, mode: str,
+                  cache, clen, *hs):
+    """zamba2's shared block, call ``call``, over every position:
+    ``in_proj`` (replicated) on [h, h0], attention cut by heads over the
+    ``sk``/``sv`` rows of the call, the MLP by columns (both partial sums
+    all-reduced), ``out_proj`` (replicated) added to the residual."""
+    cfg = run.cfg
+    P = run.grid.positions
+    sp = {p: run.P[p]["shared"] for p in P}
+    h = dict(zip(P, hs))
+    x = {p: L.linear(sp[p]["in_proj"], torch.cat([h[p], h0[p]], dim=-1))
+         for p in P}
+    a = run.reduce(_attention(
+        run, _sub(sp, "attn"),
+        {p: L.rmsnorm(sp[p]["ln1"], x[p], cfg.norm_eps) for p in P}, pos,
+        mode, Attend(("sk", "sv"), call), cache, clen),
+        run.heads.q_split, False)
+    x = {p: x[p] + a[p] for p in P}
+    y = _mlp(run, sp, {p: L.rmsnorm(sp[p]["ln2"], x[p], cfg.norm_eps)
+                       for p in P}, False)
+    return tuple(h[p] + L.linear(sp[p]["out_proj"], x[p] + y[p]) for p in P)
 
 
 def _moe(run: Run, pls: dict, x: dict, seq: bool) -> tuple[dict, torch.Tensor]:
@@ -677,45 +900,98 @@ def _embed(run: Run, toks: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the stack
+# ---------------------------------------------------------------------------
+
 def _seq_sharded(run: Run, T: int) -> bool:
-    return (run.cfg.seq_shard and run.cfg.family != "ssm"
+    return (run.cfg.seq_shard and run.cfg.family not in ("ssm", "hybrid")
             and run.grid.tp > 1 and T > 1 and T % run.grid.tp == 0)
 
 
+def _in_turn(n: int, fns: list, *hs):
+    """``hs`` (n residuals) through ``fns`` in turn; the residuals, then
+    every MoE layer's load-balance aux."""
+    aux: list = []
+    for fn in fns:
+        out = fn(*hs)
+        hs, aux = out[:n], aux + list(out[n:])
+    return tuple(hs) + tuple(aux)
+
+
+def _run_blocks(run: Run, blocks: list, hs: tuple, mode: str,
+                groupable: bool) -> tuple:
+    """``hs`` through ``blocks`` ((fn, checkpointed) in order), each
+    checkpointed one by ``cfg.remat`` in a forward with grad enabled;
+    with ``groupable`` and ``remat="group"``, groups of ``remat_group``
+    (or ``_auto_group``) blocks checkpointed with each block checkpointed
+    inside (elsewhere ``group`` is ``full``). A recompute replays the
+    whole block, its last collective included (early stopping would end
+    it at the last tensor backward reads)."""
+    cfg, n = run.cfg, run.grid.n
+    rmode = lm._remat_mode(cfg) if mode == "forward" else "none"
+    if rmode == "group" and groupable:
+        size = cfg.remat_group or lm._auto_group(len(blocks))
+        units = [lm._remat(functools.partial(_in_turn, n, [
+            lm._remat(fn, "full") for fn, _ in blocks[i:i + size]]), "full")
+            for i in range(0, len(blocks), size)]
+    else:
+        one = "full" if rmode == "group" else rmode
+        units = [lm._remat(functools.partial(_in_turn, n, [fn]),
+                           one if ck else "none") for fn, ck in blocks]
+    with checkpoint.set_checkpoint_early_stop(False):
+        for unit in units:
+            out = unit(*hs)
+            hs = out[:n]
+            run.load_balance.extend(out[n:])
+    return hs
+
+
 def _stack(run: Run, h: dict, mode: str, cache=None, clen=None,
-           pos: dict | None = None) -> tuple[dict, bool]:
-    """Every layer over every position. Returns (the residuals, whether
-    they are T chunks)."""
+           pos: dict | None = None, enc: dict | None = None
+           ) -> tuple[dict, bool]:
+    """Every layer over every position (an encdec decoder's
+    cross-attention over ``enc``). Returns (the residuals, whether they
+    are T chunks)."""
     cfg, g = run.cfg, run.grid
     T = next(iter(h.values())).shape[1]
-    if pos is None:
-        pos = {}
-        for p in g.positions:
-            d = g.devs[p]
-            if d not in pos:
-                pos[d] = torch.arange(T, device=d)[None, :]
-        pos = {p: pos[g.devs[p]] for p in g.positions}
+    pos = run.positions_of(T) if pos is None else pos
     seq = mode != "decode" and _seq_sharded(run, T)
     if seq:
         h = {p: run.local_t(x, p) for p, x in h.items()}
-    hs = tuple(h[p] for p in g.positions)
-    rmode = lm._remat_mode(cfg) if mode == "forward" else "none"
-    rmode = "full" if rmode == "group" else rmode
-    # a recomputed layer replays all of it, its last collective included
-    # (early stopping would end it at the last tensor backward reads)
-    with checkpoint.set_checkpoint_early_stop(False):
-        for i in range(cfg.n_layers):
-            if cfg.family == "ssm":
-                fn = functools.partial(_ssm_layer, run, i, mode, cache)
-            else:
-                fn = functools.partial(_dense_layer, run, i,
-                                       cfg.layer_window(i), pos, mode, seq,
-                                       cache, clen)
-            hs = lm._remat(fn, rmode)(*hs)
-            if len(hs) > g.n:          # an MoE layer's load-balance aux
-                run.load_balance.append(hs[-1])
-                hs = hs[:-1]
+    if cfg.family in ("ssm", "hybrid"):
+        every = lm._shared_every(cfg) or cfg.n_layers
+        blocks = []
+        for call, start in enumerate(range(0, cfg.n_layers, every)):
+            if lm._shared_every(cfg):      # not checkpointed
+                blocks.append((functools.partial(
+                    _shared_block, run, call, h, pos, mode, cache, clen),
+                    False))
+            blocks += [(functools.partial(_ssm_layer, run, i, mode, cache),
+                        True) for i in range(start, min(start + every,
+                                                        cfg.n_layers))]
+        groupable = False
+    else:
+        blocks = [(functools.partial(_dense_layer, run, i, pos, mode, seq,
+                                     cache, clen, enc), True)
+                  for i in range(cfg.n_layers)]
+        groupable = not lm._grouped(cfg) and cfg.scan_layers
+    hs = _run_blocks(run, blocks, tuple(h[p] for p in g.positions), mode,
+                     groupable)
     return dict(zip(g.positions, hs)), seq
+
+
+def _encode(run: Run, src: dict) -> dict:
+    """An encdec model's encoder over each position's source rows, then
+    ``enc_norm``: every position's rows of the encoder output, whole."""
+    cfg, g = run.cfg, run.grid
+    pos = run.positions_of(next(iter(src.values())).shape[1])
+    blocks = [(functools.partial(_enc_layer, run, i, pos), True)
+              for i in range(cfg.n_enc_layers)]
+    hs = _run_blocks(run, blocks, tuple(src[p] for p in g.positions),
+                     "forward", False)
+    return {p: L.rmsnorm(run.P[p]["enc_norm"], hs[p], cfg.norm_eps)
+            for p in g.positions}
 
 
 def _readout(run: Run, h: dict, seq: bool, last: bool = False) -> dict:
@@ -764,6 +1040,14 @@ def _inputs(run: Run, batch: dict) -> dict:
     return h
 
 
+def _encoded(run: Run, batch: dict) -> dict | None:
+    """An encdec model's encoder output at every position (its data
+    block of ``src_embeds``); None for other families."""
+    if not run.cfg.is_encdec:
+        return None
+    return _encode(run, _split_rows(run.grid, batch["src_embeds"]))
+
+
 def _to_position0(run: Run, per_leader: dict) -> torch.Tensor:
     """Leaders' row blocks all-gathered over the data groups; position
     0's copy."""
@@ -781,7 +1065,8 @@ def forward(params: dict, cfg: ModelCfg, batch: dict, run: Run | None = None
     """``lm.forward``'s logits (B, T_total, V) over sharded ``params``,
     whole on position 0's device."""
     run = run or Run(params, cfg)
-    h, seq = _stack(run, _inputs(run, batch), "forward")
+    h, seq = _stack(run, _inputs(run, batch), "forward",
+                    enc=_encoded(run, batch))
     return _to_position0(run, _readout(run, h, seq))
 
 
@@ -791,7 +1076,8 @@ def loss_fn(params: dict, cfg: ModelCfg, batch: dict, run: Run | None = None):
     mean."""
     run = run or Run(params, cfg)
     g = run.grid
-    h, seq = _stack(run, _inputs(run, batch), "forward")
+    h, seq = _stack(run, _inputs(run, batch), "forward",
+                    enc=_encoded(run, batch))
     logits = _readout(run, h, seq)
     labels = _split_rows(g, batch["labels"])
     sums = {p: torch.stack(lm._nll_sums(cfg, lg, labels[p]))
@@ -842,29 +1128,6 @@ def sharded_like(st, make) -> sh.ShardedTensor:
     return sh.ShardedTensor(st.sharding, shards, st.shape, s0.dtype)
 
 
-def init_opt_state(optimizer, params: dict, cfg: ModelCfg) -> dict:
-    """``optimizer``'s initial state over sharded ``params``: laid out by
-    ``tree_specs`` of its own tree under ``plan_for(cfg)`` (the JAX
-    package's ``dryrun.py:118-119``), each distinct block made in place
-    by ``optimizer.init``. Elementwise optimizers only."""
-    check_supported(cfg, optimizer)
-    first = leaves(params)[0]
-    meta = tree_map(lambda st: torch.empty(tuple(st.shape), dtype=st.dtype,
-                                           device="meta"), params)
-    specs = sh.tree_specs(optimizer.init(meta), first.mesh,
-                          sh.plan_for(cfg))
-    flat = dict(flatten_with_path(params))
-
-    def leaf(path, ns):
-        st = flat[path[1:]]
-        if ns.spec != st.spec:
-            raise ValueError(f"state {sh.keystr(path)} laid out {ns.spec}, "
-                             f"its parameter {st.spec}")
-        return sharded_like(st, lambda t: optimizer.init({"x": t})[
-            path[0]]["x"])
-    return map_with_path(leaf, specs)
-
-
 class Distinct:
     """A sharded tree's distinct tensors (positions that share one share
     its entry) as a flat tree ``{"0": tensor, ...}``, and the way back: a
@@ -879,21 +1142,12 @@ class Distinct:
                 if id(t) not in self.key:
                     self.key[id(t)] = str(len(self.key))
                     self.tensors[self.key[id(t)]] = t
-        first = leaves(params)[0].shards
-        self.n, self.dev0 = len(first), first[0].device
+        first = leaves(params)[0]
+        self.mesh = first.mesh
+        self.n, self.dev0 = len(first.shards), first.shards[0].device
 
     def _keys(self, st) -> list[str]:
         return [self.key[id(t)] for t in st.shards]
-
-    def flat(self, tree: dict) -> dict:
-        """The flat tree of ``tree`` (laid out as the parameters, e.g. the
-        optimizer state's ``m``): the shard at each distinct tensor's
-        first position."""
-        out: dict = {}
-        for st, s in zip(leaves(self.params), leaves(tree)):
-            for k, t in zip(self._keys(st), s.shards):
-                out.setdefault(k, t)
-        return out
 
     def sharded(self, flat: dict) -> dict:
         """``flat`` as a tree of ``ShardedTensor`` s with the parameters'
@@ -903,13 +1157,6 @@ class Distinct:
             return sh.ShardedTensor(st.sharding, shards, st.shape,
                                     shards[0].dtype)
         return tree_map(leaf, self.params)
-
-    def by_device(self) -> list[list[str]]:
-        """The flat keys grouped by their tensors' devices."""
-        out: dict = {}
-        for k, t in self.tensors.items():
-            out.setdefault(t.device, []).append(k)
-        return list(out.values())
 
     def loss_fn(self, flat: dict, cfg: ModelCfg, batch: dict):
         """``loss_fn`` with each position's parameters read from
@@ -957,14 +1204,300 @@ def eval_loss(params: dict, cfg: ModelCfg, batch: dict) -> dict:
         return loss_fn(params, cfg, batch)[1]
 
 
+# ---------------------------------------------------------------------------
+# the optimizer over sharded parameters
+# ---------------------------------------------------------------------------
+
+def init_opt_state(optimizer, params: dict, cfg: ModelCfg) -> dict:
+    """``optimizer``'s initial state over sharded ``params``: laid out by
+    ``tree_specs`` of its own tree under ``plan_for(cfg)`` (the JAX
+    package's ``dryrun.py:118-119``), each distinct (device, block) made
+    in place. Every optimizer's initial state is one value a leaf (zeros;
+    int8_adamw's scales their floor), read from the state of a one-element
+    stand-in of each parameter."""
+    first = leaves(params)[0]
+    shapes = optimizer.init(tree_map(
+        lambda st: torch.empty(tuple(st.shape), dtype=st.dtype,
+                               device="meta"), params))
+    specs = sh.tree_specs(shapes, first.mesh, sh.plan_for(cfg))
+    fills = optimizer.init(tree_map(
+        lambda st: torch.zeros((1,) * st.ndim, dtype=st.dtype), params))
+    return tree_map(lambda ns, s, f: sharded_full(
+        tuple(s.shape), s.dtype, ns, f.reshape(-1)[0].item()),
+        specs, shapes, fills)
+
+
+def _at(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _spec(*axes) -> sh.PartitionSpec:
+    """A spec in the canonical short form (trailing Nones dropped)."""
+    axes = list(axes)
+    while axes and axes[-1] is None:
+        axes.pop()
+    return sh.PartitionSpec(*axes)
+
+
+def _adafactor_layout(st) -> dict:
+    """The layout adafactor's update reads its statistics of ``st`` at:
+    each block's rows of ``vr`` (the parameter's dims but the last) and
+    of ``vc`` (all but the second to last), ``v`` as the parameter."""
+    sp = tuple(st.spec) + (None,) * (st.ndim - len(st.spec))
+    if st.ndim < 2:
+        return {"v": _spec(*sp)}
+    return {"vr": _spec(*sp[:-1]), "vc": _spec(*(sp[:-2] + sp[-1:]))}
+
+
+def _straddles(st) -> bool:
+    """Whether ``st``'s int8_adamw groups (``_qgroup`` of the whole
+    shape, along the last axis) straddle its blocks."""
+    if _cut_axis(st.spec) != st.ndim - 1:
+        return False
+    width = st.shards[0].shape[-1]
+    return width % opt_lib._qgroup(tuple(st.shape)) != 0
+
+
+def _leaf_step(optimizer, st, sub: dict) -> bool:
+    """Whether a leaf's update needs more than each block's own gradient
+    and state: a statistic across its blocks, or state laid out
+    otherwise than its blocks read it."""
+    if optimizer.name == "adafactor":
+        want = _adafactor_layout(st)
+        return _cut_axis(st.spec) is not None or any(
+            sub["f"][k].spec != want[k] for k in want)
+    if optimizer.name == "int8_adamw":
+        return _straddles(st)
+    return False
+
+
+class _Leaf:
+    """One parameter leaf's update in lockstep: the model groups holding
+    its distinct tensors (a data group whose tensors are all an earlier
+    group's computes nothing), and the positions (``units``) that compute
+    a block: one a distinct tensor."""
+
+    def __init__(self, grid: Grid, st, dt: Distinct, grads: dict):
+        self.grid, self.st, self.dt = grid, st, dt
+        seen: set = set()
+        self.groups = []
+        for grp in grid.model_groups:
+            key = tuple(id(st.shards[p]) for p in grp)
+            if key not in seen:
+                seen.add(key)
+                self.groups.append(grp)
+        self.unit_of: dict[int, int] = {}
+        self.ugroups = []
+        for grp in self.groups:
+            first: dict = {}
+            for p in grp:
+                self.unit_of[p] = first.setdefault(id(st.shards[p]), p)
+            self.ugroups.append(list(first.values()))
+        self.units = [p for grp in self.ugroups for p in grp]
+        self.cut = _cut_axis(st.spec)
+        self.g = {p: grads[dt.key[id(st.shards[p])]].to(F32)
+                  for p in self.units}
+        self.p = {p: st.shards[p] for p in self.units}
+
+    def reduce(self, xs: dict, across: bool, how: str = "sum") -> dict:
+        """``xs`` summed (or maxed) over the blocks where ``across`` (the
+        leaf is cut over ``model``)."""
+        if not across:
+            return xs
+        return collective("all-reduce", xs, self.ugroups, self.grid.devs,
+                          reduce=how)
+
+    def read(self, sst, spec) -> dict:
+        """Each unit's block of state leaf ``sst`` at layout ``spec``:
+        its own shard where ``sst`` is laid out so, else cut from the
+        whole (all-gathered over ``model`` where ``sst`` is cut)."""
+        if sst.spec == spec:
+            return {p: sst.shards[p] for p in self.units}
+        ax = _cut_axis(sst.spec)
+        whole = {p: sst.shards[p] for grp in self.groups for p in grp}
+        if ax is not None:
+            whole = collective("all-gather", whole, self.groups,
+                               self.grid.devs, dim=ax)
+        ns = sh.NamedSharding(sst.mesh, spec)
+        return {p: whole[p][sh._slices(tuple(sst.shape), ns, p)]
+                for p in self.units}
+
+    def write(self, sst, spec, new: dict) -> sh.ShardedTensor:
+        """``new`` (each unit's block at layout ``spec``) laid out as
+        ``sst``: all-gathered over ``model`` first where ``spec`` cuts it
+        and ``sst`` is laid out otherwise."""
+        got = {}
+        if sst.spec == spec:
+            for grp in self.groups:
+                for p in grp:
+                    got[p] = new[self.unit_of[p]]
+        else:
+            ax = _cut_axis(spec)
+            if ax is not None:
+                new = collective("all-gather", new, self.ugroups,
+                                 self.grid.devs, dim=ax)
+            for grp in self.groups:
+                for p in grp:
+                    sl = sh._slices(tuple(sst.shape), sst.sharding, p)
+                    got[p] = new[self.unit_of[p]][sl].contiguous()
+        by_key: dict = {}
+        for p, t in got.items():
+            by_key.setdefault((self.grid.devs[p], _block_key(sst, p)), t)
+        shards = [by_key[(self.grid.devs[p], _block_key(sst, p))]
+                  for p in self.grid.positions]
+        return sh.ShardedTensor(sst.sharding, shards, sst.shape,
+                                shards[0].dtype)
+
+    def params(self, upd: dict) -> dict:
+        """The new parameter of each distinct tensor (flat key)."""
+        return {self.dt.key[id(self.st.shards[p])]:
+                opt_lib.apply_update(self.p[p], upd[p]) for p in self.units}
+
+
+def _adafactor_leaf(optimizer, leaf: _Leaf, sub: dict, step) -> tuple:
+    """adafactor's update of one leaf in lockstep: the row and column
+    means of g², the mean of ``vr`` and the rms of the update summed
+    over the blocks where the leaf is cut."""
+    hp, st, c = optimizer.hyper, leaf.st, leaf.cut
+    eps, nd = hp["eps"], st.ndim
+    lay = _adafactor_layout(st)
+    old = {k: leaf.read(sub["f"][k], lay[k]) for k in lay}
+    new: dict = {k: {} for k in lay}
+    u: dict = {}
+    g2 = {p: torch.square(g) + eps for p, g in leaf.g.items()}
+    sc = {p: opt_lib.adafactor_scalars(step, g, hp)
+          for p, g in leaf.g.items()}
+    if nd >= 2:
+        rs = leaf.reduce({p: x.sum(-1) for p, x in g2.items()}, c == nd - 1)
+        cs = leaf.reduce({p: x.sum(-2) for p, x in g2.items()}, c == nd - 2)
+        for p, (beta, _) in sc.items():
+            new["vr"][p] = beta * old["vr"][p] + (1 - beta) * (
+                rs[p] / st.shape[-1])
+            new["vc"][p] = beta * old["vc"][p] + (1 - beta) * (
+                cs[p] / st.shape[-2])
+        vs = leaf.reduce({p: v.sum(-1, keepdim=True)
+                          for p, v in new["vr"].items()}, c == nd - 2)
+        for p, g in leaf.g.items():
+            u[p] = opt_lib.factored_u(g, new["vr"][p], new["vc"][p],
+                                      vs[p] / st.shape[-2], eps)
+    else:
+        for p, (beta, _) in sc.items():
+            new["v"][p] = beta * old["v"][p] + (1 - beta) * g2[p]
+            u[p] = leaf.g[p] / (torch.sqrt(new["v"][p]) + eps)
+    sq = leaf.reduce({p: torch.sum(torch.square(x)) for p, x in u.items()},
+                     c is not None)
+    upd = {p: opt_lib.rms_clipped_update(
+        x, torch.sqrt(sq[p] / math.prod(st.shape) + 1e-12), sc[p][1], hp,
+        leaf.p[p].dtype) for p, x in u.items()}
+    return leaf.params(upd), {"f": {k: leaf.write(sub["f"][k], lay[k],
+                                                  new[k]) for k in lay}}
+
+
+def _int8_adamw_leaf(optimizer, leaf: _Leaf, sub: dict, step) -> tuple:
+    """int8_adamw's update of a leaf whose groups straddle its blocks
+    (cut on the last axis): each block's columns dequantized by the
+    scales of their groups, each group's absmax the maximum over the
+    blocks."""
+    hp, st = optimizer.hyper, leaf.st
+    G = opt_lib._qgroup(tuple(st.shape))
+    k = st.shape[-1] // G
+    whole = _spec()
+    scales = {n: leaf.read(sub[n]["s"], whole) for n in ("m", "v")}
+    cols: dict = {}
+    for p in leaf.units:
+        sl = sh._slices(tuple(st.shape), st.sharding, p)[-1]
+        cols[p] = torch.arange(sl.start, sl.stop, device=leaf.p[p].device)
+
+    def per_col(s, p):          # each column's group's scale
+        return s.index_select(-1, cols[p] // G)
+    upd, moments = {}, {"m": {}, "v": {}}
+    for p, g in leaf.g.items():
+        msc, vsc = scales["m"][p], scales["v"][p]
+        mq, vq = sub["m"]["q"].shards[p], sub["v"]["q"].shards[p]
+        upd[p], moments["m"][p], moments["v"][p] = opt_lib.int8_moments(
+            g, mq.to(F32) * per_col(msc, p), vq.to(F32) * per_col(vsc, p),
+            per_col(vsc / 4.0, p), leaf.p[p], step, hp)
+    state = {}
+    for n, x in moments.items():
+        part = {p: torch.zeros(x[p].shape[:-1] + (k,), dtype=F32,
+                               device=x[p].device).scatter_reduce(
+            -1, (cols[p] // G).expand(x[p].shape), x[p].abs(), "amax")
+            for p in leaf.units}
+        amax = leaf.reduce(part, True, "max")
+        s = {p: torch.clamp(a / 127.0, min=1e-12) for p, a in amax.items()}
+        q = {p: opt_lib.int8_codes(x[p], per_col(s[p], p))
+             for p in leaf.units}
+        state[n] = {"q": leaf.write(sub[n]["q"], sub[n]["q"].spec, q),
+                    "s": leaf.write(sub[n]["s"], whole, s)}
+    return leaf.params(upd), state
+
+
+_LEAF_STEPS = {"adafactor": _adafactor_leaf, "int8_adamw": _int8_adamw_leaf}
+
+
+def optimizer_step(optimizer, dt: Distinct, grads: dict, state: dict,
+                   step) -> tuple[dict, dict]:
+    """``optimizer`` once over sharded parameters (``dt``) with their
+    block gradients (``dt``'s flat keys, clipped) and sharded state
+    (``init_opt_state``'s layout): (new parameters, new state), sharded
+    as they were. A leaf whose update needs other blocks (``_leaf_step``)
+    runs in lockstep over its blocks; every other leaf's distinct tensors
+    run through ``optimizer.update`` together, one call a device."""
+    grid = Grid(dt.mesh)
+    new_p: dict = {}
+    new_s: dict = {}                # state path → ShardedTensor
+    per_device: dict = {}
+    rest = []                       # (param path, leaf) updated per tensor
+    for path, st in flatten_with_path(dt.params):
+        sub = {n: _at(state[n], path) for n in state}
+        if _leaf_step(optimizer, st, sub):
+            p_new, s_new = _LEAF_STEPS[optimizer.name](
+                optimizer, _Leaf(grid, st, dt, grads), sub, step)
+            new_p.update(p_new)
+            for spath, sst in flatten_with_path(s_new):
+                new_s[spath[:1] + path + spath[1:]] = sst
+            continue
+        rest.append((path, st))
+        for p, t in enumerate(st.shards):
+            per_device.setdefault(t.device, {}).setdefault(
+                dt.key[id(t)], (path, p))
+    new_sub: dict = {}
+    for items in per_device.values():
+        pf = {k: dt.tensors[k] for k in items}
+        sf = {n: {k: tree_map(lambda s, p=p: s.shards[p],
+                              _at(state[n], path))
+                  for k, (path, p) in items.items()} for n in state}
+        upd, ns = optimizer.update({k: grads[k] for k in items}, sf, pf,
+                                   step)
+        for k, t in pf.items():
+            new_p[k] = opt_lib.apply_update(t, upd[k])
+        for n in ns:
+            for k in items:
+                new_sub[(n, k)] = ns[n][k]
+    for path, st in rest:
+        keys = [dt.key[id(t)] for t in st.shards]
+        for n in state:
+            for spath, sst in flatten_with_path(_at(state[n], path)):
+                shards = [_at(new_sub[(n, k)], spath) for k in keys]
+                new_s[(n,) + path + spath] = sh.ShardedTensor(
+                    sst.sharding, shards, sst.shape, shards[0].dtype)
+    return dt.sharded(new_p), map_with_path(lambda path, _: new_s[path],
+                                            state)
+
+
 # -- inference --------------------------------------------------------------
 
 def cache_rules(mesh) -> dict:
     """Each cache leaf's spec: kv heads over ``model``, the batch over
-    the data axes."""
+    the data axes (the int8 cache's scales, the encoder's cached
+    cross-attention rows and zamba2's shared-block rows too)."""
     dpa = data_spec(mesh)
     kv = (None, dpa, None, "model", None)
-    return {"len": (dpa,), "k": kv, "v": kv, "conv": (None, dpa),
+    scales = (None, dpa, None, "model")
+    return {"len": (dpa,), "k": kv, "v": kv, "k_s": scales, "v_s": scales,
+            "xk": kv, "xv": kv, "sk": kv, "sv": kv, "conv": (None, dpa),
             "ssm": (None, dpa)}
 
 
@@ -999,13 +1532,15 @@ def sharded_full(shape, dtype, sharding, fill,
 _RECURRENT = ("conv", "ssm")
 
 
-def _new_cache(run: Run, B: int, cache_size: int, dtype) -> dict:
+def _new_cache(run: Run, B: int, cache_size: int, dtype,
+               src_len: int = 0) -> dict:
     mesh = run.grid.mesh
     shapes = lm.init_cache(run.cfg, B, cache_size, dtype,
-                           device=torch.device("meta"))
+                           device=torch.device("meta"), src_len=src_len)
     specs = cache_shardings(shapes, mesh)
-    return {k: sharded_full(tuple(v.shape), v.dtype, specs[k], 0,
-                            own=k in _RECURRENT)
+    fill = {"k_s": 1e-8, "v_s": 1e-8}       # lm.init_cache's
+    return {k: sharded_full(tuple(v.shape), v.dtype, specs[k],
+                            fill.get(k, 0), own=k in _RECURRENT)
             for k, v in shapes.items()}
 
 
@@ -1026,8 +1561,11 @@ def prefill(params: dict, cfg: ModelCfg, batch: dict, cache_size: int):
     run = Run(params, cfg)
     h = _inputs(run, batch)
     B, T = batch["tokens"].shape[0], next(iter(h.values())).shape[1]
-    cache = _new_cache(run, B, cache_size, next(iter(h.values())).dtype)
-    h, seq = _stack(run, h, "prefill", cache=cache)
+    src_len = batch["src_embeds"].shape[1] if cfg.is_encdec else 0
+    cache = _new_cache(run, B, cache_size, next(iter(h.values())).dtype,
+                       src_len)
+    h, seq = _stack(run, h, "prefill", cache=cache,
+                    enc=_encoded(run, batch))
     cache["len"] = sharded_like(cache["len"], lambda t: torch.full_like(t, T))
     logits = _readout(run, h, seq, last=True)
     return _to_position0(run, {p: x[:, 0] for p, x in logits.items()}), cache
@@ -1037,8 +1575,8 @@ def decode_step(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
                 cache: dict):
     """``lm.decode_step`` over sharded ``params`` and a sharded cache
     (``prefill``'s): (logits (B, V) whole on position 0's device, the
-    cache, its k/v, conv and ssm shards updated IN PLACE and a new
-    ``len``)."""
+    cache, its k/v (codes and scales), sk/sv, conv and ssm shards
+    updated IN PLACE and a new ``len``)."""
     run = Run(params, cfg)
     g = run.grid
     for k in _RECURRENT:

@@ -178,8 +178,7 @@ def apply_optimizer(optimizer: opt_lib.Optimizer, grads, opt_state,
     grads, gnorm = opt_lib.clip_by_global_norm(grads, clip_norm, norm)
     updates, new_state = optimizer.update(grads, opt_state, params, step)
     del grads
-    new_params = tree_map(
-        lambda p, u: (p.to(F32) + u.to(F32)).to(p.dtype), params, updates)
+    new_params = tree_map(opt_lib.apply_update, params, updates)
     return new_params, new_state, gnorm
 
 
@@ -209,7 +208,6 @@ def make_train_step(cfg: ModelCfg, optimizer: opt_lib.Optimizer,
 
     def _sharded_train_step(params, opt_state, step, batch):
         # the same step over the sharded tree's distinct tensors
-        spmd.check_supported(cfg, optimizer)
         if not spmd.is_sharded(opt_state):
             raise ValueError("sharded parameters take a sharded optimizer "
                              "state (init_opt_state)")
@@ -219,20 +217,10 @@ def make_train_step(cfg: ModelCfg, optimizer: opt_lib.Optimizer,
                                           dt.loss_fn)
         grads = dt.sum_blocks(grads)
         gnorm = dt.norm(grads)
-        state = {k: dt.flat(v) for k, v in opt_state.items()}
-        new_params, new_state = {}, {k: {} for k in state}
-        for keys in dt.by_device():         # the optimizer's scalars
-            def pick(flat):
-                return {k: flat[k] for k in keys}
-            p, st, _ = apply_optimizer(
-                optimizer, pick(grads), {k: pick(v) for k, v in state.items()},
-                pick(dt.tensors), step, clip_norm, gnorm)
-            new_params.update(p)
-            for k, v in st.items():
-                new_state[k].update(v)
-        return (dt.sharded(new_params),
-                {k: dt.sharded(v) for k, v in new_state.items()},
-                dict(metrics, grad_norm=gnorm))
+        grads, _ = opt_lib.clip_by_global_norm(grads, clip_norm, gnorm)
+        new_params, new_state = spmd.optimizer_step(optimizer, dt, grads,
+                                                    opt_state, step)
+        return new_params, new_state, dict(metrics, grad_norm=gnorm)
 
     return train_step
 

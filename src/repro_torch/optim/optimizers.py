@@ -34,6 +34,14 @@ class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, Any], tuple[Any, Any]]
     name: str = "opt"
+    # the hyperparameters (``lr`` the schedule), for an update that runs
+    # a leaf's arithmetic over its shards (``dist/spmd.py``)
+    hyper: Any = None
+
+
+def apply_update(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``p`` plus its update ``u``, added in float32, in ``p``'s dtype."""
+    return (p.to(F32) + u.to(F32)).to(p.dtype)
 
 
 def _step_f32(step, like: torch.Tensor) -> torch.Tensor:
@@ -137,11 +145,32 @@ def _split3(outs, like):
 
 # --------------------------------------------------------------- adafactor
 
+def adafactor_scalars(step, like: torch.Tensor, hp: dict) -> tuple:
+    """(beta, lr_t) of adafactor's step ``step`` on ``like``'s device."""
+    step = _step_f32(step, like)
+    return 1.0 - (step + 1.0) ** (-hp["decay"]), hp["lr"](step)
+
+
+def factored_u(g, vr, vc, vr_mean, eps: float) -> torch.Tensor:
+    """adafactor's update of a (…, n, m) leaf from its row and column
+    statistics and the mean of ``vr`` over its last axis."""
+    r = vr / torch.clamp(vr_mean, min=eps)
+    return g / (torch.sqrt(r)[..., None] * torch.sqrt(vc)[..., None, :]
+                + eps)
+
+
+def rms_clipped_update(u, rms, lr_t, hp: dict, dtype) -> torch.Tensor:
+    """``-lr_t · u``, ``u`` scaled down to an rms of ``clip_threshold``."""
+    u = u / torch.clamp(rms / hp["clip_threshold"], min=1.0)
+    return (-lr_t * u).to(dtype)
+
+
 def adafactor(lr=1e-2, decay: float = 0.8, eps: float = 1e-30,
               clip_threshold: float = 1.0) -> Optimizer:
     """Factored second moment (Shazeer & Stern) — O(n+m) state for (n,m)
     matrices; the frugal choice for 100B+ dense stacks."""
-    lr_fn = _lr_fn(lr)
+    hp = dict(lr=_lr_fn(lr), decay=decay, eps=eps,
+              clip_threshold=clip_threshold)
 
     def init(params):
         def per_leaf(p):
@@ -154,10 +183,7 @@ def adafactor(lr=1e-2, decay: float = 0.8, eps: float = 1e-30,
         return {"f": tree_map(per_leaf, params)}
 
     def update(grads, state, params, step):
-        step = _step_f32(step, _first(params))
-        t = step + 1.0
-        beta = 1.0 - t ** (-decay)
-        lr_t = lr_fn(step)
+        beta, lr_t = adafactor_scalars(step, _first(params), hp)
 
         def per_leaf(g, s, p):
             g = g.to(F32)
@@ -165,18 +191,15 @@ def adafactor(lr=1e-2, decay: float = 0.8, eps: float = 1e-30,
             if p.ndim >= 2:
                 vr = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
                 vc = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
-                r = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
-                                     min=eps)
-                u = g / (torch.sqrt(r)[..., None]
-                         * torch.sqrt(vc)[..., None, :] + eps)
+                u = factored_u(g, vr, vc,
+                               torch.mean(vr, dim=-1, keepdim=True), eps)
                 ns = {"vr": vr, "vc": vc}
             else:
                 v = beta * s["v"] + (1 - beta) * g2
                 u = g / (torch.sqrt(v) + eps)
                 ns = {"v": v}
             rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
-            u = u / torch.clamp(rms / clip_threshold, min=1.0)
-            return (-lr_t * u).to(p.dtype), ns
+            return rms_clipped_update(u, rms, lr_t, hp, p.dtype), ns
 
         # a state leaf is a dict below the parameter's place in the tree
         outs = tree_map(lambda g, p, s: per_leaf(g, s, p), grads, params,
@@ -184,7 +207,7 @@ def adafactor(lr=1e-2, decay: float = 0.8, eps: float = 1e-30,
         return (tree_map(lambda _, o: o[0], grads, outs),
                 {"f": tree_map(lambda _, o: o[1], grads, outs)})
 
-    return Optimizer(init, update, "adafactor")
+    return Optimizer(init, update, "adafactor", hp)
 
 
 # ------------------------------------------------------------- int8 adamw
@@ -197,19 +220,23 @@ def _qgroup(shape) -> int:
     return _QBLOCK if last % _QBLOCK == 0 else last
 
 
+def int8_codes(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The int8 codes of ``x`` at ``scale`` (broadcast against it):
+    ``round(x / scale)`` (half to even, as ``jnp.round``) within ±127."""
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+
+
 def _q8(x: torch.Tensor):
     """Blocked symmetric int8 quantization of a moment tensor (SATAY
     Eq. 2, symmetric, groups along the last axis). SHAPE-PRESERVING:
-    codes keep the param's shape. ``torch.round`` rounds half to even,
-    as ``jnp.round`` does."""
+    codes keep the param's shape."""
     x = x.to(F32)
     g = _qgroup(x.shape)
     lead = tuple(x.shape[:-1]) + (x.shape[-1] // g, g)
     xg = x.reshape(lead)
     amax = torch.amax(torch.abs(xg), dim=-1, keepdim=True)
     scale = torch.clamp(amax / 127.0, min=1e-12)
-    q = torch.clamp(torch.round(xg / scale), -127, 127).to(torch.int8)
-    return q.reshape(x.shape), scale[..., 0].to(F32)
+    return int8_codes(xg, scale).reshape(x.shape), scale[..., 0].to(F32)
 
 
 def _dq8(q: torch.Tensor, scale: torch.Tensor, shape, n: int = 0):
@@ -219,9 +246,31 @@ def _dq8(q: torch.Tensor, scale: torch.Tensor, shape, n: int = 0):
     return (q.reshape(lead).to(F32) * scale[..., None]).reshape(shape)
 
 
+def int8_moments(g, m_dq, v_dq, v_floor, p, step, hp: dict) -> tuple:
+    """int8_adamw's arithmetic on one block: (the update, the new m, the
+    new v) from the gradient, the dequantized moments and the v floor.
+
+    v floor: a second-moment coordinate quantized to code 0 really lies
+    in [0, scale/2); treating it as 0 makes m/√v explode (m decays
+    slowly, v forgets instantly). Zero codes are reconstructed at
+    scale/4 (``v_floor``) — bounds the step inflation at ~2× instead of
+    1/eps."""
+    step = _step_f32(step, p)
+    t = step + 1.0
+    c1, c2 = 1 - hp["b1"] ** t, 1 - hp["b2"] ** t
+    g = g.to(F32)
+    m = hp["b1"] * m_dq + (1 - hp["b1"]) * g
+    v_dq = torch.where(v_dq <= 0.0, v_floor, v_dq)
+    v = hp["b2"] * v_dq + (1 - hp["b2"]) * torch.square(g)
+    u = (m / c1) / (torch.sqrt(v / c2) + hp["eps"]) \
+        + hp["weight_decay"] * p.to(F32)
+    return (-hp["lr"](step) * u).to(p.dtype), m, v
+
+
 def int8_adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8,
                weight_decay=0.1) -> Optimizer:
-    lr_fn = _lr_fn(lr)
+    hp = dict(lr=_lr_fn(lr), b1=b1, b2=b2, eps=eps,
+              weight_decay=weight_decay)
 
     def init(params):
         def z(p):
@@ -230,31 +279,16 @@ def int8_adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8,
         return {"m": tree_map(z, params), "v": tree_map(z, params)}
 
     def update(grads, state, params, step):
-        step = _step_f32(step, _first(params))
-        t = step + 1.0
-        c1, c2 = 1 - b1 ** t, 1 - b2 ** t
-        lr_t = lr_fn(step)
-
         def _slice_math(g, mq, msc, vq, vsc, p):
-            g = g.to(F32)
-            m = b1 * _dq8(mq, msc, p.shape) + (1 - b1) * g
-            # v floor: a second-moment coordinate quantized to code 0
-            # really lies in [0, scale/2); treating it as 0 makes
-            # m/√v explode (m decays slowly, v forgets instantly).
-            # Reconstruct zero-codes at scale/4 — bounds the step
-            # inflation at ~2× instead of 1/eps.
-            vdq = _dq8(vq, vsc, p.shape)
             g_ = _qgroup(p.shape)
             floor = torch.repeat_interleave(vsc / 4.0, g_,
                                             dim=-1).reshape(p.shape)
-            vdq = torch.where(vdq <= 0.0, floor, vdq)
-            v = b2 * vdq + (1 - b2) * torch.square(g)
-            mh = m / c1
-            vh = v / c2
-            u = mh / (torch.sqrt(vh) + eps) + weight_decay * p.to(F32)
+            upd, m, v = int8_moments(g, _dq8(mq, msc, p.shape),
+                                     _dq8(vq, vsc, p.shape), floor, p,
+                                     step, hp)
             mq2, ms2 = _q8(m)
             vq2, vs2 = _q8(v)
-            return (-lr_t * u).to(p.dtype), mq2, ms2, vq2, vs2
+            return upd, mq2, ms2, vq2, vs2
 
         def per_leaf(g, p, ms, vs):
             args = (g, ms["q"], ms["s"], vs["q"], vs["s"], p)
@@ -272,7 +306,7 @@ def int8_adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8,
         outs = tree_map(per_leaf, grads, params, state["m"], state["v"])
         return _split3(outs, grads)
 
-    return Optimizer(init, update, "int8_adamw")
+    return Optimizer(init, update, "int8_adamw", hp)
 
 
 OPTIMIZERS = {"sgd": sgd, "adamw": adamw, "adafactor": adafactor,

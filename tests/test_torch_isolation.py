@@ -4,8 +4,8 @@ checkpoint, a tensor-parallel forward, a quantized tensor-parallel
 replica and the checkpoint of its sharded weights, a pipelined call, a
 sharded LM train step, a sharded moe train step and the dry run import
 neither), its entry points refuse to fall back to the CPU (the train
-loop's and the mesh's too), and what is not ported yet (a sharded
-hybrid or encdec model, a sharded ``kv_bits=8`` cache) raises
+loop's and the mesh's too), and what is not ported (the dry run's
+``--opt``, whose reference plan is undefined) raises
 ``NotImplementedError``."""
 import ast
 import dataclasses
@@ -220,6 +220,14 @@ def test_entry_points_refuse_silent_cpu(monkeypatch, cpu_acc):
 
 
 def test_unported_paths_raise(cpu_acc, tmp_path):
+    """The dry run's ``--opt`` (the reference's ``plan_for_opt`` is
+    undefined) raises ``NotImplementedError``; the sharded hybrid,
+    encdec and int8-cache steps run, their eval metrics those of the
+    unsharded step."""
+    from repro_torch.launch import dryrun
+    with pytest.raises(NotImplementedError):
+        dryrun.main(["--opt", "--arch", "granite-3-8b", "--shape",
+                     "train_4k", "--out", str(tmp_path)])
     toks = torch.ones((2, 4), dtype=torch.int32)
     for name in ("zamba2-1.2b", "seamless-m4t-medium", "kv8"):
         cfg = registry.reduced("granite-3-8b" if name == "kv8" else name)
@@ -228,8 +236,12 @@ def test_unported_paths_raise(cpu_acc, tmp_path):
         params = lm.init_params(cfg, torch.Generator(), device="cpu")
         sp = steps.place_params(params, make_mesh(
             (1, 2), ("data", "model"), devices=["cpu", "cpu"]), cfg=cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            steps.make_eval_step(cfg)(sp, {"tokens": toks, "labels": toks})
+        batch = {"tokens": toks, "labels": toks}
+        if cfg.is_encdec:
+            batch["src_embeds"] = torch.ones((2, 3, cfg.d_model))
+        got = steps.make_eval_step(cfg)(sp, batch)
+        want = steps.make_eval_step(cfg)(params, batch)
+        assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-4, name
 
 
 def test_mesh_refuses_silent_cpu(monkeypatch):

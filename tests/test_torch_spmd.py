@@ -25,8 +25,6 @@ so each sharded step is held to the unsharded ones, at atol = rtol =
   residual whole;
 * ``restore(shardings=)`` of a checkpoint the JAX package saved, and a
   sharded ``save`` read back;
-* the refusals: encdec, hybrid, adafactor, int8_adamw (the moe family
-  runs sharded: ``tests/test_torch_spmd_moe.py``);
 * the dry run: every registry arch × cell on both production meshes
   yields a record or the JAX ``skip_reason`` text, its analytic fields
   equal the JAX ``roofline.analysis`` functions, ``per_position`` the
@@ -436,25 +434,6 @@ def test_restore_onto_shardings(tmp_path):
         tckpt.save(tmp_path / f"t{shape[1]}", 5, tree)
         back, _ = jckpt.restore(tmp_path / f"t{shape[1]}", jtree)
         _close(_jflat(back), saved, "round trip")
-
-
-@pytest.mark.parametrize("what", ("seamless-m4t-medium", "zamba2-1.2b",
-                                  "adafactor", "int8_adamw"))
-def test_refusals(what):
-    """What does not run sharded raises ``NotImplementedError`` naming
-    its ROADMAP.md item."""
-    arch = what if what in treg.ARCHS else "granite-3-8b"
-    cfg = treg.reduced(arch)
-    params = tlm.init_params(cfg, torch.Generator().manual_seed(0),
-                             device="cpu")
-    sp = tsteps.place_params(params, _mesh((2, 2)), cfg=cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what in treg.ARCHS:
-            tsteps.make_eval_step(cfg)(sp, _t(_batch(cfg, 0)))
-        else:
-            opt = topt.get(what)
-            tsteps.make_train_step(cfg, opt, 1)(
-                sp, opt.init(params), 0, _t(_mb(_batch(cfg, 0), 1)))
 
 
 def _jax_skip_reason():
