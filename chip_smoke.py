@@ -105,8 +105,19 @@ non-zero:
    ``quant_per_group``: yolov8n at 160 at W8A8 recalibrated with
    per-group activation scales, one batch, its forward then read as
    device and host issue ms with a profiler split
-   (``per_group_forward``); ``mixed``: yolov8n at 160
-   with ``CompileConfig(bits="mixed")``, one batch; ``double``: the
+   (``per_group_forward``); ``mixed``: yolov8n at 160, the design
+   ``CompileConfig(bits="mixed")`` makes, one batch. These three A8
+   designs take their activation scales
+   (``calibrate_activation_scales(backend="ref")`` on the batch each
+   calibrates on: ``compile``'s own for quant_w4a8 and mixed under
+   ``plain_compile``, ``plain_scales`` for the per-group recalibration)
+   and mixed its wordlength assignment (the search on
+   ``QuantBackend(dispatch="ref")``, its float reference and ranges on
+   ``"ref"``) from the plain versions only; each prints a sha256 digest
+   of its scales (and assignment) on an ``[a8_scales]`` line, and
+   ``a8_scale_proof`` builds them again with #1's outputs moved one ulp:
+   the digests must not move, while the same designs calibrated through
+   the kernels must (the control). ``double``: the
    designs of ``main`` and ``quant_w4a8`` (no recompile), one batch
    each through ``AcceleratorReplica(acc, backend=DoubleBuffered(...))``,
    the executors' own lowering table with the conv and A8 matmul entry
@@ -125,10 +136,16 @@ non-zero:
    other way where its float input differs in the last bit, and the
    random weights of later layers amplify it; there every conv is held
    against its plain version on the plain path's own input
-   (``LayerCompare``, 1e-4), and end to end, on three input batches,
-   the outputs within 16·2^-8·max|out| of the plain path or within
-   A8_SPREAD times the plain path's own spread when every conv output
-   moves by one ulp (``a8_path_check``).
+   (``LayerCompare``, 1e-4) and on the kernel path's own input
+   (``reverse_layer_check``: the served kernel path end to end, each
+   conv also run plain, the activation codes that round the other way
+   counted at each consuming conv's scale, each one apart), and end to
+   end, on three input batches, the outputs within 16·2^-8·max|out| of
+   the plain path or within A8_SPREAD times the plain path's own spread
+   when every conv output moves by one ulp (``a8_path_check``, each
+   reading's margin printed: kernel / (A8_SPREAD·spread), max and mean;
+   a reading that breaks the rule, here or on path ``tp``, is kept, and
+   the script fails after the last phase, before its result lines).
    The LM kernels (``csrc/rmsnorm.cu``, ``attention.cu``,
    ``decode_attention.cu``) are checked the same way at granite-3-8b's
    shapes (prefill rows 2048 × 4096, a decode step's 4 rows, causal
@@ -321,8 +338,12 @@ for #8, #9 and #10's cases, #9's exact case, the W4A8 forward
 conv`` for #1 and #2's cases, the float forwards (``float_forward``),
 the forwards with #1's split of K·K·C capped by each rule of
 CONV_SPLIT_RULES (``conv_split_rules``), one split conv's host issue
-by parts (``conv_issue_split``) and how far #1 moves quant_per_group's
-calibrated activation scales from the plain path's (``calib_drift``);
+by parts (``conv_issue_split``) and how far #1 would move
+quant_per_group's calibrated activation scales from the plain path's
+(``calib_drift``: the kernel route, which the design no longer takes);
+``--only a8check`` for paths quant_w4a8, quant_per_group and mixed (the
+scale digests, the reverse layer check, the margins), the digest proof
+(``a8_scale_proof``) and ``calib_drift``;
 ``--only attn`` for #11's cases with SDPA's (``attn_sums``) and a
 ``torch.profiler`` split of one granite-3-8b prefill at 2048, full width
 and depth: mha kernel time and launches, GEMM, the rest
@@ -360,8 +381,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import ctypes
+import dataclasses
 import functools
+import hashlib
 import json
 import math
 import statistics
@@ -400,9 +424,11 @@ A8_TOL = 16 * 2.0 ** -8
 # Paths whose design quantizes activations to 8 bits are also read end
 # to end on three input batches (the first is the one served) and may
 # land up to this many times the plain path's own one-ulp spread from
-# the plain path (max and mean |difference|; ``a8_path_check``). On the
-# H100 the kernel paths came to at most 0.93 of that spread's max and
-# 0.31 of its mean, on yolov8n W4A8 at 640 and per-group W8A8 at 160.
+# the plain path (max and mean |difference|; ``a8_path_check``). The rule
+# assumes a plain path within an ulp or so of each conv's exact value:
+# its scales come from the plain versions, and the plain matmul with
+# per-K scales (``ref.qmatmul_a8``, what #9 is held against) rounds its
+# sums once, from float64. Its readings on the H100 are in PERF.md.
 A8_SPREAD = 2.0
 # Kernels whose cases also launch twice (bit-equal) and are read both
 # ways, device time and host issue per call, over this many calls (#3
@@ -2636,10 +2662,11 @@ def conv_issue_split(torch, K, build, dev, n: int = 200) -> dict | None:
 def calib_drift(torch, core, codegen, yolo, ImageStream, place, dev) -> dict:
     """``quant_per_group``'s activation scales (yolov8n at 160, W8A8,
     weights seed 1, per group of 16 on ``ImageStream(160, 8, seed=9)``)
-    calibrated through the kernels (``backend="auto"``, as that path
-    calibrates: its float forward runs #1) and through the plain
-    versions: the largest and the mean relative difference of a scale,
-    and the share of scales that differ."""
+    calibrated through the kernels (``backend="auto"``, the port's
+    default: its float forward runs #1) and through the plain versions
+    (what the path serves, ``plain_scales``): the largest and the mean
+    relative difference of a scale, and the share of scales that
+    differ."""
     model = yolo.build("yolov8n", 160)
     params = random_params(torch, codegen, model.graph, 1)
     acc = core.compile(model, core.CompileConfig(
@@ -2787,8 +2814,199 @@ class NudgedOutputs:
         return getattr(self.plain, item)
 
 
+class KernelPathCompare:
+    """The reverse of ``LayerCompare``: the kernel path end to end, every
+    conv also run by its plain version on the kernel path's own input.
+
+    The executor is handed the batch twice over (2N rows). At each conv
+    the first N rows of its input are the kernel path's: ``kern`` and
+    ``plain`` both run on them (within KERNEL_TOL, as ``LayerCompare``), and
+    the conv passes on the kernel output as its first N rows and the
+    plain output as its last N. The pools, resizes, concats and splits
+    between convs move both halves alike, so at an A≤8 conv the last N
+    rows are what its producers' plain versions gave on the kernel
+    path's input. Both halves quantized at the conv's own ``a_scale``
+    (its input, ``ref.quantize_activation``) count the activation codes
+    that round the other way; each must be one apart. ``flips`` maps an
+    A≤8 conv to (codes that differ, codes)."""
+    name = "kernel_path_compare"
+
+    def __init__(self, torch, kern, plain, n: int):
+        from repro_torch.kernels import ops, ref
+        self.torch, self.ops, self.ref = torch, ops, ref
+        self.kern, self.plain, self.n = kern, plain, n
+        self.tol = KERNEL_TOL["qmatmul"]
+        self.worst, self.convs, self.flips = 0.0, 0, {}
+
+    def fuses_pool(self, node):
+        return self.kern.fuses_pool(node)
+
+    def _halves(self, x):
+        d = self.ops.channel_concat(x) if isinstance(x, (list, tuple)) \
+            else x
+        return d[:self.n], d[self.n:]
+
+    def conv(self, x, p, node, res=None, **kw):
+        torch = self.torch
+        xk, xp = self._halves(x)
+        rk = None if res is None else self._halves(res)[0]
+        got = self.kern.conv(xk, p, node, rk, **kw)
+        want = self.plain.conv(xk, p, node, rk, **kw)
+        err = float((got - want).abs().max())
+        self.worst = max(self.worst, err)
+        self.convs += 1
+        if float(((got - want).abs() - self.tol * want.abs()).max()) \
+                > self.tol:
+            raise AssertionError(f"{node.name}: {self.kern.name} path and "
+                                 f"its plain version on the kernel path's "
+                                 f"input: max_abs_err {err}")
+        s = node.attrs.get("a_scale")
+        bits = int(node.attrs.get("a_bits", 16))
+        if bits <= 8 and s is not None:
+            qs = s if isinstance(s, float) else torch.tensor(
+                s, dtype=torch.float32, device=xk.device)
+            d = (self.ref.quantize_activation(xk, qs, bits=bits).int()
+                 - self.ref.quantize_activation(xp, qs, bits=bits).int()
+                 ).abs()
+            if int(d.max()) > 1:
+                raise AssertionError(f"{node.name}: an activation code "
+                                     f"{int(d.max())} apart")
+            self.flips[node.name] = (int((d != 0).sum()), d.numel())
+        return torch.cat([got, want])
+
+    def __getattr__(self, item):
+        return getattr(self.kern, item)
+
+
+def reverse_layer_check(torch, np, acc, kern, plain, images, served,
+                        label: str) -> dict:
+    """``KernelPathCompare`` over the batch ``images``: every conv within
+    KERNEL_TOL of its plain version on the kernel path's own input,
+    every activation code that rounds the other way one apart, and the
+    first half's outputs bit-equal to ``served``, the kernel path's
+    outputs on that batch (the served ones on the served batch). Prints
+    the codes by consuming conv."""
+    n = len(images)
+    xb = torch.from_numpy(np.stack(images)).to(acc.torch_device)
+    cmp = KernelPathCompare(torch, kern, plain, n)
+    outs = acc.forward(torch.cat([xb, xb]), backend=cmp)
+    if cmp.convs != 63:
+        raise AssertionError(f"{label}: reverse layer check ran "
+                             f"{cmp.convs} convs")
+    if not all(torch.equal(o[:n].cpu(), s) for o, s in zip(outs, served)):
+        raise AssertionError(f"{label}: the reverse layer check's kernel "
+                             f"half is not the kernel path's outputs")
+    flipped = sum(f for f, _ in cmp.flips.values())
+    codes = sum(c for _, c in cmp.flips.values())
+    out = {"convs": cmp.convs, "max_abs_err": cmp.worst,
+           "a8_convs": len(cmp.flips), "codes": codes, "flipped": flipped,
+           "flips_by_conv": {k: f for k, (f, _) in cmp.flips.items()}}
+    print(f"[{label}] reverse layer check, the kernel path with each "
+          f"conv also run plain on its own input: {cmp.convs} convs within "
+          f"{cmp.tol} (max_abs_err {cmp.worst:.3e}); activation codes at "
+          f"the consuming conv's a_scale that round the other way: "
+          f"{flipped} of {codes} at {len(cmp.flips)} A8 convs, each one "
+          f"apart; by conv: " + (", ".join(
+              f"{k} {f}" for k, f in out["flips_by_conv"].items() if f)
+              or "none"), flush=True)
+    return out
+
+
+def scale_digest(np, graph, assignment=None) -> dict:
+    """sha256 over every conv's activation scale (``a_scale``, float32
+    bytes, after the node's name) in topological order, and over a mixed
+    design's wordlength assignment (sorted JSON): a later run's log can
+    be compared with this one's."""
+    h = hashlib.sha256()
+    n = 0
+    for node in graph.topo_order():
+        s = node.attrs.get("a_scale")
+        if node.op == "conv" and s is not None:
+            h.update(node.name.encode())
+            h.update(np.asarray(s, dtype=np.float32).tobytes())
+            n += 1
+    out = {"scaled_convs": n, "scales_sha256": h.hexdigest()}
+    if assignment is not None:
+        out["assignment_sha256"] = hashlib.sha256(json.dumps(
+            assignment, sort_keys=True).encode()).hexdigest()
+    return out
+
+
+def plain_scales(codegen, graph, params, calib, **kw) -> dict:
+    """``graph``'s activation scales calibrated on the plain versions
+    (``backend="ref"``, the JAX package's default), every A≤8 conv's
+    overwritten: no kernel takes part in choosing them. The per-group
+    recalibration of quant_per_group uses it."""
+    written = codegen.calibrate_activation_scales(graph, params, calib,
+                                                  backend="ref", **kw)
+    a8 = {n.name for n in graph.nodes.values()
+          if n.op == "conv" and int(n.attrs.get("a_bits", 16)) <= 8}
+    if set(written) != a8:
+        raise AssertionError(f"plain calibration wrote {len(written)} of "
+                             f"{len(a8)} A8 convs' scales")
+    return written
+
+
+@contextlib.contextmanager
+def nudged_conv_kernel(torch, K):
+    """For the length of the block, #1's outputs moved one unit in the
+    last place toward +inf: ``kernels.conv2d.conv2d``, the entry point
+    of every float conv on the kernel route, wrapped (its attributes,
+    the launch counters, kept). Only ``a8_scale_proof`` uses it."""
+    fn = K.conv2d.conv2d
+
+    @functools.wraps(fn)
+    def nudged(*args, **kw):
+        y = fn(*args, **kw)
+        return torch.nextafter(y, torch.full_like(y, float("inf")))
+    K.conv2d.conv2d = nudged
+    try:
+        yield
+    finally:
+        K.conv2d.conv2d = fn
+
+
+def a8_failure(failed: list, msg: str) -> None:
+    """A reading that breaks the A8 rule, kept in ``failed`` and printed:
+    the run reads every A8 design and path, then fails at its end
+    (``main``'s ``a8_verdict``)."""
+    failed.append(msg)
+    print(f"[a8] FAILED: {msg}", flush=True)
+
+
+@contextlib.contextmanager
+def plain_compile(codegen, dse, table):
+    """For the length of the block, ``compile`` makes an A8 design with no
+    kernel taking part: ``codegen.calibrate_activation_scales`` measures
+    its ranges on ``"ref"`` (the JAX package's default), and
+    ``dse.mixed_precision_search`` runs its trials on the lowering table
+    ``table`` (``QuantBackend(dispatch="ref")``; its float reference and
+    ranges on that dispatch), whatever their callers pass. The design,
+    its report and its accuracy probe are then ``compile``'s own, on
+    scales from the plain versions. ``compile_w4a8`` and
+    ``compile_mixed`` use it."""
+    calibrate, search = (codegen.calibrate_activation_scales,
+                         dse.mixed_precision_search)
+
+    @functools.wraps(calibrate)
+    def plain_calibrate(*args, **kw):
+        return calibrate(*args, **{**kw, "backend": "ref"})
+
+    @functools.wraps(search)
+    def plain_search(*args, **kw):
+        return search(*args, **{**kw, "backend": table})
+    codegen.calibrate_activation_scales = plain_calibrate
+    dse.mixed_precision_search = plain_search
+    try:
+        yield
+    finally:
+        codegen.calibrate_activation_scales = calibrate
+        dse.mixed_precision_search = search
+
+
 def a8_path_check(torch, np, ImageStream, acc, kern, plain, done, images,
-                  shapes, img: int, seeds: tuple, label: str) -> dict:
+                  shapes, img: int, seeds: tuple, label: str,
+                  failed: list) -> dict:
     """The output check of a path whose design quantizes activations to
     8 bits, where a code that rounds the other way in one layer (its
     float input differing in the last bit) is amplified by the random
@@ -2797,13 +3015,25 @@ def a8_path_check(torch, np, ImageStream, acc, kern, plain, done, images,
 
     * the served requests are done, in order, with the expected shapes;
     * every conv is within KERNEL_TOL of its plain version on the plain
-      path's own input (``LayerCompare``, on the served batch);
+      path's own input (``LayerCompare``, on the served batch), and on
+      the kernel path's own input (``reverse_layer_check`` on each
+      seed's batch, the served kernel path on the first: the activation
+      codes that round the other way counted by consuming conv, each one
+      apart);
     * on each of ``seeds``' batches (the first the served one) the
       kernel path's outputs are finite, and within A8_TOL·max|out| of
       the plain path or, failing that, within A8_SPREAD times the plain
       path's own spread when every conv output moves by one ulp
       (``NudgedOutputs``, up and down; max and mean |difference|, the
-      spread taken over all the batches)."""
+      spread taken over all the batches). Each reading's margin is
+      printed: kernel_max / (A8_SPREAD·spread_max) and kernel_mean /
+      (A8_SPREAD·spread_mean), at most 1 where the spread rule holds.
+      A reading within neither bound fails: it is kept in ``failed``
+      (``a8_failure``).
+
+    The design's activation scales come from the plain versions
+    (``plain_scales``), so the plain path and the rule's spread do not
+    move with the kernels' last bits."""
     if len(done) != len(images) or not all(r.done for r in done):
         raise AssertionError(f"{label}: {sum(r.done for r in done)}/"
                              f"{len(images)} requests done")
@@ -2817,13 +3047,16 @@ def a8_path_check(torch, np, ImageStream, acc, kern, plain, done, images,
                 backend=cmp)
     if cmp.convs != 63:
         raise AssertionError(f"{label}: layer check ran {cmp.convs} convs")
-    readings = []
+    readings, reverse = [], []
     for i, seed in enumerate(seeds):
-        xb = torch.from_numpy(np.stack(images if i == 0 else list(
-            ImageStream(img, BATCH, seed=seed).frames(BATCH)))).to(
-                acc.torch_device)
+        batch = images if i == 0 else list(
+            ImageStream(img, BATCH, seed=seed).frames(BATCH))
+        xb = torch.from_numpy(np.stack(batch)).to(acc.torch_device)
         want = [o.cpu() for o in acc.forward(xb, backend=plain)]
         got = served if i == 0 else [o.cpu() for o in acc.forward(xb)]
+        reverse.append(reverse_layer_check(torch, np, acc, kern, plain,
+                                           batch, got,
+                                           f"{label}] [seed {seed}"))
         for o in got:
             if not bool(torch.isfinite(o).all()):
                 raise AssertionError(f"{label}: non-finite output")
@@ -2839,6 +3072,7 @@ def a8_path_check(torch, np, ImageStream, acc, kern, plain, done, images,
         w = [diff(o) for o in spread]
         readings.append({"seed": seed, "kernel_max": k_max,
                          "kernel_mean": k_mean,
+                         "codes_flipped": reverse[-1]["flipped"],
                          "spread_max": max(a for a, _ in w),
                          "spread_mean": max(b for _, b in w),
                          "max_out": max(float(t.abs().max())
@@ -2849,17 +3083,24 @@ def a8_path_check(torch, np, ImageStream, acc, kern, plain, done, images,
         r["within_tol"] = r["kernel_max"] <= A8_TOL * r["max_out"]
         r["within_spread"] = (r["kernel_max"] <= A8_SPREAD * s_max
                               and r["kernel_mean"] <= A8_SPREAD * s_mean)
+        r["margin_max"] = r["kernel_max"] / (A8_SPREAD * s_max)
+        r["margin_mean"] = r["kernel_mean"] / (A8_SPREAD * s_mean)
         print(f"[{label}] seed {r['seed']}: kernel path vs plain max "
               f"{r['kernel_max']:.4e} mean {r['kernel_mean']:.4e}; plain "
               f"nudged one ulp vs plain max {r['spread_max']:.4e} mean "
               f"{r['spread_mean']:.4e}; max |output| {r['max_out']:.4e}; "
               f"within {A8_TOL:.4f}·max|out|: {r['within_tol']}, within "
-              f"{A8_SPREAD}x the spread: {r['within_spread']}", flush=True)
+              f"{A8_SPREAD}x the spread: {r['within_spread']}; margin max "
+              f"{r['margin_max']:.4f} mean {r['margin_mean']:.4f}",
+              flush=True)
         if not (r["within_tol"] or r["within_spread"]):
-            raise AssertionError(f"{label}: seed {r['seed']}: the kernel "
-                                 f"path is further from the plain path "
-                                 f"than either bound")
-    return {"layer_max_abs_err": cmp.worst, "readings": readings,
+            a8_failure(failed, f"{label}: seed {r['seed']}: the kernel "
+                               f"path is further from the plain path than "
+                               f"either bound (margin max "
+                               f"{r['margin_max']:.4f} mean "
+                               f"{r['margin_mean']:.4f})")
+    return {"layer_max_abs_err": cmp.worst, "reverse": reverse,
+            "readings": readings,
             "max_abs_err": max(r["kernel_max"] for r in readings)}
 
 
@@ -3804,8 +4045,8 @@ def same_plans(one: list, tp: list, kernel_of: dict, sharded: list,
 
 
 def run_tp_quant(torch, np, codegen, quant_mod, ops, ref, K, ImageStream,
-                 Deployment, DetectRequest, counters, designs: list
-                 ) -> tuple:
+                 Deployment, DetectRequest, counters, designs: list,
+                 failed: list) -> tuple:
     """Path tp's quantized and double-buffered designs, with no
     recompile: each entry of ``designs`` (label, accelerator, its
     one-device lowering table, its plain table, img, seed) served by
@@ -3821,7 +4062,8 @@ def run_tp_quant(torch, np, codegen, quant_mod, ops, ref, K, ImageStream,
     every conv's plan is the same at each position (``plans_of``),
     otherwise, for a design that quantizes activations to 8 bits, within
     A8_TOL·max|out| of the plain path or A8_SPREAD times its one-ulp
-    spread (``a8_path_check``'s rule), and for the others within TP_TOL
+    spread (``a8_path_check``'s rule; a reading that breaks it is kept in
+    ``failed``, ``a8_failure``), and for the others within TP_TOL
     of the one-device forward; one profiled forward's all-gather bytes
     (``roofline.trace``) equal to the graph's. Readings: the forward's
     device, issue and back-to-back ms beside the one-device forward's,
@@ -3911,10 +4153,12 @@ def run_tp_quant(torch, np, codegen, quant_mod, ops, ref, K, ImageStream,
                 e2e.setdefault("a8", []).append(
                     {"batch": i // BATCH, "vs_plain_max": k_max,
                      "vs_plain_mean": k_mean, "spread_max": s_max,
-                     "spread_mean": s_mean, "max_out": top, "ok": ok})
+                     "spread_mean": s_mean, "max_out": top, "ok": ok,
+                     "margin_max": k_max / (A8_SPREAD * s_max),
+                     "margin_mean": k_mean / (A8_SPREAD * s_mean)})
                 if not ok:
-                    raise AssertionError(f"{tag} batch {i // BATCH}: "
-                                         f"{e2e['a8'][-1]}")
+                    a8_failure(failed, f"{tag} batch {i // BATCH}: "
+                                       f"{e2e['a8'][-1]}")
             elif not all(torch.allclose(a, b, atol=TP_TOL, rtol=TP_TOL)
                          for a, b in zip(got, one_out)):
                 raise AssertionError(f"{tag} batch {i // BATCH}: {d} from "
@@ -3957,7 +4201,10 @@ def run_tp_quant(torch, np, codegen, quant_mod, ops, ref, K, ImageStream,
                "frames_per_s": fps,
                "ms_per_batch": wall2 / stats2["batches"] * 1e3}
         held = ("bit-equal to one device (every plan the same)" if same
-                else "within A8_TOL or A8_SPREAD of the plain path" if a8
+                else "within A8_TOL or A8_SPREAD of the plain path "
+                f"(margins by batch, max/mean: " + ", ".join(
+                    f"{r['margin_max']:.4f}/{r['margin_mean']:.4f}"
+                    for r in e2e["a8"]) + ")" if a8
                 else f"within {TP_TOL} of one device")
         print(f"{tag} yolov8n@{img}, {TP_REPLICAS} replicas x {TP_WIDTH} "
               f"positions: launches a forward {_nonzero(per_fwd)} "
@@ -6196,7 +6443,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("stream", "a8", "conv", "attn",
                                        "ssd", "dec", "pool", "load",
                                        "decwin", "moe", "train", "tp",
-                                       "pipeline", "sharded"),
+                                       "pipeline", "sharded", "a8check"),
                     help="only one slice's reading, for a before/after "
                     "(copied into an older checkout, it reads that "
                     "checkout's kernels): stream, #4 and #5's cases and the "
@@ -6222,7 +6469,11 @@ def main() -> int:
                     "(main's design by tensor-parallel replicas); "
                     "pipeline, path pipeline (granite-3-8b's streaming "
                     "pipeline) and its roofline share; sharded, path "
-                    "sharded (the LM steps over a (data, model) mesh). "
+                    "sharded (the LM steps over a (data, model) mesh); "
+                    "a8check, paths quant_w4a8, quant_per_group and mixed "
+                    "(the A8 designs' scale digests, the reverse layer "
+                    "check, a8_path_check's margins), the proof that #1's "
+                    "last bits move no scale, and calib_drift. "
                     "Prints no result line")
     args = ap.parse_args()
 
@@ -6237,7 +6488,7 @@ def main() -> int:
     try:
         import torch.nn.functional as F
         import repro_torch.core as core
-        from repro_torch.core import codegen
+        from repro_torch.core import codegen, dse, toolflow
         from repro_torch.data.synthetic import ImageStream
         from repro_torch.kernels import _build
         from repro_torch.configs import registry
@@ -6440,27 +6691,117 @@ def main() -> int:
 
     zero = functools.partial(zero_counts, counters)
 
-    def recalibrate_per_group() -> dict:
-        """quant_per_group's design recalibrated with per-group scales on
-        a batch of the image stream (another seed than the one served)."""
+    # The A8 designs take their activation scales, and mixed its
+    # wordlength assignment, from the plain versions only, so that no
+    # kernel's last bits move them (``a8_scale_proof``).
+    digests: dict = {}
+    # readings that break the A8 rule, kept so that every A8 design and
+    # path is read; the run fails at its end if any is here
+    a8_failed: list = []
+
+    def a8_verdict() -> None:
+        if a8_failed:
+            raise AssertionError("the A8 rule failed: "
+                                 + "; ".join(a8_failed))
+
+    def recalibrate_per_group(graph=None) -> dict:
+        """quant_per_group's design (``graph``: ``acc_g``'s unless given)
+        recalibrated with per-group scales on the plain versions, on a
+        batch of the image stream (another seed than the one served)."""
         calib_g = torch.from_numpy(ImageStream(160, BATCH, seed=9).batch_at(
             0)).to(acc_g.torch_device)
-        return codegen.calibrate_activation_scales(
-            acc_g.graph, place(fp160, acc_g.torch_device), calib_g,
-            granularity="per_group", group_size=16)
+        return plain_scales(codegen, acc_g.graph if graph is None else graph,
+                            place(fp160, acc_g.torch_device), calib_g,
+                            granularity="per_group", group_size=16)
+
+    def w4a8_calib(graph):
+        """compile's own calibration batch for the W4A8 design."""
+        return toolflow._calib_batch(graph, core.CompileConfig().calib_frames,
+                                     dev0)
 
     def compile_w4a8():
-        """quant_w4a8's design: yolov8n at 640, packed W4, A8."""
-        return core.compile(model, core.CompileConfig(
-            backend="quant", w_bits=4, a_bits=8, batch_size=BATCH),
-            params=random_params(torch, codegen, model.graph, 0))
+        """quant_w4a8's design: yolov8n at 640, packed W4, A8, its scales
+        calibrated by ``compile`` on its own calibration batch on the
+        plain versions (``plain_compile``)."""
+        with plain_compile(codegen, dse, quant_ref):
+            return core.compile(model, core.CompileConfig(
+                backend="quant", w_bits=4, a_bits=8, batch_size=BATCH),
+                params=random_params(torch, codegen, model.graph, 0))
 
     def compile_mixed():
-        """mixed's design: the per-layer wordlength search at 160."""
-        return core.compile(model160, core.CompileConfig(
-            bits="mixed", search_evals=16, calib_frames=1,
-            batch_size=BATCH),
-            params=random_params(torch, codegen, model160.graph, 2))
+        """mixed's design: ``compile(bits="mixed")`` at 160, its
+        wordlength search on the plain versions (``plain_compile``: the
+        trials on ``quant_ref``, so the float reference and the ranges
+        its activation scales come from on ``"ref"``)."""
+        cfg = core.CompileConfig(bits="mixed", search_evals=16,
+                                 calib_frames=1, batch_size=BATCH)
+        t0 = time.perf_counter()
+        with plain_compile(codegen, dse, quant_ref):
+            acc_ = core.compile(model160, cfg, params=random_params(
+                torch, codegen, model160.graph, 2))
+        print(f"[mixed] compiled with the wordlength search on the plain "
+              f"versions: {acc_.report['search_evals']} evaluations, "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        return acc_
+
+    def digest_of(label: str, acc_, graph=None) -> dict:
+        """``scale_digest`` of a design (``graph``: ``acc_``'s unless
+        given), printed on an ``[a8_scales]`` line."""
+        d = scale_digest(np, acc_.graph if graph is None else graph,
+                         acc_.report.get("mixed_assignment"))
+        print(f"[a8_scales] {label}: scales sha256 {d['scales_sha256']} "
+              f"over {d['scaled_convs']} convs" + (
+                  f"; assignment sha256 {d['assignment_sha256']}"
+                  if "assignment_sha256" in d else ""), flush=True)
+        return d
+
+    def a8_scale_proof(g4) -> dict:
+        """The A8 designs built again with #1's outputs moved one ulp
+        (``nudged_conv_kernel``): compile_w4a8, the per-group
+        recalibration on a copy of ``acc_g``'s graph, and compile_mixed.
+        Their digests must equal ``digests``, the served designs'.
+        Control: each of the first two designs' scales (``g4``, the
+        served W4A8 design's graph; ``acc_g``'s) calibrated through the
+        kernels (``backend="auto"``) must move under the same nudge, or
+        it reached no scale."""
+        t0 = time.perf_counter()
+        p4 = place(random_params(torch, codegen, model.graph, 0), dev0)
+        calib_g = torch.from_numpy(ImageStream(160, BATCH, seed=9).batch_at(
+            0)).to(dev0)
+
+        def kernel_route() -> dict:
+            a, b = copy.deepcopy(g4), copy.deepcopy(acc_g.graph)
+            codegen.calibrate_activation_scales(a, p4, w4a8_calib(a))
+            codegen.calibrate_activation_scales(
+                b, place(fp160, dev0), calib_g, granularity="per_group",
+                group_size=16)
+            return {"quant_w4a8": scale_digest(np, a)["scales_sha256"],
+                    "quant_per_group": scale_digest(np, b)["scales_sha256"]}
+        before = kernel_route()
+        with nudged_conv_kernel(torch, K):
+            again = {"quant_w4a8": digest_of("quant_w4a8 (#1 nudged)",
+                                             compile_w4a8())}
+            g = copy.deepcopy(acc_g.graph)
+            recalibrate_per_group(g)
+            again["quant_per_group"] = digest_of(
+                "quant_per_group (#1 nudged)", acc_g, g)
+            again["mixed"] = digest_of("mixed (#1 nudged)", compile_mixed())
+            after = kernel_route()
+        for label, d in again.items():
+            if d != digests[label]:
+                raise AssertionError(f"{label}: scales built with #1 nudged "
+                                     f"{d} != {digests[label]}")
+        moved = {k: before[k] != after[k] for k in before}
+        if not all(moved.values()):
+            raise AssertionError(f"the nudge moved no kernel-calibrated "
+                                 f"scale: {moved}")
+        out = {"equal": True, "kernel_route_moved": moved,
+               "seconds": time.perf_counter() - t0}
+        print(f"[a8_scales] with #1's outputs moved one ulp the A8 designs' "
+              f"digests are unchanged ({', '.join(again)}); the same nudge "
+              f"moves the scales calibrated through the kernels: {moved}; "
+              f"{out['seconds']:.1f}s", flush=True)
+        return out
 
     auto = codegen.get_backend("auto")
 
@@ -6482,20 +6823,23 @@ def main() -> int:
         scales (``recalibrate_per_group``), one batch served,
         ``a8_path_check``, and its forward read (``per_group_forward``)."""
         written = recalibrate_per_group()
+        digests["quant_per_group"] = digest_of("quant_per_group", acc_g)
         (images_g, done_g, _, _), cg = drive(acc_g, BATCH, 160, 6,
                                              backend="quant")
         n_g, n_f = cg["qmatmul_a8_grouped"], cg["qmatmul"]
         if n_g + n_f != 63 or n_g <= 0 or cg["conv2d"] or cg["qmatmul_a8"]:
             raise AssertionError(f"quant_per_group launches {cg}")
-        # The grouped kernel sums int32 per K block and scales in float32,
-        # the plain version scales every feature first: the two differ in
-        # the last bits, which is what a8_path_check is built for.
+        # The grouped kernel folds exact int32 block sums in float32, the
+        # plain version rounds the exact sums once: the two differ in the
+        # last bits, which is what a8_path_check is built for.
         a8_g = a8_path_check(torch, np, ImageStream, acc_g, quant_kern,
                              quant_ref, done_g, images_g,
                              [(20, 20, 144), (10, 10, 144), (5, 5, 144)],
-                             160, (6, 10, 11), "quant_per_group")
+                             160, (6, 10, 11), "quant_per_group",
+                             failed=a8_failed)
         print(f"[quant_per_group] yolov8n@160 W8A8, {len(written)} convs "
-              f"recalibrated per group of 16 channels; launches {cg}; every "
+              f"recalibrated per group of 16 channels on the plain versions; "
+              f"launches {cg}; every "
               f"conv within {KERNEL_TOL['qmatmul_a8_grouped']} of its plain "
               f"version on the same input (max_abs_err "
               f"{a8_g['layer_max_abs_err']:.3e}); end to end max_abs_err "
@@ -6504,6 +6848,104 @@ def main() -> int:
             np.stack(images_g)).to(acc_g.torch_device), quant_kern,
             counters)
         return cg, a8_g, fwd_g
+
+    shapes640 = [(80, 80, 144), (40, 40, 144), (20, 20, 144)]
+    shapes160 = [(20, 20, 144), (10, 10, 144), (5, 5, 144)]
+
+    def w4a8_path() -> tuple:
+        """Path quant_w4a8: packed int4 weights, int8 activations, one
+        batch served and ``a8_path_check``. Returns (design, images,
+        served requests, launches, check, accuracy probe)."""
+        t0 = time.perf_counter()
+        acc_4 = compile_w4a8()
+        digests["quant_w4a8"] = digest_of("quant_w4a8", acc_4)
+        probe = {k: acc_4.report[k] for k in (
+            "quant_max_abs_delta", "quant_mean_rel_delta")}
+        (images_4, done_4, _, _), c4 = drive(acc_4, BATCH, IMG, 5,
+                                             backend="quant")
+        want_4 = zero(qmatmul_a8=63, maxpool2d=3, resize_nearest=2)
+        packed = sum(1 for p in acc_4.params.values() if p["w"].packed)
+        if c4 != want_4 or packed != 63:
+            raise AssertionError(f"quant_w4a8 launches {c4} ({packed} packed "
+                                 f"weights), expected {want_4}")
+        a8_4 = a8_path_check(torch, np, ImageStream, acc_4, quant_kern,
+                             quant_ref, done_4, images_4, shapes640, IMG,
+                             (5, 12, 13), "quant_w4a8", failed=a8_failed)
+        print(f"[quant_w4a8] compiled (scales on the plain versions) and "
+              f"served one batch in {time.perf_counter() - t0:.1f}s; "
+              f"launches {c4} on {packed} "
+              f"packed-int4 weights; every conv within "
+              f"{KERNEL_TOL['qmatmul_a8']} of its plain version on the same "
+              f"input (max_abs_err {a8_4['layer_max_abs_err']:.3e}); end to "
+              f"end max_abs_err {a8_4['max_abs_err']:.3e}; accuracy probe "
+              f"(compile's, on the served scales) {probe}", flush=True)
+        return acc_4, images_4, done_4, c4, a8_4, probe
+
+    def mixed_path() -> tuple:
+        """Path mixed: the plain-searched design (``compile_mixed``), one
+        batch served, ``a8_path_check`` where a layer quantizes its
+        activations, else MAIN_TOL. Returns (design, launches, max
+        error, the A8 check or None, probe)."""
+        t0 = time.perf_counter()
+        acc_m = compile_mixed()
+        t_search = time.perf_counter() - t0
+        digests["mixed"] = digest_of("mixed", acc_m)
+        (images_m, done_m, _, _), cm = drive(acc_m, BATCH, 160, 7,
+                                             backend="quant")
+        nq = cm["qmatmul"] + cm["qmatmul_a8"] + cm["qmatmul_a8_grouped"]
+        if nq != 63 or cm["conv2d"]:
+            raise AssertionError(f"mixed launches {cm}")
+        counts_m: dict = {}
+        for wa in acc_m.report["mixed_assignment"].values():
+            key = f"W{wa[0]}A{wa[1]}"
+            counts_m[key] = counts_m.get(key, 0) + 1
+        # the 8-bit bound only where the search chose a layer that
+        # quantizes its activations; else MAIN_TOL, as on quant_w8a16
+        a8_m = any(wa[1] <= 8
+                   for wa in acc_m.report["mixed_assignment"].values())
+        check_m = None
+        if a8_m:
+            check_m = a8_path_check(torch, np, ImageStream, acc_m,
+                                    quant_kern, quant_ref, done_m, images_m,
+                                    shapes160, 160, (7, 14, 15), "mixed",
+                                    failed=a8_failed)
+            err_m = check_m["max_abs_err"]
+        else:
+            err_m, _ = check_outputs(torch, np, acc_m, images_m, done_m,
+                                     shapes160, ref_backend=quant_ref)
+        probe = {"mixed_accuracy_delta": acc_m.report["mixed_accuracy_delta"],
+                 "wordlengths": counts_m,
+                 "assignment": acc_m.report["mixed_assignment"],
+                 "search_evals": acc_m.report["search_evals"],
+                 "compile_s": t_search}
+        print(f"[mixed] yolov8n@160 bits='mixed' (search_evals=16 on the "
+              f"plain versions, {t_search:.1f}s to compile): chosen "
+              f"wordlengths {counts_m} at delta "
+              f"{acc_m.report['mixed_accuracy_delta']:.4e} (budget "
+              f"{acc_m.report['accuracy_budget']}); launches {cm}; outputs "
+              f"{'checked as on quant_w4a8' if a8_m else f'within {MAIN_TOL}'} "
+              f"against the plain quant path (max_abs_err {err_m:.3e})",
+              flush=True)
+        return acc_m, cm, err_m, check_m, probe
+
+    if args.only == "a8check":
+        acc_4, _, _, c4, a8_4, probe_4 = w4a8_path()
+        cg, a8_g, _ = per_group_path()
+        _, cm, err_m, a8_m, probe_m = mixed_path()
+        proof = a8_scale_proof(acc_4.graph)
+        drift = calib_drift(torch, core, codegen, yolo, ImageStream, place,
+                            dev0)
+        write_out({}, a8check={
+            "digests": digests, "proof": proof, "calib_drift": drift,
+            "a8_failed": a8_failed,
+            "quant_w4a8": {"launches": c4, "a8_path_check": a8_4,
+                           "probe": probe_4},
+            "quant_per_group": {"launches": cg, "a8_path_check": a8_g},
+            "mixed": {"launches": cm, "max_abs_err": err_m,
+                      "a8_path_check": a8_m, "probe": probe_m}})
+        print(f"[card] {smi()}")
+        a8_verdict()
+        return 0
 
     if args.only == "a8":
         acc_4 = compile_w4a8()
@@ -6525,6 +6967,7 @@ def main() -> int:
                       "launches": cg, "a8_path_check": a8_g,
                       "forward": fwd_g})
         print(f"[card] {smi()}")
+        a8_verdict()
         return 0
     t0 = time.perf_counter()
     acc = core.compile(model, core.CompileConfig(batch_size=BATCH,
@@ -6549,12 +6992,17 @@ def main() -> int:
             backend="quant", batch_size=BATCH, replicas=2),
             params=random_params(torch, codegen, model.graph, 0))
         recalibrate_per_group()
+        digests["quant_per_group"] = digest_of("quant_per_group", acc_g)
+        acc_4, acc_m = compile_w4a8(), compile_mixed()
+        digests["quant_w4a8"] = digest_of("quant_w4a8", acc_4)
+        digests["mixed"] = digest_of("mixed", acc_m)
         _, run["designs"] = run_tp_quant(
             torch, np, codegen, quant, ops, ref, K, ImageStream, Deployment,
-            DetectRequest, counters, tp_designs(acc, acc_q, compile_w4a8(),
-                                                compile_mixed()))
+            DetectRequest, counters, tp_designs(acc, acc_q, acc_4, acc_m),
+            failed=a8_failed)
         write_out({}, tp=run)
         print(f"[card] {smi()}")
+        a8_verdict()
         return 0
     convs = conv_cases(torch, F, K, dev0,
                        conv_launch_shapes(codegen, acc.graph))
@@ -6612,6 +7060,11 @@ def main() -> int:
     pointer = a8_pointer_check(torch, qmatmul, dev0)
     dec_window = dec_window_check(torch, K, dev0)
 
+    def lap(label: str) -> None:
+        print(f"[time] {label} done at {time.perf_counter() - T0:.0f}s",
+              flush=True)
+    lap("build and the kernels' cases")
+
     # ---------------------------------------------------------------- 3
     (images, done, stats, wall), main_counts = drive(acc, N_REQ, IMG, 0)
     batches = stats["batches"]
@@ -6644,8 +7097,6 @@ def main() -> int:
           f"(max_abs_err {err_off:.3e}, max |output| {scale_off:.3e})",
           flush=True)
     off_fwd = fusion_off_forward(torch, acc_off, xb_off)
-    shapes640 = [(80, 80, 144), (40, 40, 144), (20, 20, 144)]
-    shapes160 = [(20, 20, 144), (10, 10, 144), (5, 5, 144)]
     probes = {"quant_w8a16": {k: acc_q.report[k] for k in (
         "quant_max_abs_delta", "quant_mean_rel_delta")}}
 
@@ -6664,66 +7115,14 @@ def main() -> int:
           f"QuantBackend(dispatch='ref') on the card (max_abs_err "
           f"{err_q:.3e}, max |output| {scale_q:.3e})", flush=True)
 
-    # quant_w4a8: packed int4 weights, int8 activations, one batch
-    t0 = time.perf_counter()
-    acc_4 = compile_w4a8()
-    probes["quant_w4a8"] = {k: acc_4.report[k] for k in (
-        "quant_max_abs_delta", "quant_mean_rel_delta")}
-    (images_4, done_4, _, _), c4 = drive(acc_4, BATCH, IMG, 5,
-                                         backend="quant")
-    want_4 = zero(qmatmul_a8=63, maxpool2d=3, resize_nearest=2)
-    packed = sum(1 for p in acc_4.params.values() if p["w"].packed)
-    if c4 != want_4 or packed != 63:
-        raise AssertionError(f"quant_w4a8 launches {c4} ({packed} packed "
-                             f"weights), expected {want_4}")
-    a8_4 = a8_path_check(torch, np, ImageStream, acc_4, quant_kern,
-                         quant_ref, done_4, images_4, shapes640, IMG,
-                         (5, 12, 13), "quant_w4a8")
-    print(f"[quant_w4a8] compiled and served one batch in "
-          f"{time.perf_counter() - t0:.1f}s; launches {c4} on {packed} "
-          f"packed-int4 weights; every conv within "
-          f"{KERNEL_TOL['qmatmul_a8']} of its plain version on the same "
-          f"input (max_abs_err {a8_4['layer_max_abs_err']:.3e}); end to "
-          f"end max_abs_err {a8_4['max_abs_err']:.3e}; probe "
-          f"{probes['quant_w4a8']}", flush=True)
-
+    # quant_w4a8, quant_per_group, mixed: the A8 designs (scales, and
+    # mixed's assignment, from the plain versions), then the proof that
+    # #1's last bits do not move them
+    acc_4, images_4, done_4, c4, a8_4, probes["quant_w4a8"] = w4a8_path()
     cg, a8_g, fwd_g = per_group_path()
-
-    # mixed: the per-layer wordlength search at 160, one batch
-    t0 = time.perf_counter()
-    acc_m = compile_mixed()
-    t_search = time.perf_counter() - t0
-    (images_m, done_m, _, _), cm = drive(acc_m, BATCH, 160, 7,
-                                         backend="quant")
-    nq = cm["qmatmul"] + cm["qmatmul_a8"] + cm["qmatmul_a8_grouped"]
-    if nq != 63 or cm["conv2d"]:
-        raise AssertionError(f"mixed launches {cm}")
-    counts_m: dict = {}
-    for wa in acc_m.report["mixed_assignment"].values():
-        key = f"W{wa[0]}A{wa[1]}"
-        counts_m[key] = counts_m.get(key, 0) + 1
-    # the 8-bit bound only where the search chose a layer that
-    # quantizes its activations; else MAIN_TOL, as on quant_w8a16
-    a8_m = any(wa[1] <= 8 for wa in acc_m.report["mixed_assignment"].values())
-    if a8_m:
-        a8_m_check = a8_path_check(torch, np, ImageStream, acc_m,
-                                   quant_kern, quant_ref, done_m, images_m,
-                                   shapes160, 160, (7, 14, 15), "mixed")
-        err_m = a8_m_check["max_abs_err"]
-    else:
-        err_m, _ = check_outputs(torch, np, acc_m, images_m, done_m,
-                                 shapes160, ref_backend=quant_ref)
-    probes["mixed"] = {"mixed_accuracy_delta":
-                       acc_m.report["mixed_accuracy_delta"],
-                       "wordlengths": counts_m,
-                       "search_evals": acc_m.report["search_evals"]}
-    print(f"[mixed] yolov8n@160 bits='mixed' (search_evals=16, "
-          f"{t_search:.1f}s to compile): chosen wordlengths {counts_m} at "
-          f"delta {acc_m.report['mixed_accuracy_delta']:.4e} (budget "
-          f"{acc_m.report['accuracy_budget']}); launches {cm}; outputs "
-          f"{'checked as on quant_w4a8' if a8_m else f'within {MAIN_TOL}'} "
-          f"against the plain quant path (max_abs_err {err_m:.3e})",
-          flush=True)
+    acc_m, cm, err_m, _, probes["mixed"] = mixed_path()
+    scale_proof = a8_scale_proof(acc_4.graph)
+    lap("paths main to mixed")
 
     # double: pipeline="double" on the designs that main and quant_w4a8
     # compiled (no recompile), one forward each through a replica pinned
@@ -6797,8 +7196,10 @@ def main() -> int:
                                  xb)
     c_tq, tp_run["designs"] = run_tp_quant(
         torch, np, codegen, quant, ops, ref, K, ImageStream, Deployment,
-        DetectRequest, counters, tp_designs(acc, acc_q, acc_4, acc_m))
+        DetectRequest, counters, tp_designs(acc, acc_q, acc_4, acc_m),
+        failed=a8_failed)
     paths["tp"] = {k: paths["tp"][k] + c_tq[k] for k in counters}
+    lap("paths double and tp")
 
     # ---------------------------------------------------------------- 4
     # A short serving window after warm-up: a smoke reading of the
@@ -6870,6 +7271,7 @@ def main() -> int:
     load["seconds"] = time.perf_counter() - t_load
     print(f"[load] launches {_nonzero(paths['load'])}; path load took "
           f"{load['seconds']:.1f}s", flush=True)
+    lap("timing and load")
 
     # ---------------------------------------------------------------- 5, 6
     # lm, ssm, hybrid: granite-3-8b, mamba2-130m and zamba2-1.2b at full
@@ -6885,6 +7287,7 @@ def main() -> int:
                 dev0, kept)
             del kept
             free_card(torch)
+        lap(f"path {path}")
     # moe, vlm, encdec: qwen3-moe-30b-a3b (12 of 48 layers) served by
     # Engine; llava-next-34b (8 of 60) and seamless-m4t-medium (whole) at
     # the model level
@@ -6894,9 +7297,11 @@ def main() -> int:
                                            counters, dev0)
     paths["encdec"], lm_runs["encdec"] = run_encdec(
         torch, np, lm, ops, registry, counters, dev0)
+    lap("paths moe, vlm and encdec")
     # train: gradient steps through the forward kernels under autograd
     paths["train"], lm_runs["train"] = run_train(
         torch, np, lm, ops, registry, counters, dev0)
+    lap("path train")
     # pipeline: granite-3-8b's layers as a streaming pipeline
     paths["pipeline"], lm_runs["pipeline"] = run_pipeline(
         torch, np, lm, registry, counters, dev0, model.graph)
@@ -6941,6 +7346,9 @@ def main() -> int:
                      "replica_step_spans_ms": spans},
             "quant": {"w8a16_max_abs_err": err_q, "w8a16_max_abs_out":
                       scale_q, "w4a8": a8_4, "per_group": a8_g,
+                      "a8_scale_digests": digests,
+                      "a8_scale_proof": scale_proof,
+                      "a8_failed": a8_failed,
                       "mixed_max_abs_err": err_m, "probes": probes,
                       "per_group_forward": fwd_g,
                       "a8g_exact": exact_a8g,
@@ -6958,6 +7366,7 @@ def main() -> int:
             indent=1))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T0:.0f}s")
     print(f"[card] {smi()}")
+    a8_verdict()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -414,6 +414,11 @@ def mixed_precision_search(graph: Graph, params: dict, calib_x, *,
     simply stops early — already-measured points stand). Activation
     scales come from one calibration pass (the probe's ranges), so
     every A≤8 trial executes the REAL int8×int8 path, not a simulation.
+
+    ``backend`` is the table the trials run on; the float reference
+    outputs and the calibration ranges run on its dispatch (``"auto"``
+    for ``"quant"``, the kernels on the card; ``"ref"`` for
+    ``QuantBackend(dispatch="ref")``, a search no kernel takes part in).
     """
     import torch
 
@@ -423,9 +428,13 @@ def mixed_precision_search(graph: Graph, params: dict, calib_x, *,
     from .quant import quantize
 
     work = copy.deepcopy(graph)
+    float_table = getattr(codegen.get_backend(backend), "dispatch",
+                          None) or "auto"
     with torch.inference_mode():
-        ref_out = codegen.generate(work, backend="auto")(params, calib_x)
-    ranges = codegen.calibrate_activation_ranges(work, params, calib_x)
+        ref_out = codegen.generate(work, backend=float_table)(params,
+                                                              calib_x)
+    ranges = codegen.calibrate_activation_ranges(work, params, calib_x,
+                                                 backend=float_table)
     quant_fwd = codegen.generate(work, backend=backend)
     candidates = [n.name for n in work.topo_order()
                   if n.op == "conv" and n.geom("groups") == 1]

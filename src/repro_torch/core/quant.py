@@ -67,6 +67,20 @@ class QTensor:
     packed: bool = False
 
     @property
+    def dtype(self) -> torch.dtype:
+        return self.q.dtype
+
+    @property
+    def nbytes_packed(self) -> int:
+        """Analytic packed size: ``n · bits / 8`` plus metadata — what
+        the stream would cost at the ideal wordlength packing."""
+        n = 1
+        for d in self.shape:
+            n *= int(d)
+        return n * self.bits // 8 + self.scale.numel() * 4 \
+            + self.zero.numel() * 4
+
+    @property
     def code_nbytes(self) -> int:
         """Measured storage of the code array as laid out (excludes
         scale/zero metadata)."""

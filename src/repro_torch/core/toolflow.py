@@ -144,6 +144,19 @@ class Accelerator:
     model: Any = None                       # source model, if compiled from one
     executor_backend: Any = None            # forward's default lowering table
 
+    def summary(self) -> dict:
+        """The design report in the paper's Table III form."""
+        return {
+            "name": self.name,
+            "device": self.device.name,
+            "w_bits": self.w_bits, "a_bits": self.a_bits,
+            **{k: round(v, 4) if isinstance(v, float) else v
+               for k, v in self.report.items()},
+            "buffers_offchip": self.buffer_plan.n_offchip,
+            "offchip_buffer_bw_gbps":
+                round(self.buffer_plan.offchip_bw * 8 / 1e9, 3),
+        }
+
 
 def place(params: dict, device) -> dict:
     """A copy of ``params`` (tensors and QTensors) on ``device``."""

@@ -207,6 +207,15 @@ def qmatmul_a8(x: torch.Tensor, wq: torch.Tensor, scale, zero, x_scale,
 
         x @ w ≈ scale·((xq·s_k) @ wq) + (zero·scale)·Σ_k xq_k·s_k
 
+    Both sums over k run in float64, where every product xq_k·s_k·wq_k
+    is exact and the sum's error is far below a float32 ulp, and are
+    rounded to float32 once: the exact sums' float32 value, which the
+    grouped kernel's float32 fold of exact int32 block sums lands within
+    a few ulps of. (A float32 GEMM over the K products rounds K
+    times and lands further off, so codes that the next layer quantizes
+    would round the other way because of this version, not the kernel.)
+    The affine correction is float32, as above.
+
     Returns float32 (the caller owns the cast)."""
     fn = activation(act)
     if isinstance(x_scale, (int, float)):
@@ -219,9 +228,9 @@ def qmatmul_a8(x: torch.Tensor, wq: torch.Tensor, scale, zero, x_scale,
     xq = x if not x.is_floating_point() else quantize_activation(
         x, sk if per_k else x_scale)
     if per_k:
-        xs = xq.to(torch.float32) * sk.reshape(1, -1)
-        acc = xs @ wq.to(torch.float32)
-        xsum = xs.sum(dim=1, keepdim=True)
+        xs = xq.to(torch.float64) * sk.to(torch.float64).reshape(1, -1)
+        acc = (xs @ wq.to(torch.float64)).to(torch.float32)
+        xsum = xs.sum(dim=1, keepdim=True).to(torch.float32)
         y = acc * scale + xsum * (zero * scale)
     else:
         acc = int_matmul(xq, wq)

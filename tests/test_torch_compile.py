@@ -146,3 +146,18 @@ def test_unfused_executor_matches_jax_ref(pair):
             params_from_numpy(p, device="cpu"), torch.from_numpy(x))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+def test_accelerator_summary_matches_jax(pair):
+    """``Accelerator.summary()``, the design report in the paper's Table
+    III form (``examples/quickstart.py`` prints it), equals the JAX
+    package's: the same keys, floats to 1e-9, the rest equal."""
+    js, ts = pair["jacc"].summary(), pair["tacc"].summary()
+    assert list(ts) == list(js)
+    for k, v in js.items():
+        if isinstance(v, float):
+            assert ts[k] == pytest.approx(v, rel=1e-9, abs=1e-12), k
+        else:
+            assert ts[k] == v, k
+    assert ts["name"] == pair["tacc"].name
+    assert ts["buffers_offchip"] == pair["tacc"].buffer_plan.n_offchip

@@ -20,7 +20,9 @@ front (bytes equal, deltas within rtol 2e-3), and quantized serving
 through ``Deployment`` and the ``DetectionEngine`` shim must match.
 """
 import copy
+import importlib.util
 import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -366,6 +368,70 @@ def test_compile_mixed_float_design_runs_the_kernels(chains):
     for a, b in zip(acc.forward(torch.from_numpy(x)), want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repository root, imported by path (its
+    module level needs no card)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("bits", ("mixed@0.05", "mixed@0.2", "W4A8"))
+def test_plain_compile_design_equals_compile(chains, monkeypatch, bits):
+    """``chip_smoke.py`` makes its quant_w4a8 and mixed designs with
+    ``compile`` under ``plain_compile``: the activation ranges measured
+    on ``"ref"`` and the mixed search's trials on
+    ``QuantBackend(dispatch="ref")``, whatever ``compile`` passes. On the
+    CPU, where the defaults run the plain versions too, that is
+    ``compile``'s own design: the same report (assignment, front,
+    accuracy probe) and every node's attributes (wordlengths, activation
+    scales) equal. Both functions are handed the plain tables and are
+    restored after. ``mixed@0.05`` is W8A16 throughout, ``mixed@0.2``
+    and ``W4A8`` write four scales."""
+    _, tg, p, _ = chains
+    cs = _chip_smoke()
+    cfg = tcore.CompileConfig(bits="mixed", accuracy_budget=float(
+        bits[6:]), device=TDEV) if bits.startswith("mixed") \
+        else tcore.CompileConfig(backend="quant", w_bits=4, a_bits=8,
+                                 device=TDEV)
+
+    def design():
+        return tcore.compile(tg, cfg,
+                             params=params_from_numpy(p, device="cpu"),
+                             torch_device="cpu")
+    want = design()
+    seen: list = []
+    calibrate, search = (tcg.calibrate_activation_scales,
+                         tdse.mixed_precision_search)
+
+    def spy_calibrate(*args, **kw):
+        seen.append(("calibrate", kw.get("backend")))
+        return calibrate(*args, **kw)
+
+    def spy_search(*args, **kw):
+        seen.append(("search", kw.get("backend")))
+        return search(*args, **kw)
+    monkeypatch.setattr(tcg, "calibrate_activation_scales", spy_calibrate)
+    monkeypatch.setattr(tdse, "mixed_precision_search", spy_search)
+    table = tcg.QuantBackend(name="quant_ref", dispatch="ref")
+    with cs.plain_compile(tcg, tdse, table):
+        got = design()
+    assert tcg.calibrate_activation_scales is spy_calibrate
+    assert tdse.mixed_precision_search is spy_search
+    if bits == "W4A8":
+        assert seen == [("calibrate", "ref")]
+    else:                           # the search's trials, then compile's
+        assert seen[0] == ("search", table) and len(seen) > 2
+        assert set(seen[1:]) == {("calibrate", "ref")}
+    assert got.report == want.report
+    scaled = 0
+    for name, node in want.graph.nodes.items():
+        assert got.graph.nodes[name].attrs == node.attrs, name
+        scaled += "a_scale" in node.attrs
+    assert scaled == (0 if bits == "mixed@0.05" else 4)
 
 # --------------------------------------------------------------------------
 # serving a quantized accelerator
